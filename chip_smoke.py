@@ -22,8 +22,22 @@ result):
    extraction entry point (``extract_ava_bank``) over 2 batches, which
    returns the host bank; synthetic rows top it up to AVA scale (235 videos
    x 897 s, Poisson(2) rows per second); the bank goes to the card.  Phase B
-   runs 3 batches of the eval step with that bank.  Each kernel's launch counter is reset before the phase and must
-   read exactly its launches per forward times the batches after it.
+   runs 3 batches of the eval step with that bank.  Each kernel's launch
+   counter is reset before the phase and must read exactly its launches per
+   forward times the batches after it (no backward kernel runs).
+5. Hold each backward kernel against its plain PyTorch version at the
+   flagship train shapes (B = 8 clips x 4 boxes, T 32, crop 224), and the
+   forward attention kernel's row log-sum-exp against ``torch.logsumexp``;
+   time both, as in phase 2.
+6. One full-width f32 train step (1 clip x 4 boxes, dropout 0) on the card
+   (kernels) against the same step on the CPU (plain versions), from the
+   same params: the loss and every momentum buffer.
+7. The train phase: ``make_train_step`` of ``build_spec(flagship_cfg(),
+   'train')`` (crop 224, dropout 0.3 / 0.2, ``TPU.REMAT ''``), bf16 compute
+   with f32 master weights, 8 clips x 4 boxes of uint8 frames per step, bank
+   windows drawn from phase 4's AVA-scale device bank with a per-step
+   generator: 2 warm-up and 5 timed steps, each with its launch counts
+   checked, a finite loss, and nonzero momentum after it.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so the plain
 versions the kernels are compared with compute in full f32.
@@ -32,8 +46,8 @@ The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile DIR`` runs none of the checks: it traces
-the full-width phase-B forward with torch.profiler and writes the trace and
-the operator table to DIR (see :func:`profile_phase_b`).
+the full-width phase-B forward and then one train step with torch.profiler
+and writes the traces and operator tables to DIR (see :func:`profile`).
 """
 
 import json
@@ -47,21 +61,38 @@ import numpy as np
 SEED = 0
 B, BOXES_PER_CLIP = 16, 4
 EXTRACT_BATCHES, INFER_BATCHES = 2, 3
+TRAIN_B, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 5
 AVA_VIDEOS = 235
 TIMING_ITERS = 10
+CFG_OVERRIDES = {'NUM_GPUS': 1}
 
 KERNELS = {
     'stem_conv': dict(route='cuda', source='lfb_tpu_torch/csrc/stem_conv.cu',
                       replaces='lfb_tpu/ops/pallas_stem.py:212'),
+    'stem_conv_dw': dict(route='cuda',
+                         source='lfb_tpu_torch/csrc/stem_conv_dw.cu',
+                         replaces='lfb_tpu/ops/pallas_stem.py:322'),
     'roi_align_maxpool': dict(
         route='cuda', source='lfb_tpu_torch/csrc/roi_align_maxpool.cu',
         replaces='lfb_tpu/ops/pallas_roi_align.py:186'),
+    'roi_align_maxpool_bwd': dict(
+        route='cuda', source='lfb_tpu_torch/csrc/roi_align_maxpool.cu',
+        replaces='lfb_tpu/ops/pallas_roi_align.py:219'),
     'attention': dict(route='cuda', source='lfb_tpu_torch/csrc/attention.cu',
                       replaces='lfb_tpu/ops/pallas_attention.py:111'),
+    'attention_bwd': dict(route='cuda',
+                          source='lfb_tpu_torch/csrc/attention_bwd.cu',
+                          replaces='lfb_tpu/ops/pallas_attention.py:153'),
 }
-# Kernel launches per forward of each phase.
-PER_FORWARD = {'A': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 5},
-               'B': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 8}}
+_NO_BWD = {'stem_conv_dw': 0, 'roi_align_maxpool_bwd': 0, 'attention_bwd': 0}
+# Kernel launches per forward of each phase, and per train step.
+PER_FORWARD = {'A': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 5,
+                     **_NO_BWD},
+               'B': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 8,
+                     **_NO_BWD},
+               'train': {'stem_conv': 1, 'stem_conv_dw': 1,
+                         'roi_align_maxpool': 1, 'roi_align_maxpool_bwd': 1,
+                         'attention': 8, 'attention_bwd': 8}}
 
 
 def log(msg):
@@ -115,27 +146,35 @@ def cuda_ms(fn, iters):
 
 def compare(label, kernel_fn, plain_fn, bound, iters):
     """Kernel vs plain on the same inputs; returns (max_abs_err, ms,
-    plain_ms).  ``bound`` is relative to max |plain|."""
+    plain_ms).  ``bound`` is relative to max |plain|; a function that
+    returns a tuple (dq, dk, dv) is held output by output, each to its own
+    max |plain|."""
     import torch
-    got = kernel_fn()
-    ref = plain_fn()
+    got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
-    got, ref = got.float(), ref.float()
-    if got.shape != ref.shape or not torch.isfinite(got).all():
-        raise AssertionError('{}: shape {} vs {} or non-finite output'.format(
-            label, tuple(got.shape), tuple(ref.shape)))
-    err = (got - ref).abs().max().item()
-    scale = max(ref.abs().max().item(), 1e-30)
+    if not isinstance(got, tuple):
+        got, ref = (got,), (ref,)
+    err = rel = 0.0
+    for a, b in zip(got, ref, strict=True):
+        a, b = a.float(), b.float()
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError('{}: shape {} vs {} or non-finite '
+                                 'output'.format(label, tuple(a.shape),
+                                                 tuple(b.shape)))
+        e = (a - b).abs().max().item()
+        err = max(err, e)
+        rel = max(rel, e / max(b.abs().max().item(), 1e-30))
+    del got, ref
     ms, plain_ms = [], []
     for _ in range(max(iters, 1)):   # in turns: kernel, plain
         ms.append(cuda_ms(kernel_fn, 1))
         plain_ms.append(cuda_ms(plain_fn, 1))
     ms, plain_ms = statistics.median(ms), statistics.median(plain_ms)
     log('{}: max_abs_err {:.3e}, rel {:.3e} (bound {:.0e}); kernel {:.4f} ms, '
-        'plain {:.4f} ms'.format(label, err, err / scale, bound, ms, plain_ms))
-    if not err <= bound * scale:
-        raise AssertionError('{}: error {:.3e} above {:.0e} x max|ref| '
-                             '{:.3e}'.format(label, err, bound, scale))
+        'plain {:.4f} ms'.format(label, err, rel, bound, ms, plain_ms))
+    if not rel <= bound:
+        raise AssertionError('{}: error {:.3e} of max|ref|, above {:.0e}'.format(
+            label, rel, bound))
     return err, ms, plain_ms
 
 
@@ -168,7 +207,7 @@ def check_kernels(iters=TIMING_ITERS):
     results['stem_conv'] = compare(
         'stem_conv x{} bf16'.format(tuple(x.shape)),
         lambda: cuda_stem.stem_conv(x, w, temporal_pad=2),
-        lambda: cuda_stem.stem_conv_plain(x, w, 2), 1e-2, iters)
+        lambda: cuda_stem.stem_conv_plain(x, w, 2), 1e-2, iters) + ('1e-2',)
     del x
 
     fmap = torch.relu(torch.randn((B, 16, 16, 2048), generator=g, device=dev))
@@ -177,7 +216,8 @@ def check_kernels(iters=TIMING_ITERS):
         'roi_align_maxpool fmap{} rois{} f32'.format(tuple(fmap.shape),
                                                      tuple(rois.shape)),
         lambda: cuda_roi_align.roi_align_maxpool(fmap, rois),
-        lambda: cuda_roi_align.roi_align_maxpool_plain(fmap, rois), 1e-5, iters)
+        lambda: cuda_roi_align.roi_align_maxpool_plain(fmap, rois), 1e-5,
+        iters) + ('1e-5',)
 
     # (label, B, Nq, Nk, C, dtype, calls per phase-B forward)
     regimes = [('res3 NL', 64, 4096, 1024, 256, torch.bfloat16, 2),
@@ -196,7 +236,7 @@ def check_kernels(iters=TIMING_ITERS):
         err, ms, plain_ms = max(err, e), ms + calls * m, plain_ms + calls * pm
     log('attention, the 8 calls of one phase-B forward: kernel {:.3f} ms, '
         'plain {:.3f} ms'.format(ms, plain_ms))
-    results['attention'] = (err, ms, plain_ms)
+    results['attention'] = (err, ms, plain_ms, '1e-5 f32, 1e-2 bf16')
     return results
 
 
@@ -221,7 +261,7 @@ def perturbed_params(spec, device):
 
 
 def make_batch(spec, rng, device, *, n_clips=B, boxes=BOXES_PER_CLIP,
-               with_lfb=False):
+               with_lfb=False, with_labels=False):
     import torch
     crop, t = spec.crop_size, spec.video_length
     n = n_clips * boxes
@@ -236,6 +276,9 @@ def make_batch(spec, rng, device, *, n_clips=B, boxes=BOXES_PER_CLIP,
     if with_lfb:
         batch['lfb'] = np.abs(rng.standard_normal(
             (n, spec.fbo.num_lfb_feat, 2048), np.float32)) * 0.5
+    if with_labels:
+        batch['labels'] = (rng.random((n, spec.num_classes)) < 0.1).astype(
+            np.float32)
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
@@ -302,18 +345,35 @@ def timed(batches, stamps):
     stamps.append(time.perf_counter())
 
 
+def counters():
+    """Kernel name -> (wrapper module, name of its launch counter)."""
+    from lfb_tpu_torch.ops import cuda_attention, cuda_roi_align, cuda_stem
+    return {'stem_conv': (cuda_stem, 'LAUNCHES'),
+            'stem_conv_dw': (cuda_stem, 'DW_LAUNCHES'),
+            'roi_align_maxpool': (cuda_roi_align, 'LAUNCHES'),
+            'roi_align_maxpool_bwd': (cuda_roi_align, 'BWD_LAUNCHES'),
+            'attention': (cuda_attention, 'LAUNCHES'),
+            'attention_bwd': (cuda_attention, 'BWD_LAUNCHES')}
+
+
+def reset_launches():
+    for module, counter in counters().values():
+        setattr(module, counter, 0)
+
+
+def read_launches():
+    return {name: getattr(module, counter)
+            for name, (module, counter) in counters().items()}
+
+
 def run_phase(label, fn, batches, per_forward):
     """Call ``fn`` on the batches (through :func:`timed`) with every launch
     counter at 0 just before and read just after; check the counters.
     Returns (ms per batch after the first, fn's result, launches)."""
-    from lfb_tpu_torch.ops import cuda_attention, cuda_roi_align, cuda_stem
-    modules = {'stem_conv': cuda_stem, 'roi_align_maxpool': cuda_roi_align,
-               'attention': cuda_attention}
     stamps = []
-    for mod in modules.values():
-        mod.LAUNCHES = 0
+    reset_launches()
     result = fn(timed(batches, stamps))
-    launches = {name: mod.LAUNCHES for name, mod in modules.items()}
+    launches = read_launches()
     ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     want = {name: n * len(batches) for name, n in per_forward.items()}
     log('phase {}: launches {} (want {}); ms per batch {}'.format(
@@ -381,7 +441,7 @@ def main_path(cfg):
     log('two-phase: {:.1f} clips/s (each clip once per phase); peak device '
         'memory {:.2f} GiB'.format(2 * B / ((ms_a + ms_b) / 1e3),
                                   torch.cuda.max_memory_allocated() / 2 ** 30))
-    return {k: launches_a[k] + launches_b[k] for k in launches_a}
+    return {k: launches_a[k] + launches_b[k] for k in launches_a}, bank
 
 
 def busy_us(intervals, t0, t1):
@@ -396,44 +456,233 @@ def busy_us(intervals, t0, t1):
     return busy
 
 
-def profile_phase_b(cfg, out_dir, forwards=3):
-    """``--profile DIR``: the phase-B forward at full width under
-    torch.profiler.  Two warm-ups, then ``forwards`` batches untimed by the
-    profiler (host clock), then the same batches traced.  Writes the Chrome
-    trace and the operator table to DIR, and prints, from the traced window
-    alone, device time per kernel and the device's idle share: 1 - (union of
-    the card's kernel, copy and memset intervals) / (the window on the host
-    clock, from the first forward's launch to the card's last work)."""
-    import pathlib
+def check_backward_kernels(iters=TIMING_ITERS):
+    """Phase 5: each backward kernel vs its plain version at the flagship
+    train shapes (B = 8 clips x 4 boxes, T 32, crop 224), and the forward
+    attention kernel's row log-sum-exp vs ``torch.logsumexp``.
+
+    Bounds, relative to max |plain| of each output: attention 1e-5 in f32
+    and 1e-2 in bf16 (both sides form f32 gradients from the same inputs, in
+    other orders); lse 1e-5; RoI 1e-5 (f32 sums of at most 16 x 4 terms per
+    bin and box); stem dW 1e-2 (cuDNN's bf16 weight gradient rounds its
+    output to bf16, the kernel keeps its f32 sum).
+    """
+    import torch
+    from lfb_tpu_torch.ops import cuda_attention, cuda_roi_align, cuda_stem
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rng = np.random.default_rng(SEED + 4)
+    n = TRAIN_B * BOXES_PER_CLIP
+    results = {}
+
+    x = torch.randint(0, 256, (TRAIN_B, 32, 224, 224, 3), generator=g,
+                      device=dev)
+    x = ((x.float() / 255 - 0.45) / 0.225).to(torch.bfloat16)
+    dy = torch.randn((TRAIN_B, 32, 112, 112, 64), generator=g,
+                     device=dev).to(torch.bfloat16)
+    results['stem_conv_dw'] = compare(
+        'stem_conv_dw x{} dOut{} bf16'.format(tuple(x.shape), tuple(dy.shape)),
+        lambda: cuda_stem.stem_conv_dw(x, dy, 5),
+        lambda: cuda_stem.stem_conv_dw_plain(x, dy, 5), 1e-2,
+        iters) + ('1e-2',)
+    del x, dy
+
+    fmap = torch.relu(torch.randn((TRAIN_B, 14, 14, 2048), generator=g,
+                                  device=dev))
+    rois = torch.from_numpy(rand_rois(rng, TRAIN_B, BOXES_PER_CLIP,
+                                      224)).to(dev)
+    dout = torch.randn((n, 2048), generator=g, device=dev)
+    results['roi_align_maxpool_bwd'] = compare(
+        'roi_align_maxpool_bwd fmap{} rois{} f32'.format(tuple(fmap.shape),
+                                                         tuple(rois.shape)),
+        lambda: cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout),
+        lambda: cuda_roi_align.roi_align_maxpool_bwd_plain(fmap, rois, dout),
+        1e-5, iters) + ('1e-5',)
+    del fmap
+
+    # (label, B, Nq, Nk, C, dtype, calls per train step)
+    regimes = [('res3 NL', 32, 3136, 784, 256, torch.bfloat16, 2),
+               ('res4 NL', 8, 3136, 784, 512, torch.bfloat16, 3),
+               ('FBO-NL', n, 1, 300, 512, torch.float32, 3)]
+    err, ms, plain_ms = 0.0, 0.0, 0.0
+    for label, b, nq, nk, c, dtype, calls in regimes:
+        q, k, v, do = (torch.randn((b, m, c), generator=g, device=dev).to(dtype)
+                       for m in (nq, nk, nk, nq))
+        scale = c ** -0.5
+        out, lse = cuda_attention.fused_attention_lse(q, k, v, scale=scale)
+        ref_lse = torch.logsumexp(
+            torch.matmul(q.float(), k.float().transpose(1, 2)) * scale, dim=-1)
+        lse_rel = ((lse - ref_lse).abs().max() / ref_lse.abs().max()).item()
+        log('attention lse {}: rel err {:.3e} vs torch.logsumexp (bound '
+            '1e-05)'.format(label, lse_rel))
+        if not lse_rel <= 1e-5:
+            raise AssertionError('attention lse {}: {:.3e}'.format(label,
+                                                                  lse_rel))
+        delta = (do.float() * out.float()).sum(-1)
+        e, m, pm = compare(
+            'attention_bwd {} q{} k{} {}'.format(
+                label, (b, nq, c), (b, nk, c), str(dtype).split('.')[-1]),
+            lambda: cuda_attention.fused_attention_bwd(q, k, v, do, lse, delta,
+                                                       scale=scale),
+            lambda: cuda_attention.attention_bwd_plain(q, k, v, do, lse, delta,
+                                                       scale),
+            1e-2 if dtype == torch.bfloat16 else 1e-5, iters)
+        err, ms, plain_ms = max(err, e), ms + calls * m, plain_ms + calls * pm
+    log('attention_bwd, the 8 calls of one train step: kernel {:.3f} ms, '
+        'plain {:.3f} ms'.format(ms, plain_ms))
+    results['attention_bwd'] = (err, ms, plain_ms, '1e-5 f32, 1e-2 bf16')
+    return results
+
+
+def train_reference_check(cfg):
+    """Phase 6: one full-width f32 train step (1 clip x 4 boxes, T 32, crop
+    224, dropout 0) on the card (kernels) against the same step on the CPU
+    (plain versions), from the same params and batch.
+
+    Bounds, relative to the largest CPU value of each tensor: the loss 1e-4;
+    each momentum buffer (after one step, lr times the gradient) 1e-3 for
+    the FBO, classifier and res5 params and 2e-2 upstream (conv1, res2-res4,
+    the backbone's non-local blocks).  Sums in other orders through 101
+    layers can flip a near-zero ReLU gate in the backbone, which moves the
+    gradients upstream of it (ROADMAP queue 3, "not faults").  A ``*_phi_b``
+    buffer is held to the scale of its ``*_phi_w`` buffer: the softmax over
+    the keys does not change when every key moves by the same vector, so
+    that bias's exact gradient is zero and what both sides hold is rounding.
+    """
+    import torch
+    from lfb_tpu_torch.config import flagship_cfg
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.train import optimizer
+    from lfb_tpu_torch.train.optimizer import get_lr_at_iter
+    from lfb_tpu_torch.train.steps import make_train_step, split_params
+    spec = build_spec(flagship_cfg({
+        **CFG_OVERRIDES, 'TPU.COMPUTE_DTYPE': 'float32',
+        'TRAIN.DROPOUT_RATE': 0.0, 'FBO_NL.DROPOUT_RATE': 0.0}), 'train')
+    params = perturbed_params(spec, torch.device('cuda'))
+    batch = make_batch(spec, np.random.default_rng(SEED + 5), 'cuda',
+                       n_clips=1, with_lfb=True, with_labels=True)
+    lr = get_lr_at_iter(cfg.SOLVER, 0)
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        p = {k: v.to(device, copy=True) for k, v in params.items()}
+        trainable, frozen = split_params(spec, p)
+        state = optimizer.init_state(p, set(frozen))
+        t0 = time.perf_counter()
+        _, _, state, aux = make_train_step(spec, cfg.SOLVER)(
+            trainable, frozen, state,
+            {k: v.to(device) for k, v in batch.items()},
+            torch.Generator(device=device).manual_seed(SEED), lr)
+        loss = aux['loss'].item()
+        runs[device] = (loss, {k: v.cpu() for k, v in state.momentum.items()},
+                        time.perf_counter() - t0)
+    (gpu_loss, gpu_m, gpu_s), (cpu_loss, cpu_m, cpu_s) = runs['cuda'], runs['cpu']
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    log('train reference: loss card {:.7f} CPU {:.7f}, rel {:.3e} (bound '
+        '1e-04); card {:.1f} s (first step), CPU {:.1f} s'.format(
+            gpu_loss, cpu_loss, loss_rel, gpu_s, cpu_s))
+    worst = {True: (0.0, ''), False: (0.0, '')}
+    for name, ref in cpu_m.items():
+        got = gpu_m[name]
+        if not torch.isfinite(got).all():
+            raise AssertionError('train reference: non-finite ' + name)
+        scale = ref.abs().max().item()
+        if name.endswith('_phi_b'):
+            scale = max(scale, cpu_m[name[:-1] + 'w'].abs().max().item())
+        rel = ((got - ref).abs().max() / max(scale, 1e-30)).item()
+        # Downstream of the backbone's ReLU gates: FBO, classifier, res5.
+        group = (name.startswith(('pred_', 'lfb_', 'res5_'))
+                 or '_fbonl_reduc' in name)
+        worst[group] = max(worst[group], (rel, name))
+    bounds = {True: 1e-3, False: 2e-2}
+    for group, label in ((True, 'FBO, classifier, res5'),
+                         (False, 'conv1, res2-res4, non-local')):
+        rel, name = worst[group]
+        log('train reference momentum, {}: worst rel err {:.3e} ({}; bound '
+            '{:.0e})'.format(label, rel, name, bounds[group]))
+    if not (loss_rel <= 1e-4 and worst[True][0] <= bounds[True]
+            and worst[False][0] <= bounds[False]):
+        raise AssertionError('train reference check failed')
+
+
+def train_phase(cfg, bank):
+    """Phase 7: the flagship train step at B = 8 clips x 4 boxes with the
+    AVA-scale device bank; returns the launch counts of its steps."""
+    import torch
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.train import optimizer
+    from lfb_tpu_torch.train.optimizer import get_lr_at_iter
+    from lfb_tpu_torch.train.steps import make_train_step, split_params
+    dev = torch.device('cuda')
+    spec = build_spec(cfg, 'train')
+    log('train spec: crop {}, T {}, dropout {} / FBO {}, {}'.format(
+        spec.crop_size, spec.video_length, spec.dropout_rate,
+        spec.fbo.dropout_rate, spec.compute_dtype))
+    params = perturbed_params(spec, dev)
+    trainable, frozen = split_params(spec, params)
+    state = optimizer.init_state(params, set(frozen))
+    step = make_train_step(spec, cfg.SOLVER, bank=bank)
+    rng = np.random.default_rng(SEED + 6)
+    batches = [make_batch(spec, rng, dev, n_clips=TRAIN_B, with_labels=True)
+               for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    stamps, losses = [], []
+    for i, batch in enumerate(timed(batches, stamps)):
+        before = read_launches()
+        trainable, frozen, state, aux = step(
+            trainable, frozen, state, batch,
+            torch.Generator(device=dev).manual_seed(SEED + i),
+            get_lr_at_iter(cfg.SOLVER, i))
+        after = read_launches()
+        per_step = {k: after[k] - before[k] for k in after}
+        if per_step != PER_FORWARD['train']:
+            raise AssertionError('train step {}: launches {} != {}'.format(
+                i, per_step, PER_FORWARD['train']))
+        losses.append(aux['loss'].item())
+        prob = aux['prob']
+        if not np.isfinite(losses[-1]) or tuple(prob.shape) != (
+                TRAIN_B * BOXES_PER_CLIP, spec.num_classes):
+            raise AssertionError('train step {}: loss {} prob {}'.format(
+                i, losses[-1], tuple(prob.shape)))
+        for name in ('conv1_w', 'pred_w', 'lfb_nl2_out_w'):
+            if not state.momentum[name].any():
+                raise AssertionError('train step {}: zero momentum for '
+                                     '{}'.format(i, name))
+    launches = read_launches()
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    steady = statistics.mean(ms[TRAIN_WARMUP:])
+    log('train: launches per step {}; losses {}'.format(
+        PER_FORWARD['train'], ['{:.5f}'.format(x) for x in losses]))
+    log('train: ms per step {}; {:.1f} ms per step over the {} timed steps, '
+        '{:.2f} clips/s; peak device memory {:.2f} GiB'.format(
+            ['{:.1f}'.format(m) for m in ms], steady, TRAIN_STEPS,
+            TRAIN_B / (steady / 1e3),
+            torch.cuda.max_memory_allocated() / 2 ** 30))
+    return launches
+
+
+def trace_window(label, run, count, out, stem):
+    """Run ``run(i)`` for i < ``count`` on the host clock, then the same
+    under torch.profiler; write the Chrome trace and the operator table to
+    ``out`` and print, from the traced window alone, device time per kernel
+    and the device's idle share: 1 - (union of the card's kernel, copy and
+    memset intervals) / (the window on the host clock, from the first
+    launch to the card's last work)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
-    from lfb_tpu_torch.bank.device_bank import build_device_bank
-    from lfb_tpu_torch.models.spec import build_spec
-    from lfb_tpu_torch.train.steps import make_eval_step
-    out = pathlib.Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    dev = torch.device('cuda')
-    spec_b = build_spec(cfg, 'test')
-    params = perturbed_params(spec_b, dev)
-    rng = np.random.default_rng(SEED + 3)
-    bank = build_device_bank(cfg, synthetic_host_bank({}, rng), device=dev)
-    infer = make_eval_step(spec_b, bank=bank, bank_seed=SEED)
-    batches = [make_batch(spec_b, rng, dev) for _ in range(forwards)]
-    for batch in batches[:2]:
-        infer(params, batch)
     stamps = []
-    for batch in timed(batches, stamps):
-        infer(params, batch)
-    plain_ms = (stamps[-1] - stamps[0]) * 1e3 / forwards
+    for i in timed(range(count), stamps):
+        run(i)
+    plain_ms = (stamps[-1] - stamps[0]) * 1e3 / count
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function('traced_window'):
-            for batch in batches:
-                infer(params, batch)
+            for i in range(count):
+                run(i)
             torch.cuda.synchronize()
-    trace_path = out / 'phase_b_trace.json'
+    trace_path = out / '{}_trace.json'.format(stem)
     prof.export_chrome_trace(str(trace_path))
-    (out / 'phase_b_ops.txt').write_text(prof.key_averages().table(
+    (out / '{}_ops.txt'.format(stem)).write_text(prof.key_averages().table(
         sort_by='self_cuda_time_total', row_limit=60))
     events = [e for e in json.loads(trace_path.read_text())['traceEvents']
               if e.get('ph') == 'X']
@@ -447,14 +696,61 @@ def profile_phase_b(cfg, out_dir, forwards=3):
     per_name = {}
     for e in device:
         per_name[e['name']] = per_name.get(e['name'], 0.0) + e['dur']
-    log('profile, phase B at B = {}: untraced {:.1f} ms per forward; traced '
-        'window {:.1f} ms per forward, device busy {:.1f} ms per forward, '
-        'idle share {:.4f}'.format(B, plain_ms, (t1 - t0) / 1e3 / forwards,
-                                   busy / 1e3 / forwards, 1 - busy / (t1 - t0)))
+    log('profile, {}: untraced {:.1f} ms each; traced window {:.1f} ms each, '
+        'device busy {:.1f} ms each, idle share {:.4f}'.format(
+            label, plain_ms, (t1 - t0) / 1e3 / count, busy / 1e3 / count,
+            1 - busy / (t1 - t0)))
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:15]:
-        log('  {:8.3f} ms per forward {:5.1f}%  {}'.format(
-            us / 1e3 / forwards, 100 * us / busy, name[:100]))
-    log('wrote {} and {}'.format(trace_path, out / 'phase_b_ops.txt'))
+        log('  {:8.3f} ms each {:5.1f}%  {}'.format(
+            us / 1e3 / count, 100 * us / busy, name[:100]))
+    log('wrote {} and {}'.format(trace_path, out / '{}_ops.txt'.format(stem)))
+
+
+def profile(cfg, out_dir, forwards=3):
+    """``--profile DIR``: the full-width phase-B forward (two warm-ups, then
+    ``forwards`` batches) and then the train step at B = 8 (two warm-ups,
+    then one step) with the same device bank, each through
+    :func:`trace_window`."""
+    import pathlib
+    import torch
+    from lfb_tpu_torch.bank.device_bank import build_device_bank
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.train import optimizer
+    from lfb_tpu_torch.train.optimizer import get_lr_at_iter
+    from lfb_tpu_torch.train.steps import (make_eval_step, make_train_step,
+                                           split_params)
+    out = pathlib.Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    dev = torch.device('cuda')
+    spec_b = build_spec(cfg, 'test')
+    params = perturbed_params(spec_b, dev)
+    rng = np.random.default_rng(SEED + 3)
+    bank = build_device_bank(cfg, synthetic_host_bank({}, rng), device=dev)
+    infer = make_eval_step(spec_b, bank=bank, bank_seed=SEED)
+    batches = [make_batch(spec_b, rng, dev) for _ in range(forwards)]
+    for batch in batches[:2]:
+        infer(params, batch)
+    trace_window('phase B at B = {}'.format(B),
+                 lambda i: infer(params, batches[i]), forwards, out, 'phase_b')
+    del params, batches
+
+    spec = build_spec(cfg, 'train')
+    params = perturbed_params(spec, dev)
+    trainable, frozen = split_params(spec, params)
+    state = optimizer.init_state(params, set(frozen))
+    step = make_train_step(spec, cfg.SOLVER, bank=bank)
+    batches = [make_batch(spec, rng, dev, n_clips=TRAIN_B, with_labels=True)
+               for _ in range(3)]
+
+    def train(i):
+        step(trainable, frozen, state, batches[i],
+             torch.Generator(device=dev).manual_seed(SEED + i),
+             get_lr_at_iter(cfg.SOLVER, i))
+
+    for i in range(2):
+        train(i)
+    trace_window('train step at B = {}'.format(TRAIN_B),
+                 lambda i: train(2 + i), 1, out, 'train_step')
 
 
 def main():
@@ -462,24 +758,29 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
         '--profile', metavar='DIR',
-        help='instead of the checks, trace the full-width phase-B forward '
-             'and write the trace and operator table to DIR')
+        help='instead of the checks, trace the full-width phase-B forward and '
+             'a train step and write the traces and operator tables to DIR')
     args = parser.parse_args()
     preamble()
     import torch
     from lfb_tpu_torch.config import flagship_cfg
+    cfg = flagship_cfg(CFG_OVERRIDES)
     if args.profile:
-        profile_phase_b(flagship_cfg({'NUM_GPUS': 1}), args.profile)
+        profile(cfg, args.profile)
         return
     results = check_kernels()
-    cfg = flagship_cfg({'NUM_GPUS': 1})
     reference_check(cfg)
-    launches = main_path(cfg)
+    launches, bank = main_path(cfg)
+    results.update(check_backward_kernels())
+    train_reference_check(cfg)
+    train_launches = train_phase(cfg, bank)
     kernels = []
     for name, meta in KERNELS.items():
-        err, ms, plain_ms = results[name]
-        kernels.append({'name': name, **meta, 'launches': launches[name],
-                        'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms})
+        err, ms, plain_ms, bound = results[name]
+        kernels.append({'name': name, **meta,
+                        'launches': launches[name] + train_launches[name],
+                        'bound': bound, 'max_abs_err': err, 'ms': ms,
+                        'plain_ms': plain_ms})
     print(card_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -5,28 +5,35 @@
 (Cout, Cin/g, kT, kH, kW) and (Cout, Cin).  The names are the Caffe2 blob
 names in both, so a released ``.pkl`` loads through
 ``lfb_tpu.train.checkpoints.load_params_into`` followed by
-:func:`params_from_jax`.
+:func:`params_from_jax`.  An optimizer state (``lfb_tpu``'s or the port's
+``SGDState``) converts too: its momentum buffers have the params' names and
+layouts.
 """
 
 from __future__ import annotations
-
-from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
 from lfb_tpu.train.checkpoints import tpu_to_c2
+from lfb_tpu_torch.train.optimizer import SGDState
 
 
-def params_from_jax(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """``lfb_tpu`` params (numpy arrays) -> the port's f32 params."""
+def params_from_jax(params):
+    """``lfb_tpu`` params (numpy arrays) -> the port's f32 params; an
+    ``SGDState`` -> the port's ``SGDState`` with converted momentum."""
+    if hasattr(params, 'momentum'):
+        return SGDState(momentum=params_from_jax(params.momentum))
     return {name: torch.tensor(tpu_to_c2(name, np.asarray(value)))
             for name, value in params.items()}
 
 
-def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+def params_to_jax(params):
     """Inverse of :func:`params_from_jax`: numpy arrays in ``lfb_tpu``'s
-    layout."""
+    layout; an ``SGDState`` gives an ``SGDState`` of numpy momentum, which
+    ``lfb_tpu.train.optimizer`` reads as its own (same field)."""
+    if isinstance(params, SGDState):
+        return SGDState(momentum=params_to_jax(params.momentum))
     out = {}
     for name, value in params.items():
         a = value.detach().to('cpu', torch.float32).numpy()

@@ -1,7 +1,9 @@
 // Fused softmax attention, forward: out = softmax(q k^T * scale) v over
 // (B, Nq, C) queries and (B, Nk, C) keys/values, no mask (padded bank rows
 // take part in the softmax, as in the reference).  Math in f32, output in the
-// input type.  Replaces lfb_tpu/ops/pallas_attention.py:_attn_kernel.
+// input type.  Replaces lfb_tpu/ops/pallas_attention.py:_attn_kernel.  Given
+// a non-null `lse`, it also writes the f32 row log-sum-exp (B, Nq) of the
+// scaled logits, which the backward kernels (attention_bwd.cu) read.
 //
 // Two launch shapes:
 //  * attn_tiled_kernel -- the in-backbone non-local blocks (Nq, Nk in the
@@ -34,8 +36,8 @@ constexpr int kMaxCols = kMaxC / 32;         // O columns per lane
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attn_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out, int Nq, int Nk,
-                  int C, float scale) {
+                  const T* __restrict__ v, T* __restrict__ out,
+                  float* __restrict__ lse, int Nq, int Nk, int C, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ldkv = C + 4;           // float4-aligned rows, conflict-free reads
   float* sQ = smem;                 // kTQ x C
@@ -146,6 +148,8 @@ attn_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + r0 + i;
     if (r >= Nq) continue;
     const float inv = 1.f / l[i];
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)b * Nq + r] = m[i] + logf(l[i]);
     T* orow = out + ((size_t)b * Nq + r) * C + lane;
 #pragma unroll
     for (int j = 0; j < kMaxCols; ++j) {
@@ -172,8 +176,8 @@ __device__ float block_reduce(float v, float* red) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ out, int Nk, int C,
-                   float scale) {
+                   const T* __restrict__ v, T* __restrict__ out,
+                   float* __restrict__ lse, int Nk, int C, float scale) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[kWarps];
   float* sq = smem;        // C
@@ -209,6 +213,7 @@ attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   sum = block_reduce<false>(sum, red);   // its barriers also publish sp
   const float inv = 1.f / sum;
+  if (lse != nullptr && tid == 0) lse[b] = mx + logf(sum);
 
   for (int c = tid; c < C; c += kThreads) {
     float a = 0.f;
@@ -219,26 +224,27 @@ attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Nq, int Nk, int C, float scale,
+                   void* lse, int B, int Nq, int Nk, int C, float scale,
                    cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
+  float* lp = static_cast<float*>(lse);
   if (Nq == 1) {
     const size_t smem = (size_t)(C + Nk) * sizeof(float);
     cudaError_t err = lfb::allow_smem(attn_decode_kernel<T>, smem);
     if (err != cudaSuccess) return err;
-    attn_decode_kernel<T><<<B, kThreads, smem, stream>>>(qp, kp, vp, op, Nk, C,
-                                                         scale);
+    attn_decode_kernel<T><<<B, kThreads, smem, stream>>>(qp, kp, vp, op, lp, Nk,
+                                                         C, scale);
   } else {
     const size_t smem =
         (size_t)(kTQ * C + kTK * (C + 4) + kTQ * kTK) * sizeof(float);
     cudaError_t err = lfb::allow_smem(attn_tiled_kernel<T>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((Nq + kTQ - 1) / kTQ, B);
-    attn_tiled_kernel<T><<<grid, kThreads, smem, stream>>>(qp, kp, vp, op, Nq,
-                                                           Nk, C, scale);
+    attn_tiled_kernel<T><<<grid, kThreads, smem, stream>>>(qp, kp, vp, op, lp,
+                                                           Nq, Nk, C, scale);
   }
   return cudaGetLastError();
 }
@@ -246,17 +252,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // C must be a multiple of 32 and at most 512 when Nq > 1 (checked by the
-// Python wrapper); Nq == 1 takes any C and Nk that fit shared memory.
+// Python wrapper); Nq == 1 takes any C and Nk that fit shared memory.  `lse`
+// is null (inference) or an f32 (B, Nq) buffer.
 LFB_EXPORT int lfb_attention_f32(const void* q, const void* k, const void* v,
-                                 void* out, int B, int Nq, int Nk, int C,
-                                 float scale, void* stream) {
-  return launch<float>(q, k, v, out, B, Nq, Nk, C, scale,
+                                 void* out, void* lse, int B, int Nq, int Nk,
+                                 int C, float scale, void* stream) {
+  return launch<float>(q, k, v, out, lse, B, Nq, Nk, C, scale,
                        static_cast<cudaStream_t>(stream));
 }
 
 LFB_EXPORT int lfb_attention_bf16(const void* q, const void* k, const void* v,
-                                  void* out, int B, int Nq, int Nk, int C,
-                                  float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, Nq, Nk, C, scale,
+                                  void* out, void* lse, int B, int Nq, int Nk,
+                                  int C, float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, out, lse, B, Nq, Nk, C, scale,
                                static_cast<cudaStream_t>(stream));
 }

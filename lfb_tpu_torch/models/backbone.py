@@ -10,6 +10,8 @@ blocks run per temporal group of 4 frames in affine mode (reference
 
 The modules hold no weights: each ``forward`` takes the model's flat
 parameter mapping ``p`` and reads its blobs by name.  Activations are NDHWC.
+``train`` changes nothing in frozen-affine mode (the ported one); true BN
+refuses to train (``layers.apply_norm``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from lfb_tpu_torch.models.layers import (Params, apply_norm, init_conv,
 from lfb_tpu_torch.models.spec import STAGE_DIMS, ModelSpec
 from lfb_tpu_torch.ops.attention import scaled_softmax_attention
 from lfb_tpu_torch.ops.conv3d import conv1x1, conv3d
-from lfb_tpu_torch.ops.cuda_stem import stem_conv
+from lfb_tpu_torch.ops.cuda_stem import StemConv
 from lfb_tpu_torch.ops.pooling import max_pool_3d
 
 P = Mapping[str, torch.Tensor]
@@ -112,12 +114,12 @@ class Bottleneck(nn.Module):
         self.has_branch1 = not (dim_in == dim_out and temp_stride == 1
                                 and stride == 1)
 
-    def forward(self, p: P, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, p: P, x: torch.Tensor, train: bool) -> torch.Tensor:
         spec, pre = self.spec, self.prefix
 
         def norm(name, h):
             return apply_norm(p, pre + name, h, use_affine=spec.use_affine,
-                              epsilon=spec.bn_epsilon)
+                              epsilon=spec.bn_epsilon, train=train)
 
         h = conv3d(x, p[pre + '_branch2a_w'],
                    strides=(self.temp_stride, 1, 1),
@@ -149,7 +151,7 @@ class NonLocal(nn.Module):
         self.group_num = (spec.pool_stride // spec.nl_group_size if grouped
                           else 1)
 
-    def forward(self, p: P, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, p: P, x: torch.Tensor, train: bool) -> torch.Tensor:
         B, T, H, W, C = x.shape
         g = self.group_num
         if g > 1:
@@ -159,10 +161,10 @@ class NonLocal(nn.Module):
             x_nl = x.reshape(B * g, T // g, H, W, C)
         else:
             x_nl = x
-        out = x_nl + self._attend(p, x_nl)
+        out = x_nl + self._attend(p, x_nl, train)
         return out.reshape(B, T, H, W, C) if g > 1 else out
 
-    def _attend(self, p: P, x: torch.Tensor) -> torch.Tensor:
+    def _attend(self, p: P, x: torch.Tensor, train: bool) -> torch.Tensor:
         nl, pre = self.spec.nl, self.prefix
         B, T, H, W, C = x.shape
         dim_inner = p[pre + '_theta_w'].shape[0]
@@ -180,7 +182,7 @@ class NonLocal(nn.Module):
                       p.get(pre + '_out_b'))
         if nl.use_bn or nl.use_affine:
             out = apply_norm(p, pre + '_bn', out, use_affine=nl.use_affine,
-                             epsilon=nl.bn_epsilon)
+                             epsilon=nl.bn_epsilon, train=train)
         return out
 
 
@@ -217,15 +219,16 @@ class Backbone(nn.Module):
             stages.append(nn.ModuleList(layers))
         self.stages = nn.ModuleList(stages)
 
-    def forward(self, p: P, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, p: P, x: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         spec = self.spec
-        h = stem_conv(x, p['conv1_w'], temporal_pad=self.temporal_pad)
+        h = StemConv.apply(x, p['conv1_w'], self.temporal_pad)
         h = apply_norm(p, 'res_conv1_bn', h, use_affine=spec.use_affine,
-                       epsilon=spec.bn_epsilon)
+                       epsilon=spec.bn_epsilon, train=train)
         h = max_pool_3d(F.relu(h), (1, 3, 3), (1, 2, 2), (0, 1, 1))
         for stage_i, stage in enumerate(self.stages):
             if stage_i == 1:
                 h = max_pool_3d(h, (2, 1, 1), (2, 1, 1))   # pool2: T/2
             for layer in stage:
-                h = layer(p, h)
-        return h
+                h = layer(p, h, train)
+        return h.detach() if spec.freeze_backbone else h

@@ -1,6 +1,7 @@
 """Feature Bank Operators (port of ``lfb_tpu/models/fbo.py``; reference
 ``lib/models/lfb_helper.py``): avg-pool, max-pool, and FBO-NL cross
-attention of the clip (or box) feature over its bank window, inference only.
+attention of the clip (or box) feature over its bank window, with the
+reference's three dropout sites when training.
 
 Zero-padded bank rows take part in the softmax, exactly like the reference
 (``lib/datasets/ava.py:300-323`` pads with zeros and applies no mask).
@@ -14,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lfb_tpu_torch.models.layers import Params, init_conv, layer_norm
+from lfb_tpu_torch.models.layers import Params, dropout, init_conv, layer_norm
 from lfb_tpu_torch.models.spec import ModelSpec
 from lfb_tpu_torch.ops.attention import scaled_softmax_attention
 from lfb_tpu_torch.ops.conv3d import conv1x1
@@ -62,27 +63,37 @@ def init_fbo(spec: ModelSpec, generator: torch.Generator) -> Params:
 
 class FBONL(nn.Module):
     """The FBO-NL stack: (N, 2048) clip features x (N, W, lfb_dim) bank
-    windows -> (N, latent_dim)."""
+    windows -> (N, latent_dim).  In training, dropout (FBO_NL.DROPOUT_RATE,
+    drawn from ``generator``) hits the reduced input, the projected bank and
+    each layer's output before the residual, where ``lfb_tpu`` puts it
+    (``lfb_tpu/models/fbo.py:101-107,148-150``)."""
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
         self.spec = spec
 
-    def forward(self, p: P, clip_feat: torch.Tensor,
-                lfb: torch.Tensor) -> torch.Tensor:
+    def forward(self, p: P, clip_feat: torch.Tensor, lfb: torch.Tensor,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         spec, f = self.spec, self.spec.fbo
         x = clip_feat                                     # prepare_nl_input
         if f.input_reduce_dim:
             name = fbo_input_name(spec) + '_fbonl_reduc'
             x = conv1x1(x, p[name + '_w'], p.get(name + '_b'))
+        if f.input_dropout_on and train:
+            x = dropout(x, f.dropout_rate, generator)
         bank = conv1x1(lfb, p['lfb_1x1_w'], p.get('lfb_1x1_b'))  # prepare_lfb
+        if f.lfb_dropout_on and train:
+            bank = dropout(bank, f.dropout_rate, generator)
         for i in range(f.num_layers):
-            x = _nl_core(spec, p, 'lfb_nl{}'.format(i), x, bank)
+            x = _nl_core(spec, p, 'lfb_nl{}'.format(i), x, bank, train,
+                         generator)
         return x
 
 
 def _nl_core(spec: ModelSpec, p: P, prefix: str, a: torch.Tensor,
-             bank: torch.Tensor) -> torch.Tensor:
+             bank: torch.Tensor, train: bool,
+             generator: torch.Generator | None) -> torch.Tensor:
     """One FBO-NL layer (reference ``NLCore`` + residual/activation from
     ``NLLayers``, ``lfb_helper.py:170-292``), pre-act or post-act."""
     f = spec.fbo
@@ -101,6 +112,9 @@ def _nl_core(spec: ModelSpec, p: P, prefix: str, a: torch.Tensor,
     out = conv('_out', t)
     if not f.pre_act:
         out = layer_norm(out)
+    # NLCore's dropout is gated on LFB_DROPOUT_ON (``lfb_helper.py:258-261``).
+    if f.lfb_dropout_on and train:
+        out = dropout(out, f.dropout_rate, generator)
     out = out + a
     if not f.pre_act:
         out = F.relu(out)
@@ -108,7 +122,8 @@ def _nl_core(spec: ModelSpec, p: P, prefix: str, a: torch.Tensor,
 
 
 def fbo_forward(spec: ModelSpec, p: P, clip_feat: torch.Tensor,
-                lfb: torch.Tensor) -> torch.Tensor:
+                lfb: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
     """Apply the configured FBO: (N, out_dim) bank summary to concatenate
     with the clip features (latent_dim for 'nl', lfb_dim for 'avg'/'max')."""
     if spec.fbo.fbo_type == 'avg':
@@ -117,4 +132,4 @@ def fbo_forward(spec: ModelSpec, p: P, clip_feat: torch.Tensor,
         return lfb.amax(dim=1)
     if spec.fbo.fbo_type != 'nl':
         raise ValueError('unknown LFB.FBO_TYPE {!r}'.format(spec.fbo.fbo_type))
-    return FBONL(spec)(p, clip_feat, lfb)
+    return FBONL(spec)(p, clip_feat, lfb, train, generator)

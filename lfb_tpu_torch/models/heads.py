@@ -8,7 +8,7 @@ import torch
 import torch.nn as nn
 
 from lfb_tpu_torch.models.spec import ModelSpec
-from lfb_tpu_torch.ops.cuda_roi_align import roi_align_maxpool
+from lfb_tpu_torch.ops.cuda_roi_align import RoIAlignMaxPool
 
 
 def basic_head(spec: ModelSpec, features: torch.Tensor) -> torch.Tensor:
@@ -24,7 +24,8 @@ def basic_head(spec: ModelSpec, features: torch.Tensor) -> torch.Tensor:
 
 class RoIHead(nn.Module):
     """Temporal mean (f32) -> RoIAlign(7x7, 1/16, adaptive sampling) -> 7x7
-    max -> (N, 2048) (reference ``head_helper.py:61-123``)."""
+    max -> (N, 2048) (reference ``head_helper.py:61-123``); the same in
+    training, where the features' gradient comes from the backward kernel."""
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
@@ -36,6 +37,6 @@ class RoIHead(nn.Module):
         rows [batch_idx, x1, y1, x2, y2] in input pixels (zero rows for
         padding pool a corner and are harmless)."""
         fmap = features.float().mean(dim=1)
-        return roi_align_maxpool(fmap, proposals.float().contiguous(),
-                                 pooled=self.spec.roi_resolution,
-                                 spatial_scale=self.spec.roi_spatial_scale)
+        return RoIAlignMaxPool.apply(fmap, proposals.float().contiguous(),
+                                     self.spec.roi_resolution,
+                                     self.spec.roi_spatial_scale)

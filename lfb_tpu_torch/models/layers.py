@@ -1,5 +1,5 @@
-"""Parameter initialization and inference-time norms (port of
-``lfb_tpu/models/layers.py``).
+"""Parameter initialization, frozen / inference-time norms and dropout (port
+of ``lfb_tpu/models/layers.py``).
 
 Parameters live in one flat ``{name: tensor}`` mapping keyed by the
 reference's Caffe2 blob names (``conv1_w``, ``res4_5_branch2a_bn_s``,
@@ -63,13 +63,18 @@ def init_norm(params: Params, name: str, dim: int, *, use_affine: bool,
 
 
 def apply_norm(params: Mapping[str, torch.Tensor], name: str, x: torch.Tensor,
-               *, use_affine: bool, epsilon: float) -> torch.Tensor:
+               *, use_affine: bool, epsilon: float,
+               train: bool = False) -> torch.Tensor:
     """Frozen affine (reference AffineNd) or inference-mode SpatialBN over
-    channels-last ``x``."""
+    channels-last ``x``.  The affine is the same in training (its scale and
+    bias are frozen); SpatialBN with batch statistics is not ported."""
     scale = params[name + '_s']
     bias = params[name + '_b']
     if use_affine:
         return affine_nd(x, scale, bias)
+    if train:
+        raise NotImplementedError('training with true BN (batch statistics) '
+                                  'is not ported to lfb_tpu_torch')
     inv = torch.rsqrt(params[name + '_riv'] + epsilon) * scale
     return ((x.float() - params[name + '_rm']) * inv + bias).to(x.dtype)
 
@@ -81,3 +86,17 @@ def layer_norm(x: torch.Tensor, *, epsilon: float = 1e-3) -> torch.Tensor:
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout, Caffe2 Dropout with is_test=False (as
+    ``lfb_tpu.models.layers.dropout``): keep each element with probability
+    1 - rate, drawn from ``generator``, and scale the kept ones by
+    1 / (1 - rate)."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)

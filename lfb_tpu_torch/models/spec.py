@@ -9,7 +9,8 @@ first 1x1 conv (0 -> kT=1, 1 -> kT=3, 2 -> kT=5).
 The TPU-only fields (Pallas switches, shard_map axis, remat) are gone: on
 the port a CUDA tensor always goes through the hand-written kernels and a
 CPU tensor through their plain PyTorch versions.  :func:`build_spec` raises
-``NotImplementedError`` for what the port does not run yet.
+``NotImplementedError``, naming the key, for what the port does not run
+yet.
 """
 
 from __future__ import annotations
@@ -153,16 +154,26 @@ class ModelSpec:
 
 
 def build_spec(cfg, split: str, lfb_infer_only: bool = False) -> ModelSpec:
-    """Derive an immutable ModelSpec from a finalized Config for one
-    inference phase."""
+    """Derive an immutable ModelSpec from a finalized Config for one phase
+    (the train split, unless ``lfb_infer_only``, is the training phase)."""
     is_train = split == 'train' and not lfb_infer_only
-    if is_train:
-        raise NotImplementedError('lfb_tpu_torch runs inference only: '
-                                  'training is not ported yet')
     for key in ('PALLAS_BOTTLENECK', 'SHARD_MAP', 'BANK_SHARDED'):
         if cfg.TPU[key]:
             raise NotImplementedError(
                 'TPU.{} is not ported to lfb_tpu_torch'.format(key))
+    if is_train:
+        if not cfg.MODEL.USE_AFFINE:
+            raise NotImplementedError(
+                'MODEL.USE_AFFINE False: training with true BN (batch '
+                'statistics) is not ported to lfb_tpu_torch')
+        if cfg.NONLOCAL.USE_BN and not cfg.NONLOCAL.USE_AFFINE:
+            raise NotImplementedError(
+                'NONLOCAL.USE_BN True with NONLOCAL.USE_AFFINE False: training '
+                'non-local blocks with true BN is not ported to lfb_tpu_torch')
+        if cfg.TPU.REMAT:
+            raise NotImplementedError(
+                "TPU.REMAT {!r}: rematerialization is not ported to "
+                "lfb_tpu_torch (set it to '')".format(cfg.TPU.REMAT))
     video_length = (cfg.TRAIN.VIDEO_LENGTH if split == 'train'
                     else cfg.TEST.VIDEO_LENGTH)
 
@@ -218,7 +229,7 @@ def build_spec(cfg, split: str, lfb_infer_only: bool = False) -> ModelSpec:
         freeze_backbone=cfg.MODEL.FREEZE_BACKBONE,
         video_length=video_length,
         train_video_length=cfg.TRAIN.VIDEO_LENGTH,
-        crop_size=cfg.TEST.CROP_SIZE,
+        crop_size=cfg.TRAIN.CROP_SIZE if is_train else cfg.TEST.CROP_SIZE,
         dropout_rate=cfg.TRAIN.DROPOUT_RATE,
         nl=nl,
         nl_blocks=nonlocal_placement(

@@ -7,12 +7,14 @@ and of the FBO-NL cross attention over the feature bank (reference
     p = softmax(affinity * scale, axis=-1)
     out[b, i, :] = sum_j p[b, i, j] * v[b, j, :]
 
-Zero-padded bank rows stay in the softmax, as in the reference.  On a CUDA
-tensor the plain softmax without a mask runs the fused kernel
-(:mod:`lfb_tpu_torch.ops.cuda_attention`); the mean path
-(NONLOCAL.USE_SOFTMAX False) and the masked path are other functions and
-stay plain.  On a CPU tensor every path runs :func:`_attention_plain`, which
-matches ``lfb_tpu.ops.attention._attention_xla`` in every dtype.
+Zero-padded bank rows stay in the softmax, as in the reference.  The plain
+softmax without a mask goes through
+:class:`lfb_tpu_torch.ops.cuda_attention.FusedAttention` on every device: on
+a CUDA tensor its forward and backward are the fused kernels, on a CPU
+tensor :func:`_attention_plain` (which matches
+``lfb_tpu.ops.attention._attention_xla`` in every dtype) and the backward
+kernel's plain version.  The mean path (NONLOCAL.USE_SOFTMAX False) and the
+masked path are other functions and stay plain autograd.
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ def scaled_softmax_attention(q: torch.Tensor, k: torch.Tensor,
     -1e30.  ``use_softmax=False`` is the reference's mean aggregation,
     p = affinity / Nk (``lib/models/nonlocal_helper.py:107-117``).
     """
-    if use_softmax and mask is None and q.device.type != 'cpu':
-        return cuda_attention.fused_attention(q, k, v, scale=scale)
+    if use_softmax and mask is None:
+        return cuda_attention.FusedAttention.apply(
+            q, k, v, 1.0 if scale is None else float(scale))
     return _attention_plain(q, k, v, scale=scale, mask=mask,
                             use_softmax=use_softmax)
 

@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``lfb_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds), keyed by
-a hash of the sources, under ``build/lfb_tpu_torch/`` beside the package.
-The build runs on the first CUDA call, never at import; it writes to a
-temporary name and renames, so a concurrent build never loads a partial
-file.  The library is loaded with ``ctypes`` and every launcher gets its
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` process, all
+started together, and the objects link into ONE shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds), keyed by a hash
+of the sources, under ``build/lfb_tpu_torch/`` beside the package.  The
+build runs on the first CUDA call, never at import; it writes to a temporary
+name and renames, so a concurrent build never loads a partial file.  The library is loaded with ``ctypes`` and every launcher gets its
 ``argtypes`` (``c_void_p`` for pointers and the stream).
 """
 
@@ -23,18 +23,24 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC.parent.parent / 'build' / 'lfb_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # Launcher name -> argtypes; every launcher returns a cudaError_t (int).
 SIGNATURES = {
-    'lfb_attention_f32': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    'lfb_attention_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    'lfb_attention_f32': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    'lfb_attention_bf16': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    'lfb_attention_bwd_f32': (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
+    'lfb_attention_bwd_bf16': (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
     'lfb_roi_align_maxpool': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    'lfb_roi_align_maxpool_bwd': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                  _P),
     'lfb_stem_conv_f32': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     'lfb_stem_conv_bf16': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    'lfb_stem_conv_dw_f32': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    'lfb_stem_conv_dw_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -77,17 +83,38 @@ def library_path() -> Path:
 def _build(target: Path) -> None:
     global build_log, build_seconds
     target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name('{}.{}.tmp'.format(target.name, os.getpid()))
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-           *[str(s) for s in sorted(CSRC.glob('*.cu'))]]
+    tag = '{}.{}'.format(target.stem, os.getpid())
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob('*.cu'))
+    objects = [target.with_name('{}.{}.o'.format(tag, src.stem))
+               for src in sources]
+    tmp = target.with_name('{}.so.tmp'.format(tag))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = []
+    for src, obj in zip(sources, objects):
+        cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, proc in compiles:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(' '.join(cmd))
+    if not failed:
+        link = [nvcc, '-shared', '-o', str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(' '.join(link))
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = ''.join(logs)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError('nvcc failed ({}):\n{}'.format(
-            ' '.join(cmd), build_log))
+            '; '.join(failed), build_log))
     os.replace(tmp, target)
 
 

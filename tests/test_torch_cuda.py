@@ -1,8 +1,9 @@
-"""The CUDA kernels against their plain PyTorch versions on the card, at
-edge shapes the flagship does not reach (ragged query/key tiles, small and
-non-128 channel counts, crops 224 and 320, odd sizes, border boxes), plus
-the inputs each wrapper must refuse, and a tiny whole-model forward on the
-card against the CPU.
+"""The CUDA kernels, forward and backward, against their plain PyTorch
+versions on the card, at edge shapes the flagship does not reach (ragged
+query/key tiles, small and non-128 channel counts, crops 224, 256 and 320,
+odd sizes, border, shuffled, degenerate and exactly tied boxes), plus the
+inputs each wrapper must refuse, and a tiny whole-model forward and train
+step on the card against the CPU.
 
 These tests need a CUDA device: they carry the ``cuda`` marker and skip
 without one.  On a GPU machine, from the root of a checkout:
@@ -12,7 +13,10 @@ without one.  On a GPU machine, from the root of a checkout:
 (``--noconftest``: the suite's conftest sets up JAX, which the port does not
 need.)  TF32 is off, so the plain versions compute in f32.  Bounds, relative
 to max |plain|: 1e-5 for f32 outputs, 1e-2 for bf16 outputs (each side
-rounds an f32 accumulation to bf16).
+rounds an f32 accumulation to bf16); the backward kernels' outputs are f32
+from the same inputs on both sides, 1e-5 (attention in bf16: 1e-2, the
+bound of the working type, as ``chip_smoke.py`` holds it; stem dW in f32:
+1e-4, sums of up to 51,200 products).
 """
 
 import numpy as np
@@ -40,12 +44,13 @@ def rand(shape, dev, seed=0, dtype=torch.float32):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
-def assert_close(got, ref, bound):
+def assert_close(got, ref, bound, floor=1e-30, name=''):
+    """|got - ref| <= bound * max(max |ref|, floor)."""
     torch.cuda.synchronize()
     got, ref = got.float(), ref.float()
-    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all()), name
     err = (got - ref).abs().max().item()
-    assert err <= bound * max(ref.abs().max().item(), 1e-30), err
+    assert err <= bound * max(ref.abs().max().item(), floor), (name, err)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -138,6 +143,173 @@ def test_stem_wrapper_refuses_what_the_kernel_does_not_take(dev):
         cuda_stem.stem_conv(rand((1, 4, 8, 8, 3), dev), w, temporal_pad=1)
     with pytest.raises(ValueError):                 # 4 input channels
         cuda_stem.stem_conv(rand((1, 4, 8, 8, 4), dev), w, temporal_pad=2)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,Nq,Nk,C', [
+    (2, 1, 1, 32), (3, 1, 300, 512), (2, 1, 77, 40),    # Nq = 1 launch
+    (2, 37, 19, 32), (2, 70, 130, 96), (1, 100, 65, 512), (2, 33, 1, 96),
+])
+def test_attention_bwd_kernel_matches_plain(dev, dtype, B, Nq, Nk, C):
+    q, k, v, do = (rand((B, n, C), dev, seed, dtype)
+                   for seed, n in ((0, Nq), (1, Nk), (2, Nk), (3, Nq)))
+    scale = C ** -0.5
+    out, lse = cuda_attention.fused_attention_lse(q, k, v, scale=scale)
+    ref_lse = torch.logsumexp(q.float() @ k.float().transpose(1, 2) * scale,
+                              dim=-1)
+    assert_close(lse, ref_lse, 1e-5)
+    delta = (do.float() * out.float()).sum(-1)
+    before = cuda_attention.BWD_LAUNCHES
+    got = cuda_attention.fused_attention_bwd(q, k, v, do, lse, delta,
+                                             scale=scale)
+    assert cuda_attention.BWD_LAUNCHES == before + 1
+    ref = cuda_attention.attention_bwd_plain(q, k, v, do, lse, delta, scale)
+    # With one key dq and dk are zero up to rounding: hold them to the scale
+    # of the O(1) inputs.
+    for name, a, b in zip(('dq', 'dk', 'dv'), got, ref):
+        assert a.dtype == torch.float32
+        assert_close(a, b, 1e-5 if dtype == torch.float32 else 1e-2,
+                     floor=1.0, name=name)
+
+
+def test_attention_bwd_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q = rand((2, 8, 64), dev)
+    lse = delta = torch.zeros((2, 8), device=dev)
+    ok = (q, q, q, q, lse, delta)
+    cuda_attention.fused_attention_bwd(*ok, scale=1.0)
+    for i, bad in ((3, q.bfloat16()),                     # dO in another type
+                   (4, lse[:, :4].contiguous()),          # lse (B, Nq')
+                   (5, delta.double()),                   # delta not f32
+                   (4, lse.cpu())):                       # lse on the CPU
+        args = list(ok)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            cuda_attention.fused_attention_bwd(*args, scale=1.0)
+    q1, k1 = rand((2, 1, 64), dev), rand((2, 30000, 64), dev)
+    with pytest.raises(ValueError):                 # Nq = 1, too many keys
+        cuda_attention.fused_attention_bwd(
+            q1, k1, k1, q1, lse[:, :1].contiguous(),
+            delta[:, :1].contiguous(), scale=1.0)
+
+
+# Shuffled batch order, borders, a degenerate box.
+BWD_ROIS = np.array([[1, 17.3, 40.9, 201.2, 255.9],
+                     [0, -80.0, -70.0, 300.0, 290.0],
+                     [2, 248.0, 248.0, 360.0, 360.0],
+                     [0, 0.0, 0.0, 0.0, 0.0],
+                     [1, 0.0, 0.0, 256.0, 256.0],
+                     [0, 3.0, 5.0, 120.0, 200.0],
+                     [2, -24.0, -24.0, 88.0, 88.0]], np.float32)
+
+
+@pytest.mark.parametrize('size,C,pooled,tie', [
+    (14, 24, 7, False), (16, 2048, 7, False), (14, 256, 7, True),
+    (16, 200, 3, False), (9, 130, 1, False)])
+def test_roi_bwd_kernel_matches_plain(dev, size, C, pooled, tie):
+    """``tie``: every other channel is zero everywhere, so all bins tie
+    exactly and the first bin takes the gradient."""
+    fmap = rand((3, size, size, C), dev, seed=size)
+    if tie:
+        fmap[..., ::2] = 0.0
+    rois = torch.from_numpy(BWD_ROIS).to(dev)
+    dout = rand((rois.shape[0], C), dev, seed=1)
+    before = cuda_roi_align.BWD_LAUNCHES
+    got = cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout,
+                                               pooled=pooled)
+    assert cuda_roi_align.BWD_LAUNCHES == before + 1
+    assert_close(got, cuda_roi_align.roi_align_maxpool_bwd_plain(
+        fmap, rois, dout, pooled), 1e-5)
+
+
+def test_roi_bwd_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    fmap, rois = rand((2, 8, 8, 16), dev), torch.from_numpy(ROIS).to(dev)
+    dout = rand((rois.shape[0], 16), dev)
+    with pytest.raises(ValueError):                 # dout (N, C + 1)
+        cuda_roi_align.roi_align_maxpool_bwd(fmap, rois,
+                                             rand((rois.shape[0], 17), dev))
+    with pytest.raises(ValueError):                 # bf16 dout
+        cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout.bfloat16())
+    with pytest.raises(ValueError):                 # rois on the CPU
+        cuda_roi_align.roi_align_maxpool_bwd(fmap, rois.cpu(), dout)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('crop,kt', [(224, 5), (256, 3), (320, 1),
+                                     (224, 1), (21, 3)])
+def test_stem_dw_kernel_matches_plain(dev, dtype, crop, kt):
+    x = rand((1, 3, crop, crop + 2, 3), dev, dtype=dtype)
+    ho, wo = (crop - 1) // 2 + 1, (crop + 1) // 2 + 1
+    g = rand((1, 3, ho, wo, 64), dev, seed=1, dtype=dtype)
+    before = cuda_stem.DW_LAUNCHES
+    got = cuda_stem.stem_conv_dw(x, g, kt)
+    assert cuda_stem.DW_LAUNCHES == before + 1
+    assert got.shape == (64, 3, kt, 7, 7) and got.dtype == torch.float32
+    assert_close(got, cuda_stem.stem_conv_dw_plain(x, g, kt),
+                 1e-4 if dtype == torch.float32 else 1e-2)
+
+
+def test_stem_dw_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x = rand((1, 2, 16, 16, 3), dev)
+    g = rand((1, 2, 8, 8, 64), dev)
+    cuda_stem.stem_conv_dw(x, g, 5)
+    with pytest.raises(ValueError):                 # g of another size
+        cuda_stem.stem_conv_dw(x, rand((1, 2, 8, 9, 64), dev), 5)
+    with pytest.raises(ValueError):                 # g in another type
+        cuda_stem.stem_conv_dw(x, g.bfloat16(), 5)
+    with pytest.raises(ValueError):                 # output wider than 256
+        cuda_stem.stem_conv_dw(rand((1, 1, 8, 520, 3), dev),
+                               rand((1, 1, 4, 260, 64), dev), 1)
+
+
+def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
+    """One f32 train step (dropout 0, explicit bank windows) from the same
+    params on the card (kernels) and the CPU (plain versions): loss within
+    1e-5; each momentum buffer within 1e-3 of its largest value for the FBO,
+    classifier and res5 params and 2e-2 upstream, as in ``chip_smoke.py``
+    (sums through 50 layers in other orders flip near-zero ReLU gates, which
+    moves the small gradients upstream of them)."""
+    from lfb_tpu_torch.config import flagship_cfg
+    from lfb_tpu_torch.models.model import init_params
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.train import optimizer
+    from lfb_tpu_torch.train.steps import make_train_step, split_params
+    cfg = flagship_cfg({'MODEL.DEPTH': 50, 'MODEL.VIDEO_ARC_CHOICE': 2,
+                        'TRAIN.VIDEO_LENGTH': 8, 'TRAIN.CROP_SIZE': 64,
+                        'LFB.WINDOW_SIZE': 4, 'TPU.COMPUTE_DTYPE': 'float32',
+                        'TRAIN.DROPOUT_RATE': 0.0, 'FBO_NL.DROPOUT_RATE': 0.0,
+                        'NUM_GPUS': 1})
+    spec = build_spec(cfg, 'train')
+    params = init_params(spec, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    for name, value in params.items():
+        if not value.any():
+            params[name] = 0.05 * torch.randn(value.shape, generator=g)
+    batch = {'data': torch.randint(0, 256, (2, 8, 64, 64, 3), generator=g,
+                                   dtype=torch.uint8),
+             'proposals': torch.tensor([[1, 2.0, 3.0, 50.0, 60.0],
+                                        [0, 10.0, 0.0, 63.0, 40.0],
+                                        [0, 0.0, 0.0, 0.0, 0.0]]),
+             'lfb': torch.randn((3, spec.fbo.num_lfb_feat, 2048), generator=g),
+             'labels': (torch.rand((3, 80), generator=g) < 0.1).float(),
+             'box_mask': torch.tensor([1.0, 1.0, 0.0])}
+    results = []
+    for device in ('cpu', dev):
+        p = {k: v.clone().to(device) for k, v in params.items()}
+        trainable, frozen = split_params(spec, p)
+        state = optimizer.init_state(p, set(frozen))
+        _, _, state, aux = make_train_step(spec, cfg.SOLVER)(
+            trainable, frozen, state,
+            {k: v.to(device) for k, v in batch.items()},
+            torch.Generator(device=device).manual_seed(0), 0.01)
+        results.append((aux['loss'].cpu(),
+                        {k: v.cpu() for k, v in state.momentum.items()}))
+    (cpu_loss, cpu_m), (gpu_loss, gpu_m) = results
+    assert abs(gpu_loss.item() - cpu_loss.item()) <= 1e-5 * abs(cpu_loss.item())
+    for name, ref in cpu_m.items():
+        downstream = (name.startswith(('pred_', 'lfb_', 'res5_'))
+                      or '_fbonl_reduc' in name)
+        assert_close(gpu_m[name], ref, 1e-3 if downstream else 2e-2,
+                     name=name)
 
 
 def test_tiny_flagship_forward_on_the_card_matches_the_cpu(dev):

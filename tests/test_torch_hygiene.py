@@ -1,7 +1,8 @@
 """Import hygiene of the port: in a fresh interpreter, importing every
-module of ``lfb_tpu_torch`` and running a tiny forward and device-bank eval
-step loads neither ``jax`` nor ``cv2`` nor ``yaml`` (the GPU machines the
-port runs on have no JAX install to rely on, no OpenCV and no PyYAML)."""
+module of ``lfb_tpu_torch``, running a tiny device-bank eval step and a tiny
+train step (dropout on, bank windows from the device bank) loads neither
+``jax`` nor ``cv2`` nor ``yaml`` (the GPU machines the port runs on have no
+JAX install to rely on, no OpenCV and no PyYAML)."""
 
 import json
 import os
@@ -30,12 +31,14 @@ from lfb_tpu_torch.bank.device_bank import AvaDeviceBank
 from lfb_tpu_torch.config import flagship_cfg
 from lfb_tpu_torch.models.model import init_params
 from lfb_tpu_torch.models.spec import build_spec
-from lfb_tpu_torch.train.steps import make_eval_step
+from lfb_tpu_torch.train import optimizer
+from lfb_tpu_torch.train.steps import make_eval_step, make_train_step, split_params
 
 cfg = flagship_cfg({'MODEL.DEPTH': 50, 'MODEL.VIDEO_ARC_CHOICE': 2,
                     'TRAIN.VIDEO_LENGTH': 8, 'TEST.VIDEO_LENGTH': 8,
-                    'TEST.CROP_SIZE': 32, 'LFB.WINDOW_SIZE': 2,
-                    'TPU.COMPUTE_DTYPE': 'float32', 'NUM_GPUS': 1})
+                    'TRAIN.CROP_SIZE': 32, 'TEST.CROP_SIZE': 32,
+                    'LFB.WINDOW_SIZE': 2, 'TPU.COMPUTE_DTYPE': 'float32',
+                    'NUM_GPUS': 1})
 spec = build_spec(cfg, 'test')
 params = init_params(spec, torch.Generator().manual_seed(0))
 bank = AvaDeviceBank.build({0: {902: [np.ones(2048, np.float32)]}},
@@ -45,6 +48,18 @@ out = make_eval_step(spec, bank=bank)(params, {
     'proposals': torch.tensor([[0.0, 2.0, 2.0, 30.0, 30.0]]),
     'metadata': torch.tensor([[0.0, 902.0, 0.0, 0.0]])})
 assert out['prob'].shape == (1, 80) and bool(torch.isfinite(out['prob']).all())
+
+train_spec = build_spec(cfg, 'train')
+trainable, frozen = split_params(train_spec, params)
+state = optimizer.init_state(params, set(frozen))
+_, _, state, aux = make_train_step(train_spec, cfg.SOLVER, bank=bank)(
+    trainable, frozen, state, {
+        'data': torch.zeros((1, 8, 32, 32, 3), dtype=torch.uint8),
+        'proposals': torch.tensor([[0.0, 2.0, 2.0, 30.0, 30.0]]),
+        'metadata': torch.tensor([[0.0, 902.0, 0.0, 0.0]]),
+        'labels': torch.ones((1, 80)), 'box_mask': torch.ones(1)},
+    torch.Generator().manual_seed(0), optimizer.get_lr_at_iter(cfg.SOLVER, 0))
+assert bool(torch.isfinite(aux['loss'])) and state.momentum['pred_w'].any()
 print(json.dumps({'modules': names,
                   'loaded': [m for m in ('jax', 'cv2', 'yaml')
                              if m in sys.modules]}))
