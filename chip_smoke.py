@@ -12,27 +12,39 @@ result):
 1. Print the card's name and power limit, build the CUDA kernels of
    ``lfb_tpu_torch/csrc`` and print the build time.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   flagship shapes (every attention regime), and time both (median of
+   flagship shapes (every attention regime; the fused bottleneck at every
+   identity-block shape of R101 at crop 256), and time both (median of
    CUDA-event timings, taken in turns).
 3. Hold the full-width model on the card (f32, kernels) against the same
-   model on the CPU (f32, plain versions) on one clip.
-4. The main path at full width: ``flagship_cfg()`` (R101-I3D-NL, 3-layer
-   FBO-NL, 300-row windows, T 32, crop 256), 16 clips x 4 boxes per batch,
-   seeded perturbed weights, uint8 frames.  Phase A runs the bank
+   model on the CPU (f32, plain versions) on one clip: the flagship, and
+   Charades with the fused bottleneck.
+4. The flagship main path at full width: ``flagship_cfg()`` (R101-I3D-NL,
+   3-layer FBO-NL, 300-row windows, T 32, crop 256), 16 clips x 4 boxes per
+   batch, seeded perturbed weights, uint8 frames.  Phase A runs the bank
    extraction entry point (``extract_ava_bank``) over 2 batches, which
    returns the host bank; synthetic rows top it up to AVA scale (235 videos
    x 897 s, Poisson(2) rows per second); the bank goes to the card.  Phase B
-   runs 3 batches of the eval step with that bank.  Each kernel's launch
+   runs 3 batches of the eval step with that bank, then the same 3 batches
+   again with ``TPU.PALLAS_BOTTLENECK`` (the fused identity blocks), whose
+   prob must be within 2e-2 of the unfused prob and of the f32 model's.  Each kernel's launch
    counter is reset before the phase and must read exactly its launches per
    forward times the batches after it (no backward kernel runs).
-5. Hold each backward kernel against its plain PyTorch version at the
+5. The Charades main path at full width: ``charades_cfg()`` with
+   ``TPU.PALLAS_BOTTLENECK`` (R101-I3D-NL without res5 dilation, clip-level
+   head, 157 classes, 2-layer post-act FBO-NL over 20-row windows), 16 clips
+   per batch.  Phase A runs ``extract_frame_bank`` over 2 batches;
+   synthetic rows top the frame-level bank up to the Charades val split
+   (1,814 videos of 15-45 s at 24 fps, a row every 12 frames); the
+   ``FrameDeviceBank`` goes to the card; phase B runs 3 batches of the eval
+   step with windows from ``gather_centers``.  Launches are checked as in 4.
+6. Hold each backward kernel against its plain PyTorch version at the
    flagship train shapes (B = 8 clips x 4 boxes, T 32, crop 224), and the
    forward attention kernel's row log-sum-exp against ``torch.logsumexp``;
    time both, as in phase 2.
-6. One full-width f32 train step (1 clip x 4 boxes, dropout 0) on the card
+7. One full-width f32 train step (1 clip x 4 boxes, dropout 0) on the card
    (kernels) against the same step on the CPU (plain versions), from the
    same params: the loss and every momentum buffer.
-7. The train phase: ``make_train_step`` of ``build_spec(flagship_cfg(),
+8. The train phase: ``make_train_step`` of ``build_spec(flagship_cfg(),
    'train')`` (crop 224, dropout 0.3 / 0.2, ``TPU.REMAT ''``), bf16 compute
    with f32 master weights, 8 clips x 4 boxes of uint8 frames per step, bank
    windows drawn from phase 4's AVA-scale device bank with a per-step
@@ -46,8 +58,9 @@ The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile DIR`` runs none of the checks: it traces
-the full-width phase-B forward and then one train step with torch.profiler
-and writes the traces and operator tables to DIR (see :func:`profile`).
+the full-width phase-B forward, the same forward with the fused bottleneck
+and then one train step with torch.profiler and writes the traces and
+operator tables to DIR (see :func:`profile`).
 """
 
 import json
@@ -63,8 +76,12 @@ B, BOXES_PER_CLIP = 16, 4
 EXTRACT_BATCHES, INFER_BATCHES = 2, 3
 TRAIN_B, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 5
 AVA_VIDEOS = 235
+CHARADES_VIDEOS = 1814                  # TEST.DATASET_SIZE, the val split
+CHARADES_FRAMES = (15 * 24, 45 * 24)    # video lengths, 30 s on average
+CHARADES_ROW_EVERY = 12                 # 24 fps / 2 bank clips per second
 TIMING_ITERS = 10
 CFG_OVERRIDES = {'NUM_GPUS': 1}
+FUSED = {'TPU.PALLAS_BOTTLENECK': True}
 
 KERNELS = {
     'stem_conv': dict(route='cuda', source='lfb_tpu_torch/csrc/stem_conv.cu',
@@ -83,16 +100,40 @@ KERNELS = {
     'attention_bwd': dict(route='cuda',
                           source='lfb_tpu_torch/csrc/attention_bwd.cu',
                           replaces='lfb_tpu/ops/pallas_attention.py:153'),
+    'fused_bottleneck': dict(route='cuda',
+                             source='lfb_tpu_torch/csrc/fused_bottleneck.cu',
+                             replaces='lfb_tpu/ops/pallas_bottleneck.py:170'),
 }
 _NO_BWD = {'stem_conv_dw': 0, 'roi_align_maxpool_bwd': 0, 'attention_bwd': 0}
+# R101's identity blocks (2 + 3 + 22 + 2), each one fused launch.
+_FUSED_LAUNCHES = {'fused_bottleneck': 29}
 # Kernel launches per forward of each phase, and per train step.
 PER_FORWARD = {'A': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 5,
-                     **_NO_BWD},
+                     'fused_bottleneck': 0, **_NO_BWD},
                'B': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 8,
-                     **_NO_BWD},
+                     'fused_bottleneck': 0, **_NO_BWD},
+               'B fused': {'stem_conv': 1, 'roi_align_maxpool': 1,
+                           'attention': 8, **_FUSED_LAUNCHES, **_NO_BWD},
+               'Charades A': {'stem_conv': 1, 'roi_align_maxpool': 0,
+                              'attention': 5, **_FUSED_LAUNCHES, **_NO_BWD},
+               'Charades B': {'stem_conv': 1, 'roi_align_maxpool': 0,
+                              'attention': 7, **_FUSED_LAUNCHES, **_NO_BWD},
                'train': {'stem_conv': 1, 'stem_conv_dw': 1,
                          'roi_align_maxpool': 1, 'roi_align_maxpool_bwd': 1,
-                         'attention': 8, 'attention_bwd': 8}}
+                         'attention': 8, 'attention_bwd': 8,
+                         'fused_bottleneck': 0}}
+# R101's identity blocks at crop 256, B = 16: (label, x shape, Ci, kT,
+# dilation, launches per flagship forward, per Charades forward).  res5 is
+# dilated (d 2) in the flagship and not in Charades.
+BLOCKS = [('res2 kT3', (B, 32, 64, 64, 256), 64, 3, 1, 2, 2),
+          ('res3 kT1', (B, 16, 32, 32, 512), 128, 1, 1, 2, 2),
+          ('res3 kT3', (B, 16, 32, 32, 512), 128, 3, 1, 1, 1),
+          ('res4 kT3', (B, 16, 16, 16, 1024), 256, 3, 1, 11, 11),
+          ('res4 kT1', (B, 16, 16, 16, 1024), 256, 1, 1, 11, 11),
+          ('res5 kT3 d2', (B, 16, 16, 16, 2048), 512, 3, 2, 1, 0),
+          ('res5 kT1 d2', (B, 16, 16, 16, 2048), 512, 1, 2, 1, 0),
+          ('res5 kT3 d1', (B, 16, 16, 16, 2048), 512, 3, 1, 0, 1),
+          ('res5 kT1 d1', (B, 16, 16, 16, 2048), 512, 1, 1, 0, 1)]
 
 
 def log(msg):
@@ -237,7 +278,52 @@ def check_kernels(iters=TIMING_ITERS):
     log('attention, the 8 calls of one phase-B forward: kernel {:.3f} ms, '
         'plain {:.3f} ms'.format(ms, plain_ms))
     results['attention'] = (err, ms, plain_ms, '1e-5 f32, 1e-2 bf16')
+    del q, k, v
+    results['fused_bottleneck'] = check_bottleneck(g, iters)
     return results
+
+
+def bottleneck_params(c, ci, kt, g):
+    """Folded block weights (port layout) at fan-in scale, branch2c at 0.2
+    of it as in :func:`perturbed_params`, and 0.1 * N(0, 1) biases."""
+    import torch
+    dev = g.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    return (randn(ci, c, kt, 1, 1) * (kt * c) ** -0.5, 0.1 * randn(ci),
+            randn(ci, ci, 1, 3, 3) * (9 * ci) ** -0.5, 0.1 * randn(ci),
+            randn(c, ci, 1, 1, 1) * 0.2 * ci ** -0.5, 0.1 * randn(c))
+
+
+def check_bottleneck(g, iters):
+    """The fused bottleneck (bf16) vs its plain version (f32 cuDNN
+    convolutions on the same bf16-rounded operands, intermediates rounded
+    to bf16) at each identity-block shape of R101 at crop 256.  Bound 1e-2
+    of max |plain|: both sides round h1, h2 and the output to bf16 (2^-8)."""
+    import torch
+    from lfb_tpu_torch.ops import cuda_bottleneck as cb
+    err, totals = 0.0, {'flagship': [0.0, 0.0], 'Charades': [0.0, 0.0]}
+    for label, shape, ci, kt, d, n_ava, n_charades in BLOCKS:
+        x = torch.relu(torch.randn(shape, generator=g, device=g.device))
+        x = x.to(torch.bfloat16)
+        p = bottleneck_params(shape[-1], ci, kt, g)
+        e, m, pm = compare(
+            'fused_bottleneck {} x{} Ci {} bf16'.format(label, shape, ci),
+            lambda: cb.fused_identity_bottleneck(x, *p, temporal_pad=kt // 2,
+                                                 dilation=d),
+            lambda: cb.fused_identity_bottleneck_plain(
+                x, *p, temporal_pad=kt // 2, dilation=d), 1e-2, iters)
+        err = max(err, e)
+        for name, n in (('flagship', n_ava), ('Charades', n_charades)):
+            totals[name][0] += n * m
+            totals[name][1] += n * pm
+        del x
+    for name, (ms, plain_ms) in totals.items():
+        log('fused_bottleneck, the 29 launches of one {} forward: kernel '
+            '{:.3f} ms, plain {:.3f} ms'.format(name, ms, plain_ms))
+    return (err, *totals['flagship'], '1e-2')
 
 
 def perturbed_params(spec, device):
@@ -258,6 +344,25 @@ def perturbed_params(spec, device):
             params[name] = 0.05 * torch.randn(value.shape, generator=g,
                                               device=device)
     return params
+
+
+def make_clip_batch(spec, rng, device, *, n_clips=B, with_lfb=False):
+    """A clip-level (Charades) batch: uint8 frames and, for phase B, either
+    explicit bank windows ('lfb') or the device bank's (video, center)
+    keys, centers inside every video's length."""
+    import torch
+    crop, t = spec.crop_size, spec.video_length
+    batch = {'data': rng.integers(0, 256, (n_clips, t, crop, crop, 3),
+                                  np.uint8)}
+    if with_lfb:
+        batch['lfb'] = np.abs(rng.standard_normal(
+            (n_clips, spec.fbo.num_lfb_feat, 2048), np.float32)) * 0.5
+    elif spec.fbo.enabled and not spec.lfb_infer_only:
+        batch['lfb_video_idx'] = rng.integers(0, CHARADES_VIDEOS, n_clips,
+                                              dtype=np.int32)
+        batch['lfb_center'] = rng.integers(0, CHARADES_FRAMES[0], n_clips,
+                                           dtype=np.int32)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
 def make_batch(spec, rng, device, *, n_clips=B, boxes=BOXES_PER_CLIP,
@@ -284,17 +389,35 @@ def make_batch(spec, rng, device, *, n_clips=B, boxes=BOXES_PER_CLIP,
 
 def reference_check(cfg):
     """Phase 3: full width, one clip, f32: kernels on the card vs plain
-    versions on the CPU.  Bound 2e-3 x max|CPU| (f32 sums through 101
-    layers, taken in other orders by cuDNN, the kernels and the CPU)."""
+    versions on the CPU, for the flagship and for Charades with the fused
+    bottleneck (all 29 identity blocks launch it on the card).  Bound
+    2e-3 x max|CPU| (f32 sums through 101 layers, taken in other orders by
+    cuDNN, the kernels and the CPU)."""
     import torch
-    from lfb_tpu_torch.config import flagship_cfg
-    from lfb_tpu_torch.models.model import forward
+    from lfb_tpu_torch.config import charades_cfg, flagship_cfg
     from lfb_tpu_torch.models.spec import build_spec
-    spec = build_spec(flagship_cfg({'NUM_GPUS': 1,
-                                    'TPU.COMPUTE_DTYPE': 'float32'}), 'test')
-    params = perturbed_params(spec, torch.device('cuda'))
+    from lfb_tpu_torch.ops import cuda_bottleneck
+    f32 = {'NUM_GPUS': 1, 'TPU.COMPUTE_DTYPE': 'float32'}
+    spec = build_spec(flagship_cfg(f32), 'test')
     batch = make_batch(spec, np.random.default_rng(SEED + 1), 'cuda',
                        n_clips=1, boxes=2, with_lfb=True)
+    hold_card_against_cpu('flagship', spec, batch,
+                          ('box_pooled', 'logits', 'prob'))
+    spec = build_spec(charades_cfg({**f32, **FUSED}), 'test')
+    batch = make_clip_batch(spec, np.random.default_rng(SEED + 8), 'cuda',
+                            n_clips=1, with_lfb=True)
+    before = cuda_bottleneck.LAUNCHES
+    hold_card_against_cpu('Charades, fused bottleneck', spec, batch,
+                          ('pool5', 'logits', 'prob'))
+    if cuda_bottleneck.LAUNCHES - before != _FUSED_LAUNCHES['fused_bottleneck']:
+        raise AssertionError('Charades reference: {} fused launches'.format(
+            cuda_bottleneck.LAUNCHES - before))
+
+
+def hold_card_against_cpu(label, spec, batch, keys):
+    import torch
+    from lfb_tpu_torch.models.model import forward
+    params = perturbed_params(spec, torch.device('cuda'))
     t0 = time.perf_counter()
     gpu = forward(spec, params, batch)
     torch.cuda.synchronize()
@@ -302,16 +425,36 @@ def reference_check(cfg):
     cpu = forward(spec, {k: v.cpu() for k, v in params.items()},
                   {k: v.cpu() for k, v in batch.items()})
     t2 = time.perf_counter()
-    for key in ('box_pooled', 'logits', 'prob'):
+    for key in keys:
         got, ref = gpu[key].float().cpu(), cpu[key].float()
         err = (got - ref).abs().max().item()
         scale = max(ref.abs().max().item(), 1e-30)
-        log('reference {}: card vs CPU max_abs_err {:.3e}, rel {:.3e} (bound '
-            '2e-03)'.format(key, err, err / scale))
+        log('reference {} {}: card vs CPU max_abs_err {:.3e}, rel {:.3e} '
+            '(bound 2e-03)'.format(label, key, err, err / scale))
         if not (torch.isfinite(got).all() and err <= 2e-3 * scale):
-            raise AssertionError('reference check failed for ' + key)
-    log('reference forward: card {:.1f} s (first call), CPU {:.1f} s'.format(
-        t1 - t0, t2 - t1))
+            raise AssertionError('reference check failed for {} {}'.format(
+                label, key))
+    log('reference {} forward: card {:.1f} s (first call), CPU {:.1f} '
+        's'.format(label, t1 - t0, t2 - t1))
+
+
+def synthetic_frame_bank(host_bank, rng):
+    """Top the Charades ``host_bank`` up to the val split: every video gets
+    a length of 15-45 s at 24 fps and a row at each bank frame it lacks
+    (frames 11, 23, ..., as ``lfb_tpu.data.charades.get_lfb_frames``), from
+    one tiled random block."""
+    lengths = rng.integers(CHARADES_FRAMES[0], CHARADES_FRAMES[1] + 1,
+                           CHARADES_VIDEOS)
+    total = int((lengths // CHARADES_ROW_EVERY).sum())
+    block = np.abs(rng.standard_normal((4096, 2048), np.float32)) * 0.5
+    feats = np.tile(block, (-(-total // 4096), 1))[:total]
+    pos = 0
+    for v, n in enumerate(lengths.tolist()):
+        frames = host_bank.setdefault(v, {})
+        for f in range(CHARADES_ROW_EVERY - 1, n, CHARADES_ROW_EVERY):
+            frames.setdefault(f, feats[pos])
+            pos += 1
+    return host_bank
 
 
 def synthetic_host_bank(host_bank, rng):
@@ -347,8 +490,10 @@ def timed(batches, stamps):
 
 def counters():
     """Kernel name -> (wrapper module, name of its launch counter)."""
-    from lfb_tpu_torch.ops import cuda_attention, cuda_roi_align, cuda_stem
-    return {'stem_conv': (cuda_stem, 'LAUNCHES'),
+    from lfb_tpu_torch.ops import (cuda_attention, cuda_bottleneck,
+                                   cuda_roi_align, cuda_stem)
+    return {'fused_bottleneck': (cuda_bottleneck, 'LAUNCHES'),
+            'stem_conv': (cuda_stem, 'LAUNCHES'),
             'stem_conv_dw': (cuda_stem, 'DW_LAUNCHES'),
             'roi_align_maxpool': (cuda_roi_align, 'LAUNCHES'),
             'roi_align_maxpool_bwd': (cuda_roi_align, 'BWD_LAUNCHES'),
@@ -388,10 +533,12 @@ def run_phase(label, fn, batches, per_forward):
 
 
 def main_path(cfg):
-    """Phase 4: bank extraction, the AVA-scale bank, FBO inference."""
+    """Phase 4: bank extraction, the AVA-scale bank, FBO inference, unfused
+    and fused."""
     import torch
     from lfb_tpu_torch.bank.device_bank import build_device_bank
     from lfb_tpu_torch.bank.lfb import extract_ava_bank
+    from lfb_tpu_torch.config import flagship_cfg
     from lfb_tpu_torch.models.spec import build_spec
     from lfb_tpu_torch.train.steps import make_eval_step
     dev = torch.device('cuda')
@@ -441,7 +588,110 @@ def main_path(cfg):
     log('two-phase: {:.1f} clips/s (each clip once per phase); peak device '
         'memory {:.2f} GiB'.format(2 * B / ((ms_a + ms_b) / 1e3),
                                   torch.cuda.max_memory_allocated() / 2 ** 30))
-    return {k: launches_a[k] + launches_b[k] for k in launches_a}, bank
+
+    # The same batches, bank and params through the fused identity blocks.
+    infer = make_eval_step(
+        build_spec(flagship_cfg({**CFG_OVERRIDES, **FUSED}), 'test'),
+        bank=bank, bank_seed=SEED)
+    ms_f, outs_f, launches_f = run_phase(
+        'B fused (TPU.PALLAS_BOTTLENECK)',
+        lambda bs: [infer(params, b) for b in bs], batches,
+        PER_FORWARD['B fused'])
+    # Both bf16 paths against the same batches through the f32 model.  The
+    # unfused bf16 path itself lies about 1.1e-2 from it (max over the
+    # batch's probs), so the fused path is held to 2e-2 of each.
+    infer = make_eval_step(build_spec(flagship_cfg(
+        {**CFG_OVERRIDES, 'TPU.COMPUTE_DTYPE': 'float32'}), 'test'),
+        bank=bank, bank_seed=SEED)
+    f32 = [infer(params, b) for b in batches]
+
+    def dist(xs, ys):
+        d = torch.cat([(x['prob'].float() - y['prob'].float()).abs().flatten()
+                       for x, y in zip(xs, ys, strict=True)])
+        return d.max().item(), d.mean().item()
+
+    (diff, diff_mean), (d_fused, _), (d_unfused, _) = (
+        dist(outs_f, outs), dist(outs_f, f32), dist(outs, f32))
+    log('phase B fused vs unfused: {:.1f} vs {:.1f} ms per batch; prob max '
+        '|diff| {:.3e} (mean {:.3e}; bound 2e-2); max |diff| from the f32 '
+        'model: fused {:.3e} (bound 2e-2), unfused {:.3e}'.format(
+            ms_f, ms_b, diff, diff_mean, d_fused, d_unfused))
+    if not (diff <= 2e-2 and d_fused <= 2e-2):
+        raise AssertionError('phase B fused: prob {:.3e} from the unfused and '
+                             '{:.3e} from the f32 prob'.format(diff, d_fused))
+    return {k: launches_a[k] + launches_b[k] + launches_f[k]
+            for k in launches_a}, bank
+
+
+def charades_path():
+    """Phase 5: the Charades main path with the fused bottleneck: frame-level
+    bank extraction, the val-scale frame bank on the card, FBO inference
+    with windows gathered from it."""
+    import torch
+    from lfb_tpu_torch.bank.device_bank import build_device_bank
+    from lfb_tpu_torch.bank.lfb import extract_frame_bank
+    from lfb_tpu_torch.config import charades_cfg
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.train.steps import make_eval_step
+    dev = torch.device('cuda')
+    cfg = charades_cfg({**CFG_OVERRIDES, **FUSED})
+    spec_a = build_spec(cfg, 'test', lfb_infer_only=True)
+    spec_b = build_spec(cfg, 'test')
+    params = perturbed_params(spec_b, dev)
+    rng = np.random.default_rng(SEED + 7)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The sweep's clip list: distinct (video, bank frame) pairs.
+    n = EXTRACT_BATCHES * B
+    clips = [(int(v), CHARADES_ROW_EVERY * int(k) - 1) for v, k in zip(
+        rng.choice(CHARADES_VIDEOS, n, replace=False),
+        rng.integers(1, CHARADES_FRAMES[0] // CHARADES_ROW_EVERY + 1, n))]
+    batches = [make_clip_batch(spec_a, rng, dev)
+               for _ in range(EXTRACT_BATCHES)]
+    ms_a, host_bank, launches_a = run_phase(
+        'Charades A (frame-level bank extraction)',
+        lambda bs: extract_frame_bank(spec_a, params, bs, clips, 'charades'),
+        batches, PER_FORWARD['Charades A'])
+    feats = [f for frames in host_bank.values() for f in frames.values()]
+    if len(feats) != n or not all(f.shape == (2048,) and np.isfinite(f).all()
+                                  for f in feats):
+        raise AssertionError('Charades phase A: bad host bank')
+    del batches
+
+    t0 = time.perf_counter()
+    host_bank = synthetic_frame_bank(host_bank, rng)
+    t1 = time.perf_counter()
+    bank = build_device_bank(cfg, host_bank, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del host_bank
+    log('Charades bank: {} rows ({} extracted) x 2048 {} = {:.2f} GiB on the '
+        'card, {} videos x {} table columns; synthesis {:.1f} s, build + copy '
+        '{:.1f} s'.format(
+            bank.feats.shape[0], n, str(bank.feats.dtype).split('.')[-1],
+            bank.feats.numel() * bank.feats.element_size() / 2 ** 30,
+            bank.num_videos(), bank.frame_ids.shape[1], t1 - t0, t2 - t1))
+
+    infer = make_eval_step(spec_b, bank=bank)
+    batches = [make_clip_batch(spec_b, rng, dev)
+               for _ in range(INFER_BATCHES)]
+    ms_b, outs, launches_b = run_phase(
+        'Charades B (FBO inference, frame device bank)',
+        lambda bs: [infer(params, b) for b in bs], batches,
+        PER_FORWARD['Charades B'])
+    for out in outs:
+        prob = out['prob']
+        if tuple(prob.shape) != (B, spec_b.num_classes) or \
+                not (torch.isfinite(out['logits']).all()
+                     and bool(((prob >= 0) & (prob <= 1)).all())):
+            raise AssertionError('Charades phase B: bad logits/prob')
+    log('Charades two-phase: {:.1f} clips/s (each clip once per phase); '
+        'peak device memory {:.2f} GiB, {:.2f} GiB of it held from the '
+        'flagship phases (their bank and params)'.format(
+            2 * B / ((ms_a + ms_b) / 1e3),
+            torch.cuda.max_memory_allocated() / 2 ** 30, held / 2 ** 30))
+    return {k: launches_a[k] + launches_b[k] for k in launches_a}
 
 
 def busy_us(intervals, t0, t1):
@@ -457,7 +707,7 @@ def busy_us(intervals, t0, t1):
 
 
 def check_backward_kernels(iters=TIMING_ITERS):
-    """Phase 5: each backward kernel vs its plain version at the flagship
+    """Phase 6: each backward kernel vs its plain version at the flagship
     train shapes (B = 8 clips x 4 boxes, T 32, crop 224), and the forward
     attention kernel's row log-sum-exp vs ``torch.logsumexp``.
 
@@ -535,7 +785,7 @@ def check_backward_kernels(iters=TIMING_ITERS):
 
 
 def train_reference_check(cfg):
-    """Phase 6: one full-width f32 train step (1 clip x 4 boxes, T 32, crop
+    """Phase 7: one full-width f32 train step (1 clip x 4 boxes, T 32, crop
     224, dropout 0) on the card (kernels) against the same step on the CPU
     (plain versions), from the same params and batch.
 
@@ -605,7 +855,7 @@ def train_reference_check(cfg):
 
 
 def train_phase(cfg, bank):
-    """Phase 7: the flagship train step at B = 8 clips x 4 boxes with the
+    """Phase 8: the flagship train step at B = 8 clips x 4 boxes with the
     AVA-scale device bank; returns the launch counts of its steps."""
     import torch
     from lfb_tpu_torch.models.spec import build_spec
@@ -708,12 +958,13 @@ def trace_window(label, run, count, out, stem):
 
 def profile(cfg, out_dir, forwards=3):
     """``--profile DIR``: the full-width phase-B forward (two warm-ups, then
-    ``forwards`` batches) and then the train step at B = 8 (two warm-ups,
-    then one step) with the same device bank, each through
-    :func:`trace_window`."""
+    ``forwards`` batches), one such forward with the fused bottleneck (two
+    warm-ups first) and then the train step at B = 8 (two warm-ups, then one
+    step) with the same device bank, each through :func:`trace_window`."""
     import pathlib
     import torch
     from lfb_tpu_torch.bank.device_bank import build_device_bank
+    from lfb_tpu_torch.config import flagship_cfg
     from lfb_tpu_torch.models.spec import build_spec
     from lfb_tpu_torch.train import optimizer
     from lfb_tpu_torch.train.optimizer import get_lr_at_iter
@@ -732,6 +983,14 @@ def profile(cfg, out_dir, forwards=3):
         infer(params, batch)
     trace_window('phase B at B = {}'.format(B),
                  lambda i: infer(params, batches[i]), forwards, out, 'phase_b')
+    infer = make_eval_step(
+        build_spec(flagship_cfg({**CFG_OVERRIDES, **FUSED}), 'test'),
+        bank=bank, bank_seed=SEED)
+    for batch in batches[:2]:
+        infer(params, batch)
+    trace_window('phase B at B = {}, fused bottleneck'.format(B),
+                 lambda i: infer(params, batches[2 + i]), 1, out,
+                 'phase_b_fused')
     del params, batches
 
     spec = build_spec(cfg, 'train')
@@ -771,6 +1030,7 @@ def main():
     results = check_kernels()
     reference_check(cfg)
     launches, bank = main_path(cfg)
+    charades_launches = charades_path()
     results.update(check_backward_kernels())
     train_reference_check(cfg)
     train_launches = train_phase(cfg, bank)
@@ -778,7 +1038,8 @@ def main():
     for name, meta in KERNELS.items():
         err, ms, plain_ms, bound = results[name]
         kernels.append({'name': name, **meta,
-                        'launches': launches[name] + train_launches[name],
+                        'launches': (launches[name] + charades_launches[name]
+                                     + train_launches[name]),
                         'bound': bound, 'max_abs_err': err, 'ms': ms,
                         'plain_ms': plain_ms})
     print(card_line())

@@ -1,16 +1,22 @@
-"""Long-term feature bank construction for AVA (port of the AVA part of
-``lfb_tpu/bank/lfb.py``; reference ``tools/lfb_loader.py``).
+"""Long-term feature bank construction (port of ``lfb_tpu/bank/lfb.py``;
+reference ``tools/lfb_loader.py``).
 
-:func:`extract_ava_bank` is the sweep loop of ``get_lfb``
-(``lfb_tpu/bank/lfb.py:153-171``): the bank-extraction (lfb_infer_only)
-forward over a sequence of batches, collected into the reference-format
-host bank ``{video_idx: {sec: [2048-d feats]}}``.
+:func:`extract_ava_bank` and :func:`extract_frame_bank` are the sweep loop
+of ``get_lfb`` (``lfb_tpu/bank/lfb.py:153-177``): the bank-extraction
+(lfb_infer_only) forward over a sequence of batches, collected into the
+reference-format host bank, ``{video_idx: {sec: [2048-d feats]}}`` for AVA
+and ``{video: {frame: 2048-d feat}}`` for Charades and EPIC.  Bank pickles
+(:func:`load_lfb`, :func:`write_lfb`) are the reference's format, so banks
+interchange with ``lfb_tpu`` and the reference.  The ``DataLoader`` wiring
+of ``get_lfb`` is not ported.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, Iterable, List, Mapping
+import os
+import pickle
+from typing import Dict, Iterable, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -45,6 +51,51 @@ def construct_ava_lfb(features: List[np.ndarray],
     return lfb
 
 
+def construct_frame_level_lfb(features: List[np.ndarray],
+                              clip_metadata: Sequence,
+                              dataset: str) -> Dict:
+    """{video: {frame: feat}} for EPIC (keyed by video name; ``clip_metadata``
+    rows (_, video, frame, ...)) and Charades (keyed by video idx; rows
+    (video_idx, frame)).  ``clip_metadata`` is the sweep's clip list, so the
+    padded duplicates after its end are dropped (reference
+    ``lfb_loader.py:51-78``)."""
+    lfb: Dict = {}
+    global_idx = 0
+    for feats in features:
+        for i in range(feats.shape[0]):
+            if global_idx >= len(clip_metadata):
+                break
+            if dataset == 'epic':
+                _, video_id, frame_id = clip_metadata[global_idx][:3]
+            else:
+                video_id, frame_id = clip_metadata[global_idx]
+            global_idx += 1
+            lfb.setdefault(video_id, {})[frame_id] = np.squeeze(feats[i])
+    logger.info('Frame-level LFB: %d frames in %d videos', global_idx,
+                len(lfb))
+    return lfb
+
+
+def load_lfb(cfg, is_train: bool) -> Dict:
+    """The pickled bank of one split from ``LFB.LOAD_LFB_PATH``."""
+    from lfb_tpu.train.checkpoints import read_pkl
+    path = os.path.join(cfg.LFB.LOAD_LFB_PATH,
+                        'train_lfb.pkl' if is_train else 'val_lfb.pkl')
+    logger.info('Loading LFB from %s', path)
+    return read_pkl(path)
+
+
+def write_lfb(cfg, lfb: Dict, is_train: bool) -> str:
+    """Pickle ``lfb`` into ``CHECKPOINT.DIR`` (protocol 2, as the
+    reference); returns the path."""
+    path = os.path.join(cfg.CHECKPOINT.DIR,
+                        'train_lfb.pkl' if is_train else 'val_lfb.pkl')
+    with open(path, 'wb') as f:
+        pickle.dump(lfb, f, protocol=2)
+    logger.info('Inferred LFB saved as %s', path)
+    return path
+
+
 def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
@@ -63,3 +114,19 @@ def extract_ava_bank(spec: ModelSpec, params: Mapping[str, torch.Tensor],
         metadata.append(_host(batch['metadata']))
         masks.append(_host(batch['box_mask']))
     return construct_ava_lfb(features, metadata, masks)
+
+
+def extract_frame_bank(spec: ModelSpec, params: Mapping[str, torch.Tensor],
+                       batches: Iterable[Mapping], clip_metadata: Sequence,
+                       dataset: str) -> Dict:
+    """Sweep the clip-level bank-extraction forward over ``batches`` (each
+    with 'data') and build the frame-level host bank of ``dataset``
+    ('charades' or 'epic') from ``clip_metadata``, the sweep's clip list in
+    batch order (see :func:`construct_frame_level_lfb`)."""
+    if not (spec.lfb_infer_only and spec.head_type == 'basic'):
+        raise ValueError('extract_frame_bank needs a clip-level '
+                         'lfb_infer_only spec')
+    step = make_eval_step(spec)
+    features = [_host(step(params, batch)['pool5'].float())
+                for batch in batches]
+    return construct_frame_level_lfb(features, clip_metadata, dataset)

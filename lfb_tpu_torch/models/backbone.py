@@ -11,7 +11,9 @@ blocks run per temporal group of 4 frames in affine mode (reference
 The modules hold no weights: each ``forward`` takes the model's flat
 parameter mapping ``p`` and reads its blobs by name.  Activations are NDHWC.
 ``train`` changes nothing in frozen-affine mode (the ported one); true BN
-refuses to train (``layers.apply_norm``).
+refuses to train (``layers.apply_norm``).  With ``use_pallas_bottleneck``,
+inference runs each identity block as one fused kernel
+(``ops/cuda_bottleneck.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from lfb_tpu_torch.models.layers import (Params, apply_norm, init_conv,
 from lfb_tpu_torch.models.spec import STAGE_DIMS, ModelSpec
 from lfb_tpu_torch.ops.attention import scaled_softmax_attention
 from lfb_tpu_torch.ops.conv3d import conv1x1, conv3d
+from lfb_tpu_torch.ops.cuda_bottleneck import (fold_bottleneck_params,
+                                               fused_identity_bottleneck)
 from lfb_tpu_torch.ops.cuda_stem import StemConv
 from lfb_tpu_torch.ops.pooling import max_pool_3d
 
@@ -116,6 +120,17 @@ class Bottleneck(nn.Module):
 
     def forward(self, p: P, x: torch.Tensor, train: bool) -> torch.Tensor:
         spec, pre = self.spec, self.prefix
+        # The fused block (inference, frozen affine, identity shortcut), under
+        # lfb_tpu's predicate (``lfb_tpu/models/backbone.py:213-219``) but
+        # without its TPU memory envelope: the kernel takes every such block
+        # or raises.
+        if (spec.use_pallas_bottleneck and not train and spec.use_affine
+                and not self.has_branch1 and spec.groups == 1):
+            folded = fold_bottleneck_params(p, pre)
+            if folded is not None:
+                return fused_identity_bottleneck(
+                    x, *folded, temporal_pad=self.use_temp_conv,
+                    dilation=self.dilation)
 
         def norm(name, h):
             return apply_norm(p, pre + name, h, use_affine=spec.use_affine,

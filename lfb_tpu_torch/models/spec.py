@@ -6,9 +6,12 @@ architecture tables follow reference ``lib/models/resnet_video.py:33-130``:
 ``use_temp_convs`` entries give the temporal kernel radius of each block's
 first 1x1 conv (0 -> kT=1, 1 -> kT=3, 2 -> kT=5).
 
-The TPU-only fields (Pallas switches, shard_map axis, remat) are gone: on
-the port a CUDA tensor always goes through the hand-written kernels and a
-CPU tensor through their plain PyTorch versions.  :func:`build_spec` raises
+The TPU-only fields (the Pallas switches, shard_map axis, remat) are gone:
+on the port a CUDA tensor always goes through the hand-written kernels and a
+CPU tensor through their plain PyTorch versions.  One switch stays,
+``use_pallas_bottleneck`` (``TPU.PALLAS_BOTTLENECK``): it picks the fused
+identity bottleneck, a different program for the same block rather than a
+kernel of an op that always runs.  :func:`build_spec` raises
 ``NotImplementedError``, naming the key, for what the port does not run
 yet.
 """
@@ -117,6 +120,9 @@ class ModelSpec:
     roi_resolution: int = 7
     roi_spatial_scale: float = 1.0 / 16.0
     compute_dtype: str = 'bfloat16'
+    # Inference runs each identity block as one fused kernel
+    # (``ops/cuda_bottleneck.py``); training keeps the unfused path.
+    use_pallas_bottleneck: bool = False
     # Per-channel normalization constants in the MODEL's channel order
     # (RGB unless USE_BGR), applied on device when 'data' arrives uint8.
     data_mean: Tuple[float, ...] = (0.45, 0.45, 0.45)
@@ -157,7 +163,7 @@ def build_spec(cfg, split: str, lfb_infer_only: bool = False) -> ModelSpec:
     """Derive an immutable ModelSpec from a finalized Config for one phase
     (the train split, unless ``lfb_infer_only``, is the training phase)."""
     is_train = split == 'train' and not lfb_infer_only
-    for key in ('PALLAS_BOTTLENECK', 'SHARD_MAP', 'BANK_SHARDED'):
+    for key in ('SHARD_MAP', 'BANK_SHARDED'):
         if cfg.TPU[key]:
             raise NotImplementedError(
                 'TPU.{} is not ported to lfb_tpu_torch'.format(key))
@@ -240,6 +246,7 @@ def build_spec(cfg, split: str, lfb_infer_only: bool = False) -> ModelSpec:
         roi_resolution=cfg.ROI.XFORM_RESOLUTION,
         roi_spatial_scale=1.0 / cfg.ROI.SCALE_FACTOR,
         compute_dtype=cfg.TPU.COMPUTE_DTYPE,
+        use_pallas_bottleneck=bool(cfg.TPU.PALLAS_BOTTLENECK),
         # cfg.DATA_MEAN/STD are BGR-ordered (reference convention); flip to
         # the model's channel order when the loader emits RGB.
         data_mean=tuple(cfg.DATA_MEAN if cfg.MODEL.USE_BGR

@@ -34,6 +34,8 @@ SIGNATURES = {
     'lfb_attention_bf16': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     'lfb_attention_bwd_f32': (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
     'lfb_attention_bwd_bf16': (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
+    'lfb_fused_bottleneck_f32': (_P,) * 8 + (_I,) * 8 + (_P,),
+    'lfb_fused_bottleneck_bf16': (_P,) * 8 + (_I,) * 8 + (_P,),
     'lfb_roi_align_maxpool': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     'lfb_roi_align_maxpool_bwd': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                   _P),

@@ -27,14 +27,18 @@ def split_params(spec: ModelSpec, params: Mapping[str, torch.Tensor]):
 def _inject_device_bank_lfb(spec: ModelSpec, bank, batch,
                             generator: torch.Generator):
     """Gather the 'lfb' bank windows on the device when a device bank is in
-    play; AVA windows key off the metadata blob's (video_idx, sec) columns."""
+    play.  AVA windows key off the metadata blob's (video_idx, sec) columns;
+    the clip-level datasets give (lfb_video_idx, lfb_center) pairs."""
     if bank is None or not spec.fbo.enabled or 'lfb' in batch:
         return batch
-    if spec.head_type != 'roi':
-        raise NotImplementedError('frame-level device banks are not ported yet')
     batch = dict(batch)
-    meta = batch['metadata']
-    batch['lfb'] = bank.gather(meta[:, 0].long(), meta[:, 1].long(), generator)
+    if spec.head_type == 'roi':
+        meta = batch['metadata']
+        batch['lfb'] = bank.gather(meta[:, 0].long(), meta[:, 1].long(),
+                                   generator)
+    else:
+        batch['lfb'] = bank.gather_centers(batch['lfb_video_idx'],
+                                           batch['lfb_center'])
     return batch
 
 

@@ -16,7 +16,9 @@ to max |plain|: 1e-5 for f32 outputs, 1e-2 for bf16 outputs (each side
 rounds an f32 accumulation to bf16); the backward kernels' outputs are f32
 from the same inputs on both sides, 1e-5 (attention in bf16: 1e-2, the
 bound of the working type, as ``chip_smoke.py`` holds it; stem dW in f32:
-1e-4, sums of up to 51,200 products).
+1e-4, sums of up to 51,200 products).  The fused bottleneck: 1e-5 in f32
+(three chained sums of at most 6,144 products, in other orders), 1e-2 in
+bf16 (both sides round h1, h2 and the output to bf16).
 """
 
 import numpy as np
@@ -24,7 +26,8 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
-from lfb_tpu_torch.ops import cuda_attention, cuda_roi_align, cuda_stem  # noqa: E402
+from lfb_tpu_torch.ops import (cuda_attention, cuda_bottleneck,  # noqa: E402
+                               cuda_roi_align, cuda_stem)
 from lfb_tpu_torch.ops.attention import _attention_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -334,4 +337,99 @@ def test_tiny_flagship_forward_on_the_card_matches_the_cpu(dev):
     gpu = forward(spec, {k: v.to(dev) for k, v in params.items()},
                   {k: v.to(dev) for k, v in batch.items()})
     for key in ('box_pooled', 'logits', 'prob'):
+        assert_close(gpu[key].cpu(), cpu[key], 1e-4)
+
+
+def bottleneck_params(c, ci, kt, dev, seed=0, b2a_shift=0.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    return (randn(ci, c, kt, 1, 1) * (kt * c) ** -0.5,
+            0.1 * randn(ci) + b2a_shift,
+            randn(ci, ci, 1, 3, 3) * (9 * ci) ** -0.5, 0.1 * randn(ci),
+            randn(c, ci, 1, 1, 1) * 0.2 * ci ** -0.5, 0.1 * randn(c))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+# The kernel cuts H into bands of about 16384 / (Ci * W) rows (at least 4):
+# one band for the small shapes, several (the last one shorter) where Ci * W
+# is large.
+@pytest.mark.parametrize('shape,ci,kt,d,b2a_shift', [
+    ((2, 4, 8, 8, 128), 32, 3, 1, 0.0),
+    ((2, 4, 8, 8, 128), 32, 1, 2, 3.0),        # relu(b2a) >> 0 at borders
+    ((1, 3, 13, 11, 64), 16, 3, 2, 3.0),       # odd H and W
+    ((1, 3, 13, 16, 64), 256, 3, 2, 3.0),      # bands of 4, 4, 4, 1 rows
+    ((1, 5, 11, 8, 64), 512, 3, 1, 0.0),       # bands of 4, 4, 3, odd T
+    ((2, 2, 5, 19, 32), 256, 1, 2, 3.0),       # bands of 3 and 2, d = 2
+    ((1, 4, 56, 56, 256), 64, 3, 1, 0.0),      # crop 224: res2
+    ((1, 4, 28, 28, 512), 128, 1, 1, 0.0),     # res3
+    ((1, 4, 14, 14, 1024), 256, 3, 1, 0.0),    # res4
+    ((1, 2, 14, 14, 2048), 512, 3, 2, 0.0),    # res5, dilated
+    ((1, 4, 80, 80, 256), 64, 3, 1, 0.0),      # crop 320: res2
+    ((1, 4, 40, 40, 512), 128, 3, 1, 0.0),     # res3
+    ((1, 4, 20, 20, 1024), 256, 1, 1, 0.0),    # res4
+    ((1, 2, 20, 20, 2048), 512, 1, 1, 0.0),    # res5, undilated
+])
+def test_fused_bottleneck_matches_plain(dev, dtype, shape, ci, kt, d,
+                                        b2a_shift):
+    x = torch.relu(rand(shape, dev, seed=5)).to(dtype)
+    p = bottleneck_params(shape[-1], ci, kt, dev, b2a_shift=b2a_shift)
+    before = cuda_bottleneck.LAUNCHES
+    got = cuda_bottleneck.fused_identity_bottleneck(
+        x, *p, temporal_pad=kt // 2, dilation=d)
+    assert cuda_bottleneck.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    ref = cuda_bottleneck.fused_identity_bottleneck_plain(
+        x, *p, temporal_pad=kt // 2, dilation=d)
+    assert_close(got, ref, 1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_fused_bottleneck_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x = rand((1, 2, 8, 8, 64), dev)
+    p = bottleneck_params(64, 16, 3, dev)
+    cuda_bottleneck.fused_identity_bottleneck(x, *p, temporal_pad=1)
+    with pytest.raises(ValueError):                 # temporal_pad != kT // 2
+        cuda_bottleneck.fused_identity_bottleneck(x, *p, temporal_pad=0)
+    with pytest.raises(ValueError):                 # C not a multiple of 16
+        cuda_bottleneck.fused_identity_bottleneck(
+            rand((1, 2, 8, 8, 40), dev), *bottleneck_params(40, 16, 3, dev),
+            temporal_pad=1)
+    with pytest.raises(ValueError):                 # weights on the CPU
+        cuda_bottleneck.fused_identity_bottleneck(
+            x, *(t.cpu() for t in p), temporal_pad=1)
+    with pytest.raises(ValueError):                 # not an identity block
+        cuda_bottleneck.fused_identity_bottleneck(
+            rand((1, 2, 8, 8, 128), dev), *p, temporal_pad=1)
+    with pytest.raises(ValueError):                 # float16
+        cuda_bottleneck.fused_identity_bottleneck(x.half(), *p, temporal_pad=1)
+
+
+def test_tiny_charades_forward_on_the_card_matches_the_cpu(dev):
+    """Charades (clip head, post-act FBO-NL) with the fused bottleneck: the
+    12 identity blocks of R50 launch the kernel on the card."""
+    from lfb_tpu_torch.config import charades_cfg
+    from lfb_tpu_torch.models.model import forward, init_params
+    from lfb_tpu_torch.models.spec import build_spec
+    cfg = charades_cfg({'MODEL.DEPTH': 50, 'MODEL.VIDEO_ARC_CHOICE': 2,
+                        'TRAIN.VIDEO_LENGTH': 8, 'TEST.VIDEO_LENGTH': 8,
+                        'TEST.CROP_SIZE': 64, 'LFB.WINDOW_SIZE': 4,
+                        'TPU.COMPUTE_DTYPE': 'float32',
+                        'TPU.PALLAS_BOTTLENECK': True, 'NUM_GPUS': 1})
+    spec = build_spec(cfg, 'test')
+    params = init_params(spec, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    for name, value in params.items():
+        if not value.any():
+            params[name] = 0.05 * torch.randn(value.shape, generator=g)
+    batch = {'data': torch.randint(0, 256, (2, 8, 64, 64, 3), generator=g,
+                                   dtype=torch.uint8),
+             'lfb': torch.randn((2, 4, 2048), generator=g)}
+    cpu = forward(spec, params, batch)
+    before = cuda_bottleneck.LAUNCHES
+    gpu = forward(spec, {k: v.to(dev) for k, v in params.items()},
+                  {k: v.to(dev) for k, v in batch.items()})
+    assert cuda_bottleneck.LAUNCHES == before + 12
+    for key in ('pool5', 'logits', 'prob'):
         assert_close(gpu[key].cpu(), cpu[key], 1e-4)

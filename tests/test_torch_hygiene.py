@@ -1,6 +1,7 @@
 """Import hygiene of the port: in a fresh interpreter, importing every
-module of ``lfb_tpu_torch``, running a tiny device-bank eval step and a tiny
-train step (dropout on, bank windows from the device bank) loads neither
+module of ``lfb_tpu_torch``, running a tiny device-bank eval step, a tiny
+train step (dropout on, bank windows from the device bank) and a tiny
+Charades eval step (fused bottleneck, frame-level bank) loads neither
 ``jax`` nor ``cv2`` nor ``yaml`` (the GPU machines the port runs on have no
 JAX install to rely on, no OpenCV and no PyYAML)."""
 
@@ -60,6 +61,22 @@ _, _, state, aux = make_train_step(train_spec, cfg.SOLVER, bank=bank)(
         'labels': torch.ones((1, 80)), 'box_mask': torch.ones(1)},
     torch.Generator().manual_seed(0), optimizer.get_lr_at_iter(cfg.SOLVER, 0))
 assert bool(torch.isfinite(aux['loss'])) and state.momentum['pred_w'].any()
+
+from lfb_tpu_torch.bank.device_bank import FrameDeviceBank
+from lfb_tpu_torch.config import charades_cfg
+cfg = charades_cfg({'MODEL.DEPTH': 50, 'MODEL.VIDEO_ARC_CHOICE': 2,
+                    'TRAIN.VIDEO_LENGTH': 8, 'TEST.VIDEO_LENGTH': 8,
+                    'TEST.CROP_SIZE': 32, 'LFB.WINDOW_SIZE': 2,
+                    'TPU.COMPUTE_DTYPE': 'float32',
+                    'TPU.PALLAS_BOTTLENECK': True, 'NUM_GPUS': 1})
+spec = build_spec(cfg, 'test')
+bank = FrameDeviceBank.build({0: {11: np.ones(2048, np.float32)}},
+                             window_size=2)
+out = make_eval_step(spec, bank=bank)(
+    init_params(spec, torch.Generator().manual_seed(0)), {
+        'data': torch.zeros((1, 8, 32, 32, 3), dtype=torch.uint8),
+        'lfb_video_idx': torch.tensor([0]), 'lfb_center': torch.tensor([11])})
+assert out['prob'].shape == (1, 157) and bool(torch.isfinite(out['prob']).all())
 print(json.dumps({'modules': names,
                   'loaded': [m for m in ('jax', 'cv2', 'yaml')
                              if m in sys.modules]}))

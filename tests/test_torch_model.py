@@ -8,6 +8,11 @@ a 4 s window, in f32.  T = 16 makes res3's non-local blocks grouped
 output convs and branch2c's gamma, so at init no attention output would
 reach the logits.
 
+The Charades slice (``charades_cfg``: clip-level head, 157 sigmoid classes,
+no res5 dilation, a 2-layer post-act FBO-NL over a frame-level device bank)
+at R50, T = 8, crop 32 and a 4-row window, with the fused bottleneck on and
+off; lfb_tpu runs its unfused blocks on the CPU either way.
+
 Tolerance: 1e-3 relative to the largest output (plus 1e-4 absolute).  Both
 sides compute in f32, but sum in other orders through 101 layers and 8
 attention blocks; the golden torch test of lfb_tpu holds 2e-3 on the same
@@ -15,6 +20,7 @@ arc.
 """
 
 import dataclasses
+import os
 import re
 
 import numpy as np
@@ -26,10 +32,20 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import lfb_tpu.models as jax_models  # noqa: E402
-from lfb_tpu_torch.config import flagship_cfg  # noqa: E402
+from lfb_tpu.bank.device_bank import FrameDeviceBank as JaxFrameDeviceBank  # noqa: E402
+from lfb_tpu.core.config import load_config  # noqa: E402
+from lfb_tpu.train.steps import make_eval_step as jax_make_eval_step  # noqa: E402
+from lfb_tpu_torch.bank.device_bank import build_device_bank  # noqa: E402
+from lfb_tpu_torch.bank.lfb import extract_frame_bank  # noqa: E402
+from lfb_tpu_torch.config import (CHARADES_OVERRIDES, charades_cfg,  # noqa: E402
+                                  flagship_cfg)
 from lfb_tpu_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from lfb_tpu_torch.models import model as port_model  # noqa: E402
 from lfb_tpu_torch.models.spec import build_spec  # noqa: E402
+from lfb_tpu_torch.ops import cuda_bottleneck  # noqa: E402
+from lfb_tpu_torch.train.steps import make_eval_step  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 TINY = {'TRAIN.VIDEO_LENGTH': 16, 'TEST.VIDEO_LENGTH': 16,
         'TRAIN.CROP_SIZE': 32, 'TEST.CROP_SIZE': 32, 'LFB.WINDOW_SIZE': 4,
@@ -74,6 +90,29 @@ def setup():
     return cfg, params, batch
 
 
+# Every key of these sections that the port reads (spec.py, steps.py, the
+# optimizer and lfb_tpu.train.lr_policy).
+PORT_READS = {
+    'TRAIN': ('VIDEO_LENGTH', 'CROP_SIZE', 'DROPOUT_RATE'),
+    'SOLVER': ('BASE_LR', 'LR_POLICY', 'LRS', 'STEP_SIZES', 'STEPS',
+               'MAX_ITER', 'GAMMA', 'STEP_SIZE', 'MOMENTUM', 'NESTEROV',
+               'WEIGHT_DECAY', 'WEIGHT_DECAY_BN', 'SCALE_MOMENTUM',
+               'SCALE_MOMENTUM_THRESHOLD', 'WARMUP'),
+    'MODEL': ('NUM_CLASSES', 'DEPTH', 'VIDEO_ARC_CHOICE', 'MULTI_LABEL',
+              'USE_AFFINE', 'BN_EPSILON', 'BN_MOMENTUM', 'BN_INIT_GAMMA',
+              'FC_INIT_STD', 'DILATIONS_AFTER_CONV5', 'FREEZE_BACKBONE',
+              'USE_BGR'),
+    'NONLOCAL': ('CONV_INIT_STD', 'NO_BIAS', 'USE_MAXPOOL', 'USE_SOFTMAX',
+                 'USE_ZERO_INIT_CONV', 'USE_BN', 'USE_SCALE', 'USE_AFFINE',
+                 'BN_EPSILON', 'BN_INIT_GAMMA', 'LAYER_MOD',
+                 'CONV3_NONLOCAL', 'CONV4_NONLOCAL'),
+    'LFB': ('ENABLED', 'FBO_TYPE', 'LFB_DIM', 'WINDOW_SIZE'),
+    'FBO_NL': ('NUM_LAYERS', 'PRE_ACT', 'PRE_ACT_LN', 'SCALE', 'LATENT_DIM',
+               'INPUT_REDUCE_DIM', 'DROPOUT_RATE', 'INPUT_DROPOUT_ON',
+               'LFB_DROPOUT_ON'),
+}
+
+
 def test_spec_matches_lfb_tpu():
     cfg = flagship_cfg(TINY)
     for kwargs in ({}, {'lfb_infer_only': True}):
@@ -93,8 +132,20 @@ def test_spec_matches_lfb_tpu():
 TRAIN_ONLY = ('MODEL.USE_AFFINE', 'NONLOCAL.USE_BN', 'TPU.REMAT')
 
 
+@pytest.mark.parametrize('split', ['test', 'train'])
+def test_build_spec_takes_the_fused_bottleneck(split):
+    """The fused bottleneck is ported: ``build_spec`` takes the key for both
+    splits (training keeps the unfused block, as lfb_tpu does)."""
+    assert not build_spec(flagship_cfg(TINY), split).use_pallas_bottleneck
+    spec = build_spec(flagship_cfg({**TINY, 'TPU.PALLAS_BOTTLENECK': True}),
+                      split)
+    assert spec.use_pallas_bottleneck
+    jspec = jax_models.build_spec(
+        flagship_cfg({**TINY, 'TPU.PALLAS_BOTTLENECK': True}), split)
+    assert jspec.use_pallas_bottleneck
+
+
 @pytest.mark.parametrize('overrides', [
-    {'TPU.PALLAS_BOTTLENECK': True},
     {'TPU.SHARD_MAP': True},
     {'TPU.SHARD_MAP': True, 'TPU.BANK_SHARDED': True,
      'TPU.DEVICE_BANK': True},
@@ -177,3 +228,97 @@ def test_phase_b_logits_and_prob_match_lfb_tpu(setup):
     for key in ('box_pooled', 'logits', 'prob'):
         close(out[key], ref[key])
     assert np.abs(np.asarray(ref['logits'])).max() > 1.0   # not a flat output
+
+
+def test_charades_cfg_is_the_released_config():
+    released = load_config(os.path.join(REPO, 'configs',
+                                        'charades_r101_lfb_nl.yaml'))
+    mine = charades_cfg()
+    for section, keys in PORT_READS.items():
+        for key in keys:
+            assert mine[section][key] == released[section][key], (section, key)
+    for dotted in list(CHARADES_OVERRIDES) + [
+            'CHARADES.FPS', 'TPU.BANK_MAX_PER_VIDEO', 'TPU.BANK_DTYPE',
+            'TPU.PALLAS_BOTTLENECK']:
+        if dotted == 'TPU.REMAT':          # rematerialization is not ported
+            continue
+        section, key = dotted.split('.') if '.' in dotted else (None, dotted)
+        theirs = released[section][key] if section else released[key]
+        assert (mine[section][key] if section else mine[key]) == theirs, dotted
+    spec, jspec = build_spec(mine, 'test'), jax_models.build_spec(mine, 'test')
+    for field in ('head_type', 'num_classes', 'dilations_after_conv5', 'fbo',
+                  'freeze_backbone', 'video_length', 'crop_size', 'head_dim',
+                  'use_pallas_bottleneck'):
+        mine_f, theirs = getattr(spec, field), getattr(jspec, field)
+        if dataclasses.is_dataclass(mine_f):
+            mine_f, theirs = (dataclasses.asdict(mine_f),
+                              dataclasses.asdict(theirs))
+        assert mine_f == theirs, field
+    assert (spec.head_type, spec.fbo.num_lfb_feat, spec.fbo.pre_act) == (
+        'basic', 20, False)
+
+
+CHARADES_TINY = {'MODEL.DEPTH': 50, 'MODEL.VIDEO_ARC_CHOICE': 2,
+                 'TRAIN.VIDEO_LENGTH': 8, 'TEST.VIDEO_LENGTH': 8,
+                 'TRAIN.CROP_SIZE': 32, 'TEST.CROP_SIZE': 32,
+                 'LFB.WINDOW_SIZE': 4, 'TPU.COMPUTE_DTYPE': 'float32',
+                 'NUM_GPUS': 1}
+R50_IDENTITY_BLOCKS = 12      # 2 + 3 + 5 + 2 blocks without a branch1
+
+
+@pytest.fixture(scope='module')
+def charades_setup():
+    """lfb_tpu's phase A pool5 and phase B outputs (device bank) on one
+    tiny Charades batch."""
+    cfg = charades_cfg(CHARADES_TINY)
+    jspec_a = jax_models.build_spec(cfg, 'test', lfb_infer_only=True)
+    jspec_b = jax_models.build_spec(cfg, 'test')
+    rng = np.random.RandomState(11)
+    params = perturbed_params(jspec_b, rng)
+    host_bank = {v: {f: (np.abs(rng.randn(2048)) * 0.5).astype('f')
+                     for f in range(11, 400, 12) if rng.rand() < 0.8}
+                 for v in range(3)}
+    batch = {'data': rng.randint(0, 256, (2, 8, 32, 32, 3)).astype(np.uint8),
+             'lfb_video_idx': np.array([0, 2], np.int32),
+             'lfb_center': np.array([100, 263], np.int32)}
+    names_a = set(jax_shapes(jspec_a))
+    ref_a = jax_models.forward(
+        jspec_a, {k: jnp.asarray(v) for k, v in params.items() if k in names_a},
+        {'data': jnp.asarray(batch['data'])}, train=False)
+    jbank = JaxFrameDeviceBank.build(host_bank, window_size=4, fps=24,
+                                     clips_per_second=2)
+    ref_b = jax_make_eval_step(jspec_b, bank=jbank)(
+        {k: jnp.asarray(v) for k, v in params.items()},
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    return params, names_a, host_bank, batch, ref_a, ref_b
+
+
+@pytest.mark.parametrize('fused', [False, True])
+def test_charades_phases_match_lfb_tpu(charades_setup, monkeypatch, fused):
+    params, names_a, host_bank, batch, ref_a, ref_b = charades_setup
+    cfg = charades_cfg({**CHARADES_TINY, 'TPU.PALLAS_BOTTLENECK': fused})
+    calls = []
+    plain = cuda_bottleneck.fused_identity_bottleneck_plain
+    monkeypatch.setattr(cuda_bottleneck, 'fused_identity_bottleneck_plain',
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    spec_a = build_spec(cfg, 'test', lfb_infer_only=True)
+    clips = [(0, 11), (2, 35)]
+    bank = extract_frame_bank(
+        spec_a, params_from_jax({k: params[k] for k in names_a}),
+        [{'data': tbatch['data']}], clips, 'charades')
+    assert sorted((v, f) for v in bank for f in bank[v]) == clips
+    for i, (v, f) in enumerate(clips):
+        assert bank[v][f].shape == (2048,)
+        close(torch.from_numpy(bank[v][f]), np.asarray(ref_a['pool5'])[i])
+
+    spec_b = build_spec(cfg, 'test')
+    out = make_eval_step(spec_b, bank=build_device_bank(cfg, host_bank))(
+        params_from_jax(params), tbatch)
+    assert set(out) == {'pool5', 'logits', 'prob'}
+    assert out['prob'].shape == (2, 157)
+    for key in ('pool5', 'logits', 'prob'):
+        close(out[key], ref_b[key])
+    assert np.abs(np.asarray(ref_b['logits'])).max() > 1.0
+    assert len(calls) == (2 * R50_IDENTITY_BLOCKS if fused else 0)

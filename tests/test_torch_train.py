@@ -49,7 +49,8 @@ from lfb_tpu_torch.ops.attention import scaled_softmax_attention  # noqa: E402
 from lfb_tpu_torch.ops.roi_align import roi_align  # noqa: E402
 from lfb_tpu_torch.train import optimizer as opt  # noqa: E402
 from lfb_tpu_torch.train.steps import make_train_step, split_params  # noqa: E402
-from tests.test_torch_model import TINY, jax_shapes, perturbed_params  # noqa: E402
+from tests.test_torch_model import (PORT_READS, TINY, jax_shapes,  # noqa: E402
+                                   perturbed_params)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -94,28 +95,6 @@ def interpret(monkeypatch):
 # --------------------------------------------------------------------------- #
 # The flagship config and the train spec
 # --------------------------------------------------------------------------- #
-
-# Every key of these sections that the port reads (spec.py, steps.py, the
-# optimizer and lfb_tpu.train.lr_policy).
-PORT_READS = {
-    'TRAIN': ('VIDEO_LENGTH', 'CROP_SIZE', 'DROPOUT_RATE'),
-    'SOLVER': ('BASE_LR', 'LR_POLICY', 'LRS', 'STEP_SIZES', 'STEPS',
-               'MAX_ITER', 'GAMMA', 'STEP_SIZE', 'MOMENTUM', 'NESTEROV',
-               'WEIGHT_DECAY', 'WEIGHT_DECAY_BN', 'SCALE_MOMENTUM',
-               'SCALE_MOMENTUM_THRESHOLD', 'WARMUP'),
-    'MODEL': ('NUM_CLASSES', 'DEPTH', 'VIDEO_ARC_CHOICE', 'MULTI_LABEL',
-              'USE_AFFINE', 'BN_EPSILON', 'BN_MOMENTUM', 'BN_INIT_GAMMA',
-              'FC_INIT_STD', 'DILATIONS_AFTER_CONV5', 'FREEZE_BACKBONE',
-              'USE_BGR'),
-    'NONLOCAL': ('CONV_INIT_STD', 'NO_BIAS', 'USE_MAXPOOL', 'USE_SOFTMAX',
-                 'USE_ZERO_INIT_CONV', 'USE_BN', 'USE_SCALE', 'USE_AFFINE',
-                 'BN_EPSILON', 'BN_INIT_GAMMA', 'LAYER_MOD',
-                 'CONV3_NONLOCAL', 'CONV4_NONLOCAL'),
-    'LFB': ('ENABLED', 'FBO_TYPE', 'LFB_DIM', 'WINDOW_SIZE'),
-    'FBO_NL': ('NUM_LAYERS', 'PRE_ACT', 'PRE_ACT_LN', 'SCALE', 'LATENT_DIM',
-               'INPUT_REDUCE_DIM', 'DROPOUT_RATE', 'INPUT_DROPOUT_ON',
-               'LFB_DROPOUT_ON'),
-}
 
 
 def test_flagship_cfg_is_the_released_config():
