@@ -10,11 +10,19 @@ away from the rest of the repository, it exits non-zero before printing any
 result):
 
 1. Print the card's name and power limit, build the CUDA kernels of
-   ``lfb_tpu_torch/csrc`` and print the build time.
+   ``lfb_tpu_torch/csrc`` and print the build time, ptxas's registers and
+   spills, and the tensor-core instructions (HMMA, HGMMA) that
+   ``cuobjdump -sass`` finds in each attention kernel: the bf16 ones must
+   have some.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    flagship shapes (every attention regime; the fused bottleneck at every
    identity-block shape of R101 at crop 256), and time both (median of
-   CUDA-event timings, taken in turns).
+   CUDA-event timings, taken in turns), with one PyTorch call that computes
+   the same function where there is one (``F.conv3d`` for the stem,
+   ``F.scaled_dot_product_attention`` for attention, under the first of its
+   backends that takes the shape), and the kernel's bound: the larger of
+   its operations over the card's peak for their type and its bytes over
+   the memory rate.
 3. Hold the full-width model on the card (f32, kernels) against the same
    model on the CPU (f32, plain versions) on one clip: the flagship, and
    Charades with the fused bottleneck.
@@ -40,7 +48,9 @@ result):
 6. Hold each backward kernel against its plain PyTorch version at the
    flagship train shapes (B = 8 clips x 4 boxes, T 32, crop 224), and the
    forward attention kernel's row log-sum-exp against ``torch.logsumexp``;
-   time both, as in phase 2.
+   time both, with the library call and the bound, as in phase 2 (cuDNN's
+   weight gradient for the stem; SDPA's backward, its forward + backward
+   less its forward, for attention).
 7. One full-width f32 train step (1 clip x 4 boxes, dropout 0) on the card
    (kernels) against the same step on the CPU (plain versions), from the
    same params: the loss and every momentum buffer.
@@ -54,8 +64,10 @@ result):
 TF32 is off for matmuls and cuDNN convolutions throughout, so the plain
 versions the kernels are compared with compute in full f32.
 
-The second-to-last line is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON object with one entry per kernel (its
+launches on the main path, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+library_ms, null where no one PyTorch call computes the same function);
+the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile DIR`` runs none of the checks: it traces
 the full-width phase-B forward, the same forward with the fused bottleneck
@@ -168,6 +180,39 @@ def preamble():
     for line in cuda_build.build_log.splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling' in line:
             log('  ptxas: ' + line.strip())
+    check_tensor_cores(cuda_build.library_path())
+
+
+# The bf16 attention kernels that must run on the tensor cores (HMMA is the
+# SASS of mma.sync, HGMMA of wgmma).
+MMA_KERNELS = ('attn_mma_kernel', 'attn_bwd_dkdv_mma_kernel',
+               'attn_bwd_dq_mma_kernel')
+
+
+def check_tensor_cores(lib_path):
+    """Count the tensor-core instructions of each attention kernel in the
+    built library's SASS (``cuobjdump -sass``); fail if a bf16 attention
+    kernel has none."""
+    import re
+    import shutil
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    sass = subprocess.run([tool, '-sass', str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r'\s*Function : (\S+)', line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r'\bH(G)?MMA\b', line):
+            counts[name] += 1
+    for fn, n in sorted(counts.items()):
+        if 'attn' in fn:
+            log('  sass: {} HMMA/HGMMA instructions in {}'.format(n, fn))
+    for kernel in MMA_KERNELS:
+        if not any(kernel in fn and n > 0 for fn, n in counts.items()):
+            raise AssertionError('{}: no tensor-core instruction in its '
+                                 'SASS'.format(kernel))
 
 
 def cuda_ms(fn, iters):
@@ -185,11 +230,12 @@ def cuda_ms(fn, iters):
     return statistics.median(times)
 
 
-def compare(label, kernel_fn, plain_fn, bound, iters):
-    """Kernel vs plain on the same inputs; returns (max_abs_err, ms,
-    plain_ms).  ``bound`` is relative to max |plain|; a function that
-    returns a tuple (dq, dk, dv) is held output by output, each to its own
-    max |plain|."""
+def compare(label, kernel_fn, plain_fn, bound, iters, library_fn=None):
+    """Kernel vs plain on the same inputs; returns {err: max_abs_err, ms,
+    plain_ms, library_ms}.  ``bound`` is relative to max |plain|; a function
+    that returns a tuple (dq, dk, dv) is held output by output, each to its
+    own max |plain|.  ``library_fn``, one PyTorch call computing the same
+    function, is timed in the same turns (library_ms None without one)."""
     import torch
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
@@ -206,17 +252,100 @@ def compare(label, kernel_fn, plain_fn, bound, iters):
         err = max(err, e)
         rel = max(rel, e / max(b.abs().max().item(), 1e-30))
     del got, ref
-    ms, plain_ms = [], []
-    for _ in range(max(iters, 1)):   # in turns: kernel, plain
-        ms.append(cuda_ms(kernel_fn, 1))
-        plain_ms.append(cuda_ms(plain_fn, 1))
-    ms, plain_ms = statistics.median(ms), statistics.median(plain_ms)
+    fns = [kernel_fn, plain_fn] + ([library_fn] if library_fn else [])
+    times = [[] for _ in fns]
+    for _ in range(max(iters, 1)):   # in turns: kernel, plain, library
+        for fn, ts in zip(fns, times):
+            ts.append(cuda_ms(fn, 1))
+    ms, plain_ms, *lib = [statistics.median(ts) for ts in times]
     log('{}: max_abs_err {:.3e}, rel {:.3e} (bound {:.0e}); kernel {:.4f} ms, '
-        'plain {:.4f} ms'.format(label, err, rel, bound, ms, plain_ms))
+        'plain {:.4f} ms{}'.format(label, err, rel, bound, ms, plain_ms,
+                                   ', library {:.4f} ms'.format(lib[0])
+                                   if lib else ''))
     if not rel <= bound:
         raise AssertionError('{}: error {:.3e} of max|ref|, above {:.0e}'.format(
             label, rel, bound))
-    return err, ms, plain_ms
+    return {'err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'library_ms': lib[0] if lib else None}
+
+
+# Published H100 SXM peaks, dense (NVIDIA's H100 datasheet): bf16 on
+# the tensor cores, f32 outside them, and the HBM3 rate.
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def least_ms(flops, nbytes, dtype):
+    """The least time the card could take for ``flops`` operations of
+    ``dtype`` ('bfloat16' or 'float32') and ``nbytes`` moved to or from
+    device memory: (ms, 'operations' or 'bytes'), the larger of the two."""
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms,
+                                                              'bytes')
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def add_bound(result, parts):
+    """Set result's bound_ms to the sum of ``parts`` [(ms, bound_by)] and
+    bound_by to what bounds the largest part."""
+    result['bound_ms'] = sum(ms for ms, _ in parts)
+    result['bound_by'] = max(parts)[1]
+    return result
+
+
+def roi_pixels(rois, size, scale=1 / 16):
+    """Feature-map pixels the boxes reach (each box's extent on the map, one
+    pixel more for the bilinear neighbours), counted once per clip."""
+    seen = np.zeros((int(rois[:, 0].max()) + 1, size, size), bool)
+    for b, x1, y1, x2, y2 in rois:
+        r0, c0 = (max(0, min(size - 1, int(np.floor(v * scale))))
+                  for v in (y1, x1))
+        r1, c1 = (max(0, min(size - 1, int(np.floor(v * scale)) + 1))
+                  for v in (y2, x2))
+        seen[int(b), r0:r1 + 1, c0:c1 + 1] = True
+    return int(seen.sum())
+
+
+def sdpa_call(q, k, v, do, scale):
+    """F.scaled_dot_product_attention on (B, N, C) inputs as one head, under
+    the first backend (in PyTorch's order of preference) that takes them
+    forward and backward; returns (forward fn, forward + backward fn,
+    backend name).  The yardstick of ``library_ms``; the port never calls
+    it."""
+    import warnings
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q4, k4, v4 = (t[:, None].detach().requires_grad_(True) for t in (q, k, v))
+    do4 = do[:, None]
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def fwd(backend=backend):
+            with sdpa_kernel(backend), torch.no_grad():
+                return F.scaled_dot_product_attention(q4, k4, v4,
+                                                      scale=scale)[:, 0]
+
+        def fwd_bwd(backend=backend):
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+                return torch.autograd.grad(out, (q4, k4, v4), do4)
+
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter('ignore')
+                fwd()
+                fwd_bwd()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return fwd, fwd_bwd, backend.name
+    raise AssertionError('no SDPA backend takes q{} k{}'.format(
+        tuple(q.shape), tuple(k.shape)))
 
 
 def rand_rois(rng, n_clips, boxes, crop):
@@ -229,13 +358,16 @@ def rand_rois(rng, n_clips, boxes, crop):
 
 
 def check_kernels(iters=TIMING_ITERS):
-    """Phase 2: each kernel vs its plain version at the flagship shapes.
+    """Phase 2: each kernel vs its plain version at the flagship shapes, with
+    its bound and, where one PyTorch call computes the same function, that
+    call's time.
 
     Bounds, relative to max |plain|: bf16 outputs 1e-2 (both sides round an
     f32 accumulation to bf16, 2^-8 apart at most twice over); f32 outputs
     1e-5 (f32 sums of at most a few thousand terms in another order).
     """
     import torch
+    import torch.nn.functional as F
     from lfb_tpu_torch.ops import cuda_attention, cuda_roi_align, cuda_stem
     dev = torch.device('cuda')
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -245,39 +377,64 @@ def check_kernels(iters=TIMING_ITERS):
     x = torch.randint(0, 256, (B, 32, 256, 256, 3), generator=g, device=dev)
     x = ((x.float() / 255 - 0.45) / 0.225).to(torch.bfloat16)
     w = torch.randn((64, 3, 5, 7, 7), generator=g, device=dev) * (2 / 735) ** .5
-    results['stem_conv'] = compare(
+    x_cl = x.permute(0, 4, 1, 2, 3)                  # channels-last view
+    w_cl = w.to(torch.bfloat16, memory_format=torch.channels_last_3d)
+    r = compare(
         'stem_conv x{} bf16'.format(tuple(x.shape)),
         lambda: cuda_stem.stem_conv(x, w, temporal_pad=2),
-        lambda: cuda_stem.stem_conv_plain(x, w, 2), 1e-2, iters) + ('1e-2',)
-    del x
+        lambda: cuda_stem.stem_conv_plain(x, w, 2), 1e-2, iters,
+        lambda: F.conv3d(x_cl, w_cl, None, (1, 2, 2), (2, 3, 3)))
+    out_elems = B * 32 * 128 * 128 * 64
+    results['stem_conv'] = add_bound(dict(
+        r, tolerance='1e-2',
+        library='F.conv3d (cuDNN, bf16, channels-last)'), [least_ms(
+        2 * out_elems * 735, nbytes(x, w) + 2 * out_elems, 'bfloat16')])
+    del x, x_cl
 
     fmap = torch.relu(torch.randn((B, 16, 16, 2048), generator=g, device=dev))
-    rois = torch.from_numpy(rand_rois(rng, B, BOXES_PER_CLIP, 256)).to(dev)
-    results['roi_align_maxpool'] = compare(
+    rois_np = rand_rois(rng, B, BOXES_PER_CLIP, 256)
+    rois = torch.from_numpy(rois_np).to(dev)
+    r = compare(
         'roi_align_maxpool fmap{} rois{} f32'.format(tuple(fmap.shape),
                                                      tuple(rois.shape)),
         lambda: cuda_roi_align.roi_align_maxpool(fmap, rois),
         lambda: cuda_roi_align.roi_align_maxpool_plain(fmap, rois), 1e-5,
-        iters) + ('1e-5',)
+        iters)
+    results['roi_align_maxpool'] = add_bound(dict(r, tolerance='1e-5'), [
+        least_ms(0, roi_pixels(rois_np, 16) * 2048 * 4 + nbytes(rois)
+                 + rois.shape[0] * 2048 * 4, 'float32')])
 
     # (label, B, Nq, Nk, C, dtype, calls per phase-B forward)
     regimes = [('res3 NL', 64, 4096, 1024, 256, torch.bfloat16, 2),
                ('res4 NL', 16, 4096, 1024, 512, torch.bfloat16, 3),
                ('FBO-NL', 64, 1, 300, 512, torch.float32, 3)]
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+    total = {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
+    parts, backends = [], []
     for label, b, nq, nk, c, dtype, calls in regimes:
         q, k, v = (torch.randn((b, n, c), generator=g, device=dev).to(dtype)
                    for n in (nq, nk, nk))
-        e, m, pm = compare(
+        lib_fwd, _, backend = sdpa_call(q, k, v, q, c ** -0.5)
+        backends.append('{} {}'.format(label, backend))
+        r = compare(
             'attention {} q{} k{} {}'.format(label, (b, nq, c), (b, nk, c),
                                             str(dtype).split('.')[-1]),
             lambda: cuda_attention.fused_attention(q, k, v, scale=c ** -0.5),
             lambda: cuda_attention.attention_plain(q, k, v, c ** -0.5),
-            1e-2 if dtype == torch.bfloat16 else 1e-5, iters)
-        err, ms, plain_ms = max(err, e), ms + calls * m, plain_ms + calls * pm
+            1e-2 if dtype == torch.bfloat16 else 1e-5, iters, lib_fwd)
+        log('  SDPA backend for {}: {}'.format(label, backend))
+        total['err'] = max(total['err'], r['err'])
+        for key in ('ms', 'plain_ms', 'library_ms'):
+            total[key] += calls * r[key]
+        ms, by = least_ms(4 * b * nq * nk * c, 2 * nbytes(q) + nbytes(k, v),
+                          str(dtype).split('.')[-1])
+        parts.append((calls * ms, by))
     log('attention, the 8 calls of one phase-B forward: kernel {:.3f} ms, '
-        'plain {:.3f} ms'.format(ms, plain_ms))
-    results['attention'] = (err, ms, plain_ms, '1e-5 f32, 1e-2 bf16')
+        'plain {:.3f} ms, SDPA {:.3f} ms'.format(
+            total['ms'], total['plain_ms'], total['library_ms']))
+    results['attention'] = add_bound(dict(
+        total, tolerance='1e-5 f32, 1e-2 bf16',
+        library='F.scaled_dot_product_attention ({})'.format(
+            ', '.join(backends))), parts)
     del q, k, v
     results['fused_bottleneck'] = check_bottleneck(g, iters)
     return results
@@ -305,25 +462,33 @@ def check_bottleneck(g, iters):
     import torch
     from lfb_tpu_torch.ops import cuda_bottleneck as cb
     err, totals = 0.0, {'flagship': [0.0, 0.0], 'Charades': [0.0, 0.0]}
+    parts = []
     for label, shape, ci, kt, d, n_ava, n_charades in BLOCKS:
         x = torch.relu(torch.randn(shape, generator=g, device=g.device))
         x = x.to(torch.bfloat16)
         p = bottleneck_params(shape[-1], ci, kt, g)
-        e, m, pm = compare(
+        r = compare(
             'fused_bottleneck {} x{} Ci {} bf16'.format(label, shape, ci),
             lambda: cb.fused_identity_bottleneck(x, *p, temporal_pad=kt // 2,
                                                  dilation=d),
             lambda: cb.fused_identity_bottleneck_plain(
                 x, *p, temporal_pad=kt // 2, dilation=d), 1e-2, iters)
-        err = max(err, e)
+        err = max(err, r['err'])
         for name, n in (('flagship', n_ava), ('Charades', n_charades)):
-            totals[name][0] += n * m
-            totals[name][1] += n * pm
+            totals[name][0] += n * r['ms']
+            totals[name][1] += n * r['plain_ms']
+        pixels, c = x.numel() // shape[-1], shape[-1]
+        ms, by = least_ms(2 * pixels * (c * ci * kt + 9 * ci * ci + ci * c),
+                          2 * nbytes(x) + 2 * (c * ci * kt + 9 * ci * ci
+                                               + ci * c), 'bfloat16')
+        parts.append((n_ava * ms, by))
         del x
     for name, (ms, plain_ms) in totals.items():
         log('fused_bottleneck, the 29 launches of one {} forward: kernel '
             '{:.3f} ms, plain {:.3f} ms'.format(name, ms, plain_ms))
-    return (err, *totals['flagship'], '1e-2')
+    return add_bound({'err': err, 'ms': totals['flagship'][0],
+                      'plain_ms': totals['flagship'][1], 'library_ms': None,
+                      'tolerance': '1e-2'}, parts)
 
 
 def perturbed_params(spec, device):
@@ -730,31 +895,45 @@ def check_backward_kernels(iters=TIMING_ITERS):
     x = ((x.float() / 255 - 0.45) / 0.225).to(torch.bfloat16)
     dy = torch.randn((TRAIN_B, 32, 112, 112, 64), generator=g,
                      device=dev).to(torch.bfloat16)
-    results['stem_conv_dw'] = compare(
+    x_cl, dy_cl = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+    r = compare(
         'stem_conv_dw x{} dOut{} bf16'.format(tuple(x.shape), tuple(dy.shape)),
         lambda: cuda_stem.stem_conv_dw(x, dy, 5),
-        lambda: cuda_stem.stem_conv_dw_plain(x, dy, 5), 1e-2,
-        iters) + ('1e-2',)
-    del x, dy
+        lambda: cuda_stem.stem_conv_dw_plain(x, dy, 5), 1e-2, iters,
+        lambda: torch.nn.grad.conv3d_weight(x_cl, (64, 3, 5, 7, 7), dy_cl,
+                                            stride=(1, 2, 2),
+                                            padding=(2, 3, 3)))
+    results['stem_conv_dw'] = add_bound(dict(
+        r, tolerance='1e-2',
+        library='torch.nn.grad.conv3d_weight (cuDNN, bf16)'), [least_ms(
+        2 * dy.numel() * 735, nbytes(x, dy) + 64 * 735 * 4, 'bfloat16')])
+    del x, dy, x_cl, dy_cl
 
     fmap = torch.relu(torch.randn((TRAIN_B, 14, 14, 2048), generator=g,
                                   device=dev))
-    rois = torch.from_numpy(rand_rois(rng, TRAIN_B, BOXES_PER_CLIP,
-                                      224)).to(dev)
+    rois_np = rand_rois(rng, TRAIN_B, BOXES_PER_CLIP, 224)
+    rois = torch.from_numpy(rois_np).to(dev)
     dout = torch.randn((n, 2048), generator=g, device=dev)
-    results['roi_align_maxpool_bwd'] = compare(
+    r = compare(
         'roi_align_maxpool_bwd fmap{} rois{} f32'.format(tuple(fmap.shape),
                                                          tuple(rois.shape)),
         lambda: cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout),
         lambda: cuda_roi_align.roi_align_maxpool_bwd_plain(fmap, rois, dout),
-        1e-5, iters) + ('1e-5',)
+        1e-5, iters)
+    # The map's pixels the boxes reach are read; the whole gradient map is
+    # written.
+    results['roi_align_maxpool_bwd'] = add_bound(dict(r, tolerance='1e-5'), [
+        least_ms(0, roi_pixels(rois_np, 14) * 2048 * 4 + nbytes(fmap, rois,
+                                                                 dout),
+                 'float32')])
     del fmap
 
     # (label, B, Nq, Nk, C, dtype, calls per train step)
     regimes = [('res3 NL', 32, 3136, 784, 256, torch.bfloat16, 2),
                ('res4 NL', 8, 3136, 784, 512, torch.bfloat16, 3),
                ('FBO-NL', n, 1, 300, 512, torch.float32, 3)]
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+    total = {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
+    parts, backends = [], []
     for label, b, nq, nk, c, dtype, calls in regimes:
         q, k, v, do = (torch.randn((b, m, c), generator=g, device=dev).to(dtype)
                        for m in (nq, nk, nk, nq))
@@ -769,18 +948,36 @@ def check_backward_kernels(iters=TIMING_ITERS):
             raise AssertionError('attention lse {}: {:.3e}'.format(label,
                                                                   lse_rel))
         delta = (do.float() * out.float()).sum(-1)
-        e, m, pm = compare(
+        lib_fwd, lib_fwd_bwd, backend = sdpa_call(q, k, v, do, scale)
+        backends.append('{} {}'.format(label, backend))
+        r = compare(
             'attention_bwd {} q{} k{} {}'.format(
                 label, (b, nq, c), (b, nk, c), str(dtype).split('.')[-1]),
             lambda: cuda_attention.fused_attention_bwd(q, k, v, do, lse, delta,
                                                        scale=scale),
             lambda: cuda_attention.attention_bwd_plain(q, k, v, do, lse, delta,
                                                        scale),
-            1e-2 if dtype == torch.bfloat16 else 1e-5, iters)
-        err, ms, plain_ms = max(err, e), ms + calls * m, plain_ms + calls * pm
+            1e-2 if dtype == torch.bfloat16 else 1e-5, iters, lib_fwd_bwd)
+        # SDPA's backward alone: its forward + backward less its forward.
+        lib_ms = r['library_ms'] - cuda_ms(lib_fwd, max(iters, 1))
+        log('  SDPA backend for {}: {}; its backward {:.4f} ms'.format(
+            label, backend, lib_ms))
+        total['err'] = max(total['err'], r['err'])
+        total['ms'] += calls * r['ms']
+        total['plain_ms'] += calls * r['plain_ms']
+        total['library_ms'] += calls * lib_ms
+        ms, by = least_ms(10 * b * nq * nk * c,
+                          nbytes(q, k, v, do, lse, delta) + 4 * (
+                              q.numel() + k.numel() + v.numel()),
+                          str(dtype).split('.')[-1])
+        parts.append((calls * ms, by))
     log('attention_bwd, the 8 calls of one train step: kernel {:.3f} ms, '
-        'plain {:.3f} ms'.format(ms, plain_ms))
-    results['attention_bwd'] = (err, ms, plain_ms, '1e-5 f32, 1e-2 bf16')
+        'plain {:.3f} ms, SDPA backward {:.3f} ms'.format(
+            total['ms'], total['plain_ms'], total['library_ms']))
+    results['attention_bwd'] = add_bound(dict(
+        total, tolerance='1e-5 f32, 1e-2 bf16',
+        library='F.scaled_dot_product_attention backward ({})'.format(
+            ', '.join(backends))), parts)
     return results
 
 
@@ -1036,12 +1233,16 @@ def main():
     train_launches = train_phase(cfg, bank)
     kernels = []
     for name, meta in KERNELS.items():
-        err, ms, plain_ms, bound = results[name]
+        r = results[name]
         kernels.append({'name': name, **meta,
                         'launches': (launches[name] + charades_launches[name]
                                      + train_launches[name]),
-                        'bound': bound, 'max_abs_err': err, 'ms': ms,
-                        'plain_ms': plain_ms})
+                        'max_abs_err': r['err'], 'ms': r['ms'],
+                        'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+                        'bound_by': r['bound_by'],
+                        'library_ms': r['library_ms'],
+                        'library': r.get('library'),
+                        'tolerance': r['tolerance']})
     print(card_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -60,7 +60,7 @@ class AvaDeviceBank:
     def build(cls, host_bank: Dict[int, Dict[int, list]], *, window_size: int,
               k: int, lfb_dim: int = 2048, k_store: int = 0,
               dtype: torch.dtype = torch.float32,
-              device: torch.device | str = 'cpu') -> 'AvaDeviceBank':
+              device: torch.device | str = 'cuda') -> 'AvaDeviceBank':
         """Same rows, table and counts as ``lfb_tpu``'s
         ``AvaDeviceBank.build`` (row ids in host-bank iteration order; the
         same seeded subsampling over an explicit ``k_store`` cap), filled
@@ -234,7 +234,7 @@ class FrameDeviceBank:
               window_mode: str = 'charades', fps: int = 24,
               clips_per_second: int = 2, max_per_video: int = 0,
               dtype: torch.dtype = torch.float32,
-              device: torch.device | str = 'cpu') -> 'FrameDeviceBank':
+              device: torch.device | str = 'cuda') -> 'FrameDeviceBank':
         """``host_bank`` {video_key: {frame: feat}}; ``video_key_to_idx``
         maps keys to dense indices (identity for int keys).
         ``max_per_video`` > 0 caps the per-video table width
@@ -260,7 +260,7 @@ class FrameDeviceBank:
                    max_per_frame: int, frames_per_second: int, fps: int,
                    lfb_dim: int = 2048, max_per_video: int = 0,
                    dtype: torch.dtype = torch.float32,
-                   device: torch.device | str = 'cpu') -> 'FrameDeviceBank':
+                   device: torch.device | str = 'cuda') -> 'FrameDeviceBank':
         """Noun banks ``{video_idx: {frame: (n, D) detector feats}}``: each
         frame's first ``max_per_frame`` features become consecutive entries
         sharing its frame id (empty frames are skipped), so the first-W
@@ -312,7 +312,7 @@ class FrameDeviceBank:
 
 
 def build_device_bank(cfg, host_bank: Dict, video_name_to_idx=None, *,
-                      device: torch.device | str = 'cpu'):
+                      device: torch.device | str = 'cuda'):
     """Host bank (from :mod:`lfb_tpu_torch.bank.lfb` or a reference pickle)
     -> the device-resident bank of the configured dataset: AVA
     {video: {sec: [feat]}}; Charades {video_idx: {frame: feat}}; EPIC verb

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from lfb_tpu_torch.models.spec import ModelSpec
+from lfb_tpu_torch.train import checkpoints
 from lfb_tpu_torch.train.steps import make_eval_step
 
 logger = logging.getLogger(__name__)
@@ -78,11 +79,10 @@ def construct_frame_level_lfb(features: List[np.ndarray],
 
 def load_lfb(cfg, is_train: bool) -> Dict:
     """The pickled bank of one split from ``LFB.LOAD_LFB_PATH``."""
-    from lfb_tpu.train.checkpoints import read_pkl
     path = os.path.join(cfg.LFB.LOAD_LFB_PATH,
                         'train_lfb.pkl' if is_train else 'val_lfb.pkl')
     logger.info('Loading LFB from %s', path)
-    return read_pkl(path)
+    return checkpoints.read_pkl(path)
 
 
 def write_lfb(cfg, lfb: Dict, is_train: bool) -> str:

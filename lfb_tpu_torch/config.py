@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import copy
 
-from lfb_tpu.core.config import Config, default_config, finalize
+from lfb_tpu_torch.core.config import Config, default_config, finalize
 
 FLAGSHIP_OVERRIDES = {
     'DATASET': 'ava',

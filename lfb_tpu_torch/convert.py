@@ -15,16 +15,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lfb_tpu.train.checkpoints import tpu_to_c2
+from lfb_tpu_torch.train.checkpoints import tpu_to_c2
 from lfb_tpu_torch.train.optimizer import SGDState
 
 
-def params_from_jax(params):
-    """``lfb_tpu`` params (numpy arrays) -> the port's f32 params; an
-    ``SGDState`` -> the port's ``SGDState`` with converted momentum."""
+def params_from_jax(params, device: torch.device | str = 'cuda'):
+    """``lfb_tpu`` params (numpy arrays) -> the port's f32 params on
+    ``device``; an ``SGDState`` -> the port's ``SGDState`` with converted
+    momentum."""
     if hasattr(params, 'momentum'):
-        return SGDState(momentum=params_from_jax(params.momentum))
-    return {name: torch.tensor(tpu_to_c2(name, np.asarray(value)))
+        return SGDState(momentum=params_from_jax(params.momentum, device))
+    return {name: torch.tensor(tpu_to_c2(name, np.asarray(value)),
+                               device=device)
             for name, value in params.items()}
 
 

@@ -22,9 +22,10 @@ _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 def init_params(spec: ModelSpec,
                 generator: torch.Generator | None = None) -> Params:
     """The reference initialization, in the Caffe2 layout, on the
-    generator's device.  Same names as ``lfb_tpu.models.init_params``."""
+    generator's device (without one, a generator on ``cuda`` seeded with 0).
+    Same names as ``lfb_tpu.models.init_params``."""
     if generator is None:
-        generator = torch.Generator().manual_seed(0)
+        generator = torch.Generator(device='cuda').manual_seed(0)
     params = init_backbone(spec, generator)
     params.update(init_fbo(spec, generator))
     if not spec.lfb_infer_only:

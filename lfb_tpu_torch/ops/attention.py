@@ -44,7 +44,8 @@ def scaled_softmax_attention(q: torch.Tensor, k: torch.Tensor,
 def _attention_plain(q, k, v, *, scale, mask, use_softmax, round_p=True):
     """Port of ``lfb_tpu.ops.attention._attention_xla``: f32 logits, the
     probabilities rounded to promote(q.dtype, bf16) before p.V.
-    ``round_p=False`` keeps p in f32, as the CUDA kernel does."""
+    ``round_p=False`` keeps p in f32, as the f32 CUDA kernels do (the bf16
+    ones round p to bf16 before p.V, as ``round_p=True`` does)."""
     compute = torch.promote_types(q.dtype, torch.bfloat16)
     logits = torch.matmul(q.float(), k.float().transpose(1, 2))
     if scale is not None:

@@ -9,14 +9,18 @@ replaces ``pallas_attention.py:_bwd_call`` (kernel ``_attn_bwd_kernel``):
 dq, dk, dv in f32 from q, k, v, dO, the lse and delta = rowsum(dO * O).
 
 What bounds it on an H100: the in-backbone non-local calls are matmul-sized
-(training at B = 8: res3 32 x 3136 x 784 x 256, res4 8 x 3136 x 784 x 512,
-bf16), so the limit is arithmetic; these first kernels do it on the f32 FMA
-units out of shared memory (tensor cores via ``wgmma`` are later work).  The
-forward keeps the (Nq, Nk) affinity out of device memory: one CTA per
-32-query tile streams K/V tiles through shared memory with an online
-softmax.  The backward recomputes p from the lse instead of storing it, and
-splits the TPU kernel's cross-tile dk/dv sum into a K/V-major launch (dk,
-dv) and a Q-major launch (dq), so no sum crosses CTAs.  The FBO-NL calls
+(a phase-B forward at B = 16: res3 64 x 4096 x 1024 x 256, res4 16 x 4096 x
+1024 x 512; a train step at B = 8: res3 32 x 3136 x 784 x 256, res4 8 x 3136
+x 784 x 512, all bf16), so the limit is the tensor cores.  In bf16 both
+directions run on ``mma.sync`` m16n8k16 (bf16 operands, f32 sums): the
+forward is FlashAttention-style, one CTA per query tile streaming K/V
+tiles through a cp.async ring with an online softmax, so the (Nq, Nk)
+affinity never reaches device memory, and p rounded to bf16 before p.V as
+lfb_tpu's XLA reference rounds it.  The backward recomputes p from the lse
+instead of storing it, and splits the TPU kernel's cross-tile dk/dv sum
+into a K/V-major launch (dk, dv) and a Q-major launch (dq), so no sum
+crosses CTAs.  In f32 (the whole-model parity checks) both run on the FMA
+units, as TF32 would not hold 2e-3 through the model.  The FBO-NL calls
 (Nq = 1, Nk = 300, C = 512, f32) are bound by reading K and V once; they get
 their own launch shape, one CTA per box, in both directions.
 
@@ -47,7 +51,9 @@ _BWD_LAUNCHERS = {torch.float32: 'lfb_attention_bwd_f32',
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """The forward kernel's math in plain PyTorch: the unmasked softmax of
-    ``attention._attention_plain`` with p kept in f32, output in q's dtype."""
+    ``attention._attention_plain`` with p kept in f32, output in q's dtype.
+    The bf16 kernel rounds p to bf16 before p.V; the two agree within the
+    1e-2 of max |plain| that bf16 outputs are held to."""
     return attention._attention_plain(q, k, v, scale=scale, mask=None,
                                       use_softmax=True, round_p=False)
 
@@ -186,6 +192,10 @@ def _check(q, k, v, do=None, lse=None, delta=None) -> None:
         if t.dim() != 3 or not t.is_contiguous():
             raise ValueError('fused_attention: {} must be a contiguous '
                              '(B, N, C) tensor'.format(name))
+        if t.dtype == torch.bfloat16 and q.shape[1] > 1 and t.data_ptr() % 16:
+            raise ValueError('fused_attention: bf16 {} must start on a '
+                             '16-byte boundary (the tensor-core kernels copy '
+                             '16-byte chunks)'.format(name))
     B, Nq, C = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[2] != C or (
             do is not None and do.shape != q.shape):

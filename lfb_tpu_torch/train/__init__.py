@@ -1,1 +1,2 @@
-"""Eval step (training is not ported yet)."""
+"""Eval and train steps, the optimizer, the LR schedule and the checkpoint
+helpers."""

@@ -12,7 +12,7 @@ Because lr is inside V, a step change of lr rescales V by new_lr / old_lr
 parameters get no momentum buffer and are never touched.  The port updates
 the parameters and buffers in place, in f32, under ``torch.no_grad``; the
 functions return them so their signatures mirror ``lfb_tpu``'s.  The LR
-schedule is ``lfb_tpu``'s own, which imports no jax.
+schedule is the port's copy of ``lfb_tpu``'s (``train/lr_policy.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Dict, Mapping, NamedTuple
 
 import torch
 
-from lfb_tpu.train.lr_policy import get_lr_at_iter  # noqa: F401  (re-export)
+from lfb_tpu_torch.train.lr_policy import get_lr_at_iter  # noqa: F401  (re-export)
 
 
 class SGDState(NamedTuple):

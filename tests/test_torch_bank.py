@@ -76,7 +76,7 @@ def test_build_matches_lfb_tpu(k_store):
     ref = JaxAvaDeviceBank.build(bank, window_size=6, k=2, lfb_dim=16,
                                  k_store=k_store)
     port = AvaDeviceBank.build(bank, window_size=6, k=2, lfb_dim=16,
-                               k_store=k_store)
+                               k_store=k_store, device='cpu')
     np.testing.assert_array_equal(port.feats.numpy(), np.asarray(ref.feats))
     np.testing.assert_array_equal(port.table.numpy(), np.asarray(ref.table))
     np.testing.assert_array_equal(port.counts.numpy(), np.asarray(ref.counts))
@@ -86,23 +86,26 @@ def test_build_matches_lfb_tpu(k_store):
 def test_build_device_bank_dtype():
     cfg = flagship_cfg({**TINY, 'TPU.BANK_DTYPE': 'bfloat16'})
     bank = host_bank(2, SECS, 3, dim=cfg.LFB.LFB_DIM)
-    dev = build_device_bank(cfg, bank)
+    dev = build_device_bank(cfg, bank, device='cpu')
     assert dev.feats.dtype == torch.bfloat16
     assert (dev.window_size, dev.k) == (4, 5)
     frames = frame_bank(2, 40, dim=cfg.LFB.LFB_DIM)
     dev = build_device_bank(charades_cfg({'TPU.BANK_DTYPE': 'bfloat16',
-                                          'NUM_GPUS': 1}), frames)
+                                          'NUM_GPUS': 1}), frames,
+                            device='cpu')
     assert isinstance(dev, FrameDeviceBank) and dev.feats.dtype == torch.bfloat16
     assert (dev.window_size, dev.window_mode) == (20, 'charades')
     with pytest.raises(ValueError):          # EPIC verb banks need the names
-        build_device_bank(flagship_cfg({**TINY, 'DATASET': 'epic'}), frames)
+        build_device_bank(flagship_cfg({**TINY, 'DATASET': 'epic'}), frames,
+                          device='cpu')
 
 
 @pytest.mark.parametrize('seed', [0, 1])
 def test_choose_rows_properties(seed):
     W, K, dim = 6, 2, 8
     bank = host_bank(3, SECS, 5, dim=dim, seed=seed)
-    dev = AvaDeviceBank.build(bank, window_size=W, k=K, lfb_dim=dim)
+    dev = AvaDeviceBank.build(bank, window_size=W, k=K, lfb_dim=dim,
+                              device='cpu')
     videos = torch.tensor([0, 1, 2, 2, 0])
     secs = torch.tensor([905, 903, 910, AVA_SEC_BASE + 1, 911])
     gen = torch.Generator().manual_seed(seed)
@@ -165,8 +168,9 @@ def test_phase_b_through_device_bank_matches_lfb_tpu():
         {k: jnp.asarray(v) for k, v in params.items()},
         {k: jnp.asarray(v) for k, v in batch.items()})
     step = make_eval_step(build_spec(cfg, 'test'),
-                          bank=build_device_bank(cfg, bank), bank_seed=3)
-    out = step(params_from_jax(params),
+                          bank=build_device_bank(cfg, bank, device='cpu'),
+                          bank_seed=3)
+    out = step(params_from_jax(params, device='cpu'),
                {k: torch.from_numpy(v) for k, v in batch.items()})
     assert set(out) == {'box_pooled', 'logits', 'prob'}
     for key in ('logits', 'prob'):
@@ -181,7 +185,7 @@ def test_extract_ava_bank_matches_the_sweep():
     spec = build_spec(cfg, 'test', lfb_infer_only=True)
     jspec = jax_models.build_spec(cfg, 'test', lfb_infer_only=True)
     rng = np.random.RandomState(6)
-    params = params_from_jax(perturbed_params(jspec, rng))
+    params = params_from_jax(perturbed_params(jspec, rng), device='cpu')
     batches = []
     for _ in range(2):
         b = {k: torch.from_numpy(v) for k, v in _batch(cfg, rng).items()}
@@ -260,7 +264,7 @@ def test_frame_bank_rows_match_lfb_tpu(mode, max_per_video):
     kw = dict(window_size=W, lfb_dim=dim, window_mode=mode, fps=fps,
               clips_per_second=2, max_per_video=max_per_video)
     ref = jax_bank.FrameDeviceBank.build(bank, key_to_idx, **kw)
-    port = FrameDeviceBank.build(bank, key_to_idx, **kw)
+    port = FrameDeviceBank.build(bank, key_to_idx, **kw, device='cpu')
     assert_same_bank(port, ref)
     if max_per_video:
         assert port.frame_ids.shape[1] == max_per_video
@@ -284,7 +288,7 @@ def test_noun_bank_rows_match_lfb_tpu(max_per_video):
               lfb_dim=dim, max_per_video=max_per_video)
     bank = noun_bank(3, 40, dim, seed=2)
     ref = jax_bank.FrameDeviceBank.build_noun(bank, **kw)
-    port = FrameDeviceBank.build_noun(bank, **kw)
+    port = FrameDeviceBank.build_noun(bank, **kw, device='cpu')
     assert_same_bank(port, ref)
     vids = np.arange(len(CENTERS)) % 3
     want = ref.gather_centers(jnp.asarray(vids), jnp.asarray(CENTERS))
@@ -327,7 +331,7 @@ def test_window_functions_match_lfb_tpu(W, cps, fps, mpf, fpsn):
 def test_charades_gather_matches_the_host_sampler():
     cfg = charades_cfg({'NUM_GPUS': 1, 'LFB.LFB_DIM': 16})
     bank = frame_bank(3, 700, 16, seed=4, every=12)
-    dev = build_device_bank(cfg, bank)
+    dev = build_device_bank(cfg, bank, device='cpu')
     centers = np.array([0, 50, 119, 240, 333, 600, 690, 1000], np.int32)
     vids = np.arange(len(centers)) % 3
     got = dev.gather_centers(torch.from_numpy(vids), torch.from_numpy(centers))

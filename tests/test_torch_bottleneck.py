@@ -144,7 +144,8 @@ def test_fold_matches_lfb_tpu(kt):
     rng = np.random.RandomState(kt)
     jp = _jax_block_params(rng, 'res4_1', kt, 64, 16)
     ref = pb.fold_bottleneck_params(jp, 'res4_1')
-    got = cuda_bottleneck.fold_bottleneck_params(params_from_jax(jp), 'res4_1')
+    got = cuda_bottleneck.fold_bottleneck_params(params_from_jax(jp, 'cpu'),
+                                                 'res4_1')
     w2a, b2a, w2b, b2b, w2c, b2c = got
     as_jax = (w2a.permute(2, 1, 0, 3, 4).reshape(kt, 64, 16), b2a,
               w2b[:, :, 0].permute(2, 3, 1, 0).reshape(9, 16, 16), b2b,
@@ -152,10 +153,10 @@ def test_fold_matches_lfb_tpu(kt):
     for mine, theirs in zip(as_jax, ref, strict=True):
         np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), rtol=0,
                                    atol=1e-6)
-    assert cuda_bottleneck.fold_bottleneck_params(params_from_jax(jp),
+    assert cuda_bottleneck.fold_bottleneck_params(params_from_jax(jp, 'cpu'),
                                                   'res4_2') is None
     jp['res4_1_branch2a_w'] = np.zeros((kt, 3, 1, 64, 16), 'f')
-    assert cuda_bottleneck.fold_bottleneck_params(params_from_jax(jp),
+    assert cuda_bottleneck.fold_bottleneck_params(params_from_jax(jp, 'cpu'),
                                                   'res4_1') is None
 
 
@@ -183,7 +184,7 @@ def test_fused_block_matches_lfb_tpu_bottleneck(monkeypatch, use_temp_conv,
     block = Bottleneck(spec, 'res5_1', dim_in=c, dim_out=c, stride=1,
                        temp_stride=1, use_temp_conv=use_temp_conv, dilation=d)
     with torch.inference_mode():
-        out = block(params_from_jax(jp), torch.from_numpy(x), False)
+        out = block(params_from_jax(jp, 'cpu'), torch.from_numpy(x), False)
     assert len(calls) == 1
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)
@@ -193,8 +194,9 @@ def test_fused_block_matches_lfb_tpu_bottleneck(monkeypatch, use_temp_conv,
                          temp_stride=1, use_temp_conv=use_temp_conv,
                          dilation=d)
     with torch.inference_mode():
-        out2 = unfused(params_from_jax(jp), torch.from_numpy(x), False)
-        block(params_from_jax(jp), torch.from_numpy(x), True)
+        out2 = unfused(params_from_jax(jp, 'cpu'), torch.from_numpy(x),
+                       False)
+        block(params_from_jax(jp, 'cpu'), torch.from_numpy(x), True)
     assert len(calls) == 1
     np.testing.assert_allclose(out2.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)

@@ -195,6 +195,45 @@ def test_attention_bwd_wrapper_refuses_what_the_kernel_does_not_take(dev):
             delta[:, :1].contiguous(), scale=1.0)
 
 
+@pytest.mark.parametrize('Nq,Nk,C', [(4096, 1024, 256), (4096, 1024, 512),
+                                     (3136, 784, 256), (3136, 784, 512)])
+def test_attention_kernels_at_the_model_regimes(dev, Nq, Nk, C):
+    """The non-local blocks' own bf16 shapes (res3 and res4, crops 256 and
+    224) at B = 1, forward and backward, on the tensor-core kernels."""
+    q, k, v, do = (rand((1, n, C), dev, seed, torch.bfloat16)
+                   for seed, n in ((0, Nq), (1, Nk), (2, Nk), (3, Nq)))
+    scale = C ** -0.5
+    out, lse = cuda_attention.fused_attention_lse(q, k, v, scale=scale)
+    assert_close(out, cuda_attention.attention_plain(q, k, v, scale), 1e-2)
+    delta = (do.float() * out.float()).sum(-1)
+    got = cuda_attention.fused_attention_bwd(q, k, v, do, lse, delta,
+                                             scale=scale)
+    ref = cuda_attention.attention_bwd_plain(q, k, v, do, lse, delta, scale)
+    for name, a, b in zip(('dq', 'dk', 'dv'), got, ref):
+        assert_close(a, b, 1e-2, name=name)
+
+
+@pytest.mark.parametrize('B,Nq,Nk,C', [(2, 37, 19, 32), (1, 100, 65, 512),
+                                       (1, 3136, 784, 512)])
+def test_attention_lse_matches_logsumexp(dev, B, Nq, Nk, C):
+    """The bf16 tensor-core forward's row log-sum-exp (written by the first
+    of the column-split CTAs at C = 512) against torch.logsumexp."""
+    q, k, v = (rand((B, n, C), dev, seed, torch.bfloat16)
+               for seed, n in ((0, Nq), (1, Nk), (2, Nk)))
+    scale = C ** -0.5
+    _, lse = cuda_attention.fused_attention_lse(q, k, v, scale=scale)
+    ref = torch.logsumexp(q.float() @ k.float().transpose(1, 2) * scale, -1)
+    assert_close(lse, ref, 1e-5)
+
+
+def test_attention_wrapper_refuses_unaligned_bf16(dev):
+    base = rand((2 * 8 * 64 + 8,), dev, dtype=torch.bfloat16)
+    q = base[1:1 + 2 * 8 * 64].view(2, 8, 64)       # 2 bytes past a boundary
+    k = rand((2, 8, 64), dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        cuda_attention.fused_attention(q, k, k)
+
+
 # Shuffled batch order, borders, a degenerate box.
 BWD_ROIS = np.array([[1, 17.3, 40.9, 201.2, 255.9],
                      [0, -80.0, -70.0, 300.0, 290.0],

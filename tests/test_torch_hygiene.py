@@ -1,9 +1,11 @@
 """Import hygiene of the port: in a fresh interpreter, importing every
-module of ``lfb_tpu_torch``, running a tiny device-bank eval step, a tiny
-train step (dropout on, bank windows from the device bank) and a tiny
-Charades eval step (fused bottleneck, frame-level bank) loads neither
-``jax`` nor ``cv2`` nor ``yaml`` (the GPU machines the port runs on have no
-JAX install to rely on, no OpenCV and no PyYAML)."""
+module of ``lfb_tpu_torch`` and ``chip_smoke``, running a tiny device-bank
+eval step, a tiny train step (dropout on, bank windows from the device bank)
+and a tiny Charades eval step (fused bottleneck, frame-level bank) loads
+no module of the JAX package ``lfb_tpu`` (the port keeps its own copies of
+what it took from it), and neither ``jax`` nor ``cv2`` nor ``yaml`` (the GPU
+machines the port runs on have no JAX install to rely on, no OpenCV and no
+PyYAML)."""
 
 import json
 import os
@@ -27,6 +29,7 @@ names = sorted(m.name for m in pkgutil.walk_packages(
     lfb_tpu_torch.__path__, 'lfb_tpu_torch.'))
 for name in names:
     importlib.import_module(name)
+import chip_smoke
 
 from lfb_tpu_torch.bank.device_bank import AvaDeviceBank
 from lfb_tpu_torch.config import flagship_cfg
@@ -43,7 +46,7 @@ cfg = flagship_cfg({'MODEL.DEPTH': 50, 'MODEL.VIDEO_ARC_CHOICE': 2,
 spec = build_spec(cfg, 'test')
 params = init_params(spec, torch.Generator().manual_seed(0))
 bank = AvaDeviceBank.build({0: {902: [np.ones(2048, np.float32)]}},
-                           window_size=2, k=5)
+                           window_size=2, k=5, device='cpu')
 out = make_eval_step(spec, bank=bank)(params, {
     'data': torch.zeros((1, 8, 32, 32, 3), dtype=torch.uint8),
     'proposals': torch.tensor([[0.0, 2.0, 2.0, 30.0, 30.0]]),
@@ -71,15 +74,16 @@ cfg = charades_cfg({'MODEL.DEPTH': 50, 'MODEL.VIDEO_ARC_CHOICE': 2,
                     'TPU.PALLAS_BOTTLENECK': True, 'NUM_GPUS': 1})
 spec = build_spec(cfg, 'test')
 bank = FrameDeviceBank.build({0: {11: np.ones(2048, np.float32)}},
-                             window_size=2)
+                             window_size=2, device='cpu')
 out = make_eval_step(spec, bank=bank)(
     init_params(spec, torch.Generator().manual_seed(0)), {
         'data': torch.zeros((1, 8, 32, 32, 3), dtype=torch.uint8),
         'lfb_video_idx': torch.tensor([0]), 'lfb_center': torch.tensor([11])})
 assert out['prob'].shape == (1, 157) and bool(torch.isfinite(out['prob']).all())
 print(json.dumps({'modules': names,
-                  'loaded': [m for m in ('jax', 'cv2', 'yaml')
-                             if m in sys.modules]}))
+                  'loaded': sorted(m for m in sys.modules
+                                   if m in ('jax', 'cv2', 'yaml', 'lfb_tpu')
+                                   or m.startswith('lfb_tpu.'))}))
 '''
 
 

@@ -33,12 +33,16 @@ import jax.numpy as jnp  # noqa: E402
 
 import lfb_tpu.models as jax_models  # noqa: E402
 from lfb_tpu.bank.device_bank import FrameDeviceBank as JaxFrameDeviceBank  # noqa: E402
+from lfb_tpu.core import config as jax_config  # noqa: E402
 from lfb_tpu.core.config import load_config  # noqa: E402
 from lfb_tpu.train.steps import make_eval_step as jax_make_eval_step  # noqa: E402
-from lfb_tpu_torch.bank.device_bank import build_device_bank  # noqa: E402
+from lfb_tpu_torch.bank.device_bank import (AvaDeviceBank,  # noqa: E402
+                                            FrameDeviceBank, build_device_bank)
 from lfb_tpu_torch.bank.lfb import extract_frame_bank  # noqa: E402
-from lfb_tpu_torch.config import (CHARADES_OVERRIDES, charades_cfg,  # noqa: E402
+from lfb_tpu_torch.config import (CHARADES_OVERRIDES,  # noqa: E402
+                                  FLAGSHIP_OVERRIDES, charades_cfg,
                                   flagship_cfg)
+from lfb_tpu_torch.core import config as port_config  # noqa: E402
 from lfb_tpu_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from lfb_tpu_torch.models import model as port_model  # noqa: E402
 from lfb_tpu_torch.models.spec import build_spec  # noqa: E402
@@ -176,7 +180,7 @@ def test_param_names_and_layout_match_lfb_tpu(lfb_infer_only):
         torch.Generator().manual_seed(0))
     assert set(params) == set(jparams)
     converted = params_from_jax({k: np.zeros(v.shape, np.float32)
-                                 for k, v in jparams.items()})
+                                 for k, v in jparams.items()}, device='cpu')
     for name, value in params.items():
         assert value.shape == converted[name].shape, name
         assert value.dtype == torch.float32, name
@@ -187,7 +191,7 @@ def test_param_names_and_layout_match_lfb_tpu(lfb_infer_only):
 
 def test_params_round_trip(setup):
     _, params, _ = setup
-    port = params_from_jax(params)
+    port = params_from_jax(params, device='cpu')
     assert port['res4_22_branch2a_w'].shape == (256, 1024, 3, 1, 1)
     np.testing.assert_array_equal(port['conv1_w'][13, 2, 1, 3, 4].numpy(),
                                   params['conv1_w'][1, 3, 4, 2, 13])
@@ -209,7 +213,8 @@ def test_phase_a_box_pooled_matches_lfb_tpu(setup):
                              {k: jnp.asarray(v) for k, v in feed.items()},
                              train=False)
     out = port_model.forward(build_spec(cfg, 'test', lfb_infer_only=True),
-                             params_from_jax({k: params[k] for k in names}),
+                             params_from_jax({k: params[k] for k in names},
+                                             device='cpu'),
                              {k: torch.from_numpy(v) for k, v in feed.items()})
     assert set(out) == {'box_pooled'}
     close(out['box_pooled'], ref['box_pooled'])
@@ -221,7 +226,8 @@ def test_phase_b_logits_and_prob_match_lfb_tpu(setup):
     ref = jax_models.forward(jspec, {k: jnp.asarray(v) for k, v in params.items()},
                              {k: jnp.asarray(v) for k, v in batch.items()},
                              train=False)
-    model = port_model.LFBModel(build_spec(cfg, 'test'), params_from_jax(params))
+    model = port_model.LFBModel(build_spec(cfg, 'test'),
+                                params_from_jax(params, device='cpu'))
     assert set(model.params) == set(params)
     with torch.inference_mode():
         out = model({k: torch.from_numpy(v) for k, v in batch.items()})
@@ -256,6 +262,73 @@ def test_charades_cfg_is_the_released_config():
         assert mine_f == theirs, field
     assert (spec.head_type, spec.fbo.num_lfb_feat, spec.fbo.pre_act) == (
         'basic', 20, False)
+
+
+def flat(cfg, prefix=''):
+    """{dotted.key: value} of a nested config."""
+    out = {}
+    for key, value in cfg.items():
+        if isinstance(value, dict):
+            out.update(flat(value, prefix + key + '.'))
+        else:
+            out[prefix + key] = value
+    return out
+
+
+def test_default_config_is_lfb_tpus():
+    """The port's copy of the config keys and defaults, key by key."""
+    mine, theirs = port_config.default_config(), jax_config.default_config()
+    assert isinstance(mine, port_config.AttrDict) and mine.TPU.REMAT == 'stage'
+    mine, theirs = flat(mine), flat(theirs)
+    assert sorted(mine) == sorted(theirs)
+    for key, value in theirs.items():
+        assert mine[key] == value and type(mine[key]) is type(value), key
+
+
+@pytest.mark.parametrize('name', ['flagship', 'charades'])
+def test_finalized_configs_match_lfb_tpu(name):
+    """``flagship_cfg`` / ``charades_cfg`` against lfb_tpu's ``finalize``
+    of the same overrides (the derived SOLVER.STEPS and LFB.NUM_LFB_FEAT
+    included)."""
+    extra = {'NUM_GPUS': 1, 'LFB.WINDOW_SIZE': 7}
+    base, make = ((FLAGSHIP_OVERRIDES, flagship_cfg) if name == 'flagship'
+                  else (CHARADES_OVERRIDES, charades_cfg))
+    theirs = jax_config.finalize(jax_config.clone(
+        jax_config.default_config(), {**base, **extra}))
+    assert flat(make(extra)) == flat(theirs)
+
+
+# Each entry point that places tensors, called without a device.
+DEFAULT_DEVICE_CALLS = {
+    'AvaDeviceBank.build': lambda: AvaDeviceBank.build(
+        {0: {902: [np.ones(8, np.float32)]}}, window_size=2, k=5,
+        lfb_dim=8).feats,
+    'FrameDeviceBank.build': lambda: FrameDeviceBank.build(
+        {0: {11: np.ones(8, np.float32)}}, window_size=2, lfb_dim=8).feats,
+    'FrameDeviceBank.build_noun': lambda: FrameDeviceBank.build_noun(
+        {0: {11: np.ones((2, 8), np.float32)}}, window_size=2,
+        max_per_frame=2, frames_per_second=1, fps=30, lfb_dim=8).feats,
+    'build_device_bank': lambda: build_device_bank(
+        flagship_cfg(TINY), {0: {902: [np.ones(2048, np.float32)]}}).feats,
+    'init_params': lambda: port_model.init_params(build_spec(flagship_cfg(
+        {**TINY, 'MODEL.DEPTH': 50, 'MODEL.VIDEO_ARC_CHOICE': 2}),
+        'test'))['conv1_w'],
+    'params_from_jax': lambda: params_from_jax(
+        {'pred_b': np.zeros(3, np.float32)})['pred_b'],
+}
+
+
+@pytest.mark.parametrize('entry', sorted(DEFAULT_DEVICE_CALLS))
+def test_entry_points_default_to_the_card(entry):
+    """Without a device argument the entry points put their tensors on
+    ``cuda``: on a machine without a card they raise, and never fall back
+    to the CPU."""
+    call = DEFAULT_DEVICE_CALLS[entry]
+    if torch.cuda.is_available():
+        assert call().is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
 
 
 CHARADES_TINY = {'MODEL.DEPTH': 50, 'MODEL.VIDEO_ARC_CHOICE': 2,
@@ -306,7 +379,7 @@ def test_charades_phases_match_lfb_tpu(charades_setup, monkeypatch, fused):
     spec_a = build_spec(cfg, 'test', lfb_infer_only=True)
     clips = [(0, 11), (2, 35)]
     bank = extract_frame_bank(
-        spec_a, params_from_jax({k: params[k] for k in names_a}),
+        spec_a, params_from_jax({k: params[k] for k in names_a}, device='cpu'),
         [{'data': tbatch['data']}], clips, 'charades')
     assert sorted((v, f) for v in bank for f in bank[v]) == clips
     for i, (v, f) in enumerate(clips):
@@ -314,8 +387,9 @@ def test_charades_phases_match_lfb_tpu(charades_setup, monkeypatch, fused):
         close(torch.from_numpy(bank[v][f]), np.asarray(ref_a['pool5'])[i])
 
     spec_b = build_spec(cfg, 'test')
-    out = make_eval_step(spec_b, bank=build_device_bank(cfg, host_bank))(
-        params_from_jax(params), tbatch)
+    dev_bank = build_device_bank(cfg, host_bank, device='cpu')
+    out = make_eval_step(spec_b, bank=dev_bank)(
+        params_from_jax(params, device='cpu'), tbatch)
     assert set(out) == {'pool5', 'logits', 'prob'}
     assert out['prob'].shape == (2, 157)
     for key in ('pool5', 'logits', 'prob'):

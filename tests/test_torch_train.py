@@ -15,6 +15,7 @@ cotangents to bf16 on the way: a few bf16 steps of 2^-8).  The whole step:
 see :func:`test_two_train_steps_match_lfb_tpu`.
 """
 
+import copy
 import dataclasses
 import os
 
@@ -35,11 +36,11 @@ from lfb_tpu.ops.conv3d import conv3d as jax_conv3d  # noqa: E402
 from lfb_tpu.ops.pooling import max_pool_2d as jax_max_pool_2d  # noqa: E402
 from lfb_tpu.ops.roi_align import roi_align as jax_roi_align  # noqa: E402
 from lfb_tpu.train import optimizer as jax_opt  # noqa: E402
-from lfb_tpu.train.checkpoints import tpu_to_c2  # noqa: E402
+from lfb_tpu.train.checkpoints import tpu_to_c2, write_pkl  # noqa: E402
 from lfb_tpu.train.lr_policy import get_lr_at_iter  # noqa: E402
 from lfb_tpu.train.steps import make_train_step as jax_make_train_step  # noqa: E402
 from lfb_tpu.train.steps import split_params as jax_split_params  # noqa: E402
-from lfb_tpu_torch.config import flagship_cfg  # noqa: E402
+from lfb_tpu_torch.config import charades_cfg, flagship_cfg  # noqa: E402
 from lfb_tpu_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from lfb_tpu_torch.models import model as port_model  # noqa: E402
 from lfb_tpu_torch.models.layers import dropout  # noqa: E402
@@ -47,6 +48,8 @@ from lfb_tpu_torch.models.spec import build_spec  # noqa: E402
 from lfb_tpu_torch.ops import cuda_attention, cuda_roi_align, cuda_stem  # noqa: E402
 from lfb_tpu_torch.ops.attention import scaled_softmax_attention  # noqa: E402
 from lfb_tpu_torch.ops.roi_align import roi_align  # noqa: E402
+from lfb_tpu_torch.train import checkpoints as port_ckpt  # noqa: E402
+from lfb_tpu_torch.train import lr_policy as port_lr  # noqa: E402
 from lfb_tpu_torch.train import optimizer as opt  # noqa: E402
 from lfb_tpu_torch.train.steps import make_train_step, split_params  # noqa: E402
 from tests.test_torch_model import (PORT_READS, TINY, jax_shapes,  # noqa: E402
@@ -384,11 +387,61 @@ def test_stem_dw_plain_matches_the_pallas_kernel(interpret):
 # The whole step
 # --------------------------------------------------------------------------- #
 
+@pytest.mark.parametrize('name', ['flagship', 'charades'])
+def test_lr_schedule_copy_matches_lfb_tpu(name):
+    """The port's ``get_lr_at_iter`` at every iteration around the warm-up's
+    end and each step boundary of the solver, and on a grid over the whole
+    schedule (iterations 0 to MAX_ITER - 1); also under the other three
+    policies."""
+    cfg = (flagship_cfg if name == 'flagship' else charades_cfg)(
+        {'NUM_GPUS': 1})
+    solver = cfg.SOLVER
+    assert opt.get_lr_at_iter is port_lr.get_lr_at_iter
+    its = set(range(0, solver.MAX_ITER, 499)) | set(range(8))
+    for edge in list(solver.STEPS) + [solver.MAX_ITER,
+                                      solver.WARMUP.WARMUP_END_ITER]:
+        its |= {edge - 1, edge, edge + 1}
+    its = sorted(i for i in its if 0 <= i < solver.MAX_ITER)
+    solvers = [solver]
+    for policy in ('steps_with_lrs', 'steps_with_decay', 'step'):
+        other = copy.deepcopy(solver)
+        other.LR_POLICY, other.STEP_SIZE = policy, 3000
+        solvers.append(other)
+    for s in solvers:
+        for it in its:
+            assert port_lr.get_lr_at_iter(s, it) == get_lr_at_iter(s, it), (
+                s.LR_POLICY, it)
+    if name == 'flagship':
+        assert solver.WARMUP.WARMUP_ON
+
+
+@pytest.mark.parametrize('shape', [(5, 7, 7, 3, 64), (2560, 80), (80,)])
+def test_tpu_to_c2_copy_matches_lfb_tpu(shape):
+    a = rand(*shape, seed=len(shape))
+    got = port_ckpt.tpu_to_c2('x', a)
+    want = tpu_to_c2('x', a)
+    assert got.shape == want.shape and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, want)
+
+
+def test_read_pkl_reads_what_lfb_tpu_writes(tmp_path):
+    data = {'blobs': {'conv1_w': rand(4, 3, 1, 1, 1), 'pred_b': rand(3)},
+            'model_iter': 7, 'lr': 0.01}
+    path = str(tmp_path / 'weights.pkl')
+    write_pkl(path, data)
+    got = port_ckpt.read_pkl(path)
+    assert set(got) == set(data) and got['model_iter'] == 7
+    for name, value in data['blobs'].items():
+        np.testing.assert_array_equal(got['blobs'][name], value)
+    write_pkl(path, {b'blobs': {b'pred_b': data['blobs']['pred_b']}})
+    assert list(port_ckpt.read_pkl(path)['blobs']) == ['pred_b']   # py2 keys
+
+
 def test_sgd_state_round_trip():
     names = {'conv1_w': (5, 7, 7, 3, 64), 'pred_w': (2560, 80),
              'pred_b': (80,)}
     momentum = {k: rand(*s, seed=i) for i, (k, s) in enumerate(names.items())}
-    state = params_from_jax(jax_opt.SGDState(momentum=momentum))
+    state = params_from_jax(jax_opt.SGDState(momentum=momentum), device='cpu')
     assert isinstance(state, opt.SGDState)
     assert state.momentum['conv1_w'].shape == (64, 3, 5, 7, 7)
     np.testing.assert_array_equal(state.momentum['pred_w'][3, 100].numpy(),
@@ -433,7 +486,7 @@ def test_two_train_steps_match_lfb_tpu():
     jstate = jax_opt.init_state(jparams, jax_model.frozen_param_names(
         jspec, jparams))
     jstep = jax_make_train_step(jspec, cfg.SOLVER, mesh=None)
-    port = params_from_jax(params)
+    port = params_from_jax(params, device='cpu')
     train, frozen = split_params(spec, port)
     state = opt.init_state(port, set(frozen))
     step = make_train_step(spec, cfg.SOLVER)
