@@ -12,17 +12,18 @@ result):
 1. Print the card's name and power limit, build the CUDA kernels of
    ``lfb_tpu_torch/csrc`` and print the build time, ptxas's registers and
    spills, and the tensor-core instructions (HMMA, HGMMA) that
-   ``cuobjdump -sass`` finds in each attention kernel: the bf16 ones must
-   have some.
+   ``cuobjdump -sass`` finds in each attention kernel, the stem weight
+   gradient and the fused bottleneck: the bf16 ones must have some.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    flagship shapes (every attention regime; the fused bottleneck at every
    identity-block shape of R101 at crop 256), and time both (median of
    CUDA-event timings, taken in turns), with one PyTorch call that computes
    the same function where there is one (``F.conv3d`` for the stem,
    ``F.scaled_dot_product_attention`` for attention, under the first of its
-   backends that takes the shape), and the kernel's bound: the larger of
-   its operations over the card's peak for their type and its bytes over
-   the memory rate.
+   backends that takes the shape; beside the fused bottleneck, the same
+   block as the unfused bf16 path runs it), and the kernel's bound: the
+   larger of its operations over the card's peak for their type and its
+   bytes over the memory rate.
 3. Hold the full-width model on the card (f32, kernels) against the same
    model on the CPU (f32, plain versions) on one clip: the flagship, and
    Charades with the fused bottleneck.
@@ -183,16 +184,19 @@ def preamble():
     check_tensor_cores(cuda_build.library_path())
 
 
-# The bf16 attention kernels that must run on the tensor cores (HMMA is the
-# SASS of mma.sync, HGMMA of wgmma).
+# The bf16 kernels that must run on the tensor cores (HMMA is the SASS of
+# mma.sync, HGMMA of wgmma): attention forward and backward, the stem
+# weight gradient and the fused bottleneck.
 MMA_KERNELS = ('attn_mma_kernel', 'attn_bwd_dkdv_mma_kernel',
-               'attn_bwd_dq_mma_kernel')
+               'attn_bwd_dq_mma_kernel', 'stem_dw_mma_kernel',
+               'fused_bottleneck_mma_kernel')
 
 
 def check_tensor_cores(lib_path):
-    """Count the tensor-core instructions of each attention kernel in the
-    built library's SASS (``cuobjdump -sass``); fail if a bf16 attention
-    kernel has none."""
+    """Count the tensor-core instructions of each kernel in the built
+    library's SASS (``cuobjdump -sass``) and log those of the attention
+    kernels and of ``MMA_KERNELS``; fail if a kernel of ``MMA_KERNELS`` has
+    none."""
     import re
     import shutil
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
@@ -207,7 +211,7 @@ def check_tensor_cores(lib_path):
         elif name is not None and re.search(r'\bH(G)?MMA\b', line):
             counts[name] += 1
     for fn, n in sorted(counts.items()):
-        if 'attn' in fn:
+        if 'attn' in fn or any(kernel in fn for kernel in MMA_KERNELS):
             log('  sass: {} HMMA/HGMMA instructions in {}'.format(n, fn))
     for kernel in MMA_KERNELS:
         if not any(kernel in fn and n > 0 for fn, n in counts.items()):
@@ -230,12 +234,14 @@ def cuda_ms(fn, iters):
     return statistics.median(times)
 
 
-def compare(label, kernel_fn, plain_fn, bound, iters, library_fn=None):
+def compare(label, kernel_fn, plain_fn, bound, iters, library_fn=None,
+            library_label='library'):
     """Kernel vs plain on the same inputs; returns {err: max_abs_err, ms,
     plain_ms, library_ms}.  ``bound`` is relative to max |plain|; a function
     that returns a tuple (dq, dk, dv) is held output by output, each to its
     own max |plain|.  ``library_fn``, one PyTorch call computing the same
-    function, is timed in the same turns (library_ms None without one)."""
+    function (or another yardstick, logged as ``library_label``), is timed
+    in the same turns (library_ms None without one)."""
     import torch
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
@@ -260,7 +266,8 @@ def compare(label, kernel_fn, plain_fn, bound, iters, library_fn=None):
     ms, plain_ms, *lib = [statistics.median(ts) for ts in times]
     log('{}: max_abs_err {:.3e}, rel {:.3e} (bound {:.0e}); kernel {:.4f} ms, '
         'plain {:.4f} ms{}'.format(label, err, rel, bound, ms, plain_ms,
-                                   ', library {:.4f} ms'.format(lib[0])
+                                   ', {} {:.4f} ms'.format(library_label,
+                                                           lib[0])
                                    if lib else ''))
     if not rel <= bound:
         raise AssertionError('{}: error {:.3e} of max|ref|, above {:.0e}'.format(
@@ -454,38 +461,72 @@ def bottleneck_params(c, ci, kt, g):
             randn(c, ci, 1, 1, 1) * 0.2 * ci ** -0.5, 0.1 * randn(c))
 
 
+def unfused_block(shape, ci, kt, d, p):
+    """The identity block as the default (unfused) path runs it, from the
+    folded weights with unit affine scales: ``models/backbone.py``'s
+    ``Bottleneck`` (three cuDNN convolutions, the affine, ReLU and residual
+    passes) in the flagship spec's bf16."""
+    import torch
+    from lfb_tpu_torch.config import flagship_cfg
+    from lfb_tpu_torch.models.backbone import Bottleneck
+    from lfb_tpu_torch.models.spec import build_spec
+    spec = build_spec(flagship_cfg(CFG_OVERRIDES), 'test')
+    c = shape[-1]
+    params = {}
+    for branch, w, bias in (('a', p[0], p[1]), ('b', p[2], p[3]),
+                            ('c', p[4], p[5])):
+        params['blk_branch2{}_w'.format(branch)] = w
+        params['blk_branch2{}_bn_s'.format(branch)] = torch.ones_like(bias)
+        params['blk_branch2{}_bn_b'.format(branch)] = bias
+    block = Bottleneck(spec, 'blk', dim_in=c, dim_out=c, stride=1,
+                       temp_stride=1, use_temp_conv=kt // 2, dilation=d)
+
+    def run(x):
+        with torch.inference_mode():
+            return block(params, x, False)
+
+    return run
+
+
 def check_bottleneck(g, iters):
     """The fused bottleneck (bf16) vs its plain version (f32 cuDNN
     convolutions on the same bf16-rounded operands, intermediates rounded
     to bf16) at each identity-block shape of R101 at crop 256.  Bound 1e-2
-    of max |plain|: both sides round h1, h2 and the output to bf16 (2^-8)."""
+    of max |plain|: both sides round h1, h2 and the output to bf16 (2^-8).
+    Beside it, the same block as the default bf16 path runs it
+    (:func:`unfused_block`), timed in the same turns."""
     import torch
     from lfb_tpu_torch.ops import cuda_bottleneck as cb
-    err, totals = 0.0, {'flagship': [0.0, 0.0], 'Charades': [0.0, 0.0]}
+    err, totals = 0.0, {'flagship': [0.0, 0.0, 0.0],
+                        'Charades': [0.0, 0.0, 0.0]}
     parts = []
     for label, shape, ci, kt, d, n_ava, n_charades in BLOCKS:
         x = torch.relu(torch.randn(shape, generator=g, device=g.device))
         x = x.to(torch.bfloat16)
         p = bottleneck_params(shape[-1], ci, kt, g)
+        unfused = unfused_block(shape, ci, kt, d, p)
         r = compare(
             'fused_bottleneck {} x{} Ci {} bf16'.format(label, shape, ci),
             lambda: cb.fused_identity_bottleneck(x, *p, temporal_pad=kt // 2,
                                                  dilation=d),
             lambda: cb.fused_identity_bottleneck_plain(
-                x, *p, temporal_pad=kt // 2, dilation=d), 1e-2, iters)
+                x, *p, temporal_pad=kt // 2, dilation=d), 1e-2, iters,
+            lambda: unfused(x), 'unfused bf16 block')
         err = max(err, r['err'])
         for name, n in (('flagship', n_ava), ('Charades', n_charades)):
             totals[name][0] += n * r['ms']
             totals[name][1] += n * r['plain_ms']
+            totals[name][2] += n * r['library_ms']
         pixels, c = x.numel() // shape[-1], shape[-1]
         ms, by = least_ms(2 * pixels * (c * ci * kt + 9 * ci * ci + ci * c),
                           2 * nbytes(x) + 2 * (c * ci * kt + 9 * ci * ci
                                                + ci * c), 'bfloat16')
         parts.append((n_ava * ms, by))
         del x
-    for name, (ms, plain_ms) in totals.items():
+    for name, (ms, plain_ms, unfused_ms) in totals.items():
         log('fused_bottleneck, the 29 launches of one {} forward: kernel '
-            '{:.3f} ms, plain {:.3f} ms'.format(name, ms, plain_ms))
+            '{:.3f} ms, plain {:.3f} ms, the unfused bf16 blocks {:.3f} '
+            'ms'.format(name, ms, plain_ms, unfused_ms))
     return add_bound({'err': err, 'ms': totals['flagship'][0],
                       'plain_ms': totals['flagship'][1], 'library_ms': None,
                       'tolerance': '1e-2'}, parts)

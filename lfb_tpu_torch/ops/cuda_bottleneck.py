@@ -15,8 +15,9 @@ folded into the weights it is
 and the kernel runs it per (clip, frame, band of rows) with h1 and h2 in
 shared memory: x is read once (and again for the residual), the output
 written once, and the Ci-wide intermediates never reach device memory.  On
-the H100 the block is bound by arithmetic, and this first kernel does it
-on the f32 FMA units; see the source for the design.
+the H100 the block is bound by arithmetic: in bf16 its three stages are
+GEMMs on the tensor cores, with the weights in the (K, N) layouts of
+:func:`kernel_weights`; f32 stays on the FMA units (see the source).
 
 Rounding, as the TPU kernel's: weights and biases are cast to x's dtype,
 products accumulate in f32, h1 and h2 are rounded to x's dtype, the
@@ -95,12 +96,7 @@ def fused_identity_bottleneck(x, w2a, b2a, w2b, b2b, w2c, b2c, *,
             dilation=dilation)
     B, T, H, W, C, Ci, kt = _check(x, w2a, w2b, w2c, temporal_pad, dilation)
     dt = x.dtype
-    # The kernel's layouts: (kT * C, Ci), (9 * Ci, Ci) with taps row-major
-    # in (dh, dw), (Ci, C); every operand in x's dtype.
-    wa = w2a.to(dt).permute(2, 1, 0, 3, 4).reshape(kt * C, Ci).contiguous()
-    wb = w2b.to(dt)[:, :, 0].permute(2, 3, 1, 0).reshape(9 * Ci, Ci)
-    wb = wb.contiguous()
-    wc = w2c.to(dt).reshape(C, Ci).t().contiguous()
+    wa, wb, wc = kernel_weights(w2a, w2b, w2c, dt)
     ba, bb, bc = (v.to(device=x.device, dtype=dt).contiguous()
                   for v in (b2a, b2b, b2c))
     if tuple(ba.shape) != (Ci,) or tuple(bb.shape) != (Ci,) or \
@@ -116,6 +112,17 @@ def fused_identity_bottleneck(x, w2a, b2a, w2b, b2b, w2c, b2c, *,
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def kernel_weights(w2a, w2b, w2c, dtype):
+    """The port's conv weights -> the kernel's (K, N) row-major layouts, in
+    ``dtype``: w2a (kT * C, Ci) with rows (tap, c), w2b (9 * Ci, Ci) with
+    rows (dh, dw, ci) row-major in (dh, dw), w2c (Ci, C)."""
+    Ci, C, kt = w2a.shape[:3]
+    wa = w2a.to(dtype).permute(2, 1, 0, 3, 4).reshape(kt * C, Ci)
+    wb = w2b.to(dtype)[:, :, 0].permute(2, 3, 1, 0).reshape(9 * Ci, Ci)
+    wc = w2c.to(dtype).reshape(C, Ci).t()
+    return wa.contiguous(), wb.contiguous(), wc.contiguous()
 
 
 def _check(x, w2a, w2b, w2c, temporal_pad, dilation):

@@ -11,17 +11,20 @@ Forward: replaces ``lfb_tpu/ops/pallas_stem.py:stem_conv_s2d`` (kernel
 What bounds it on an H100: with Cin = 3 each output needs only kT * 147
 multiply-adds of a tiny weight set, so the work is FMA issue and
 shared-memory traffic rather than device memory (the input is read about
-once per temporal tap).  The TPU's 2x2 space-to-depth packing existed to
-fill the 128-lane MXU and is not carried over.  The kernel is a direct
-conv: per CTA one (clip, frame, band of output rows), the input halo and one
-temporal tap's weights staged in shared memory, 4 pixels x 16 channels of
-accumulators per thread.  It takes any crop whose output width is at most
-256 (224, 256 and 320 all are); the TPU envelope (H/2 % 16 == 0,
-W/2 <= 128) is gone.  The weight gradient has the same arithmetic shape
-(47,040 outputs, each a sum over B * T * Ho * Wo positions): one CTA per
-(frame, temporal tap) keeps a 3 x 16 slice of one 7 x 7 tap per thread in
-registers and writes the frame's partial dW; a second launch sums the
-partials in frame order, so no sum crosses CTAs.
+once per temporal tap).  The forward kernel is a direct conv: per CTA one
+(clip, frame, band of output rows), the input halo and one temporal tap's
+weights staged in shared memory, 4 pixels x 16 channels of accumulators per
+thread.  It takes any crop whose output width is at most 256 (224, 256 and
+320 all are); the TPU envelope (H/2 % 16 == 0, W/2 <= 128) is gone.
+
+The weight gradient is a product per frame and temporal tap, reduced over
+the frame's output pixels: one CTA per (frame, temporal tap) writes the
+frame's partial dW and a second launch sums the partials in frame order, so
+no sum crosses CTAs and the result does not change from run to run.  In
+bf16 it runs on the tensor cores over the TPU kernel's space-to-depth
+packing (:func:`pack_x_s2d`, :func:`unpack_dw_s2d`; ``pallas_stem.py``'s
+``_pack_x`` / ``_unpack_dw4``), which the wrapper does with PyTorch ops; in
+f32 on the FMA units, from x as it is.
 """
 
 from __future__ import annotations
@@ -42,6 +45,34 @@ _LAUNCHERS = {torch.float32: 'lfb_stem_conv_f32',
 _DW_LAUNCHERS = {torch.float32: 'lfb_stem_conv_dw_f32',
                  torch.bfloat16: 'lfb_stem_conv_dw_bf16'}
 _TAP_W = 7 * 7 * 3 * 64
+_S2D_TAP_W = 4 * 4 * 16 * 64
+
+
+def pack_x_s2d(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, 3) -> (B, T, Ho + 3, Wo + 3, 16), Ho = ceil(H / 2):
+    packed pixel (r, c) holds input pixels (2 r + hp - 4, 2 c + wp - 4) for
+    hp, wp in {0, 1}, channels ordered (hp, wp, ci) and zero-padded from 12
+    to 16; input outside the image is 0.  The stride-2 7 x 7 stem conv is
+    a stride-1 4 x 4 conv over this (taps padded to 8 x 8 with a leading
+    zero): output (ho, wo) reads packed pixel (ho + dh, wo + dw)."""
+    B, T, H, W, C = x.shape
+    hp, wp = (H + 1) // 2 + 3, (W + 1) // 2 + 3
+    xp = torch.nn.functional.pad(
+        x, (0, 0, 4, 2 * wp - W - 4, 4, 2 * hp - H - 4))
+    xp = xp.view(B, T, hp, 2, wp, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
+    out = x.new_zeros((B, T, hp, wp, 16))
+    out[..., :4 * C] = xp.reshape(B, T, hp, wp, 4 * C)
+    return out
+
+
+def unpack_dw_s2d(dw4: torch.Tensor) -> torch.Tensor:
+    """dW over the packed taps, (kT, 4, 4, 16, 64) as (kt, dh, dw, (hp, wp,
+    ci), co), -> (kT, 7, 7, 3, 64): tap kh = 2 dh + hp - 1, kw = 2 dw + wp
+    - 1; the leading zero tap and the padded channels are dropped."""
+    kt = dw4.shape[0]
+    d = dw4.reshape(kt, 4, 4, 16, 64)[:, :, :, :12]
+    d = d.reshape(kt, 4, 4, 2, 2, 3, 64).permute(0, 1, 3, 2, 4, 5, 6)
+    return d.reshape(kt, 8, 8, 3, 64)[:, 1:, 1:]
 
 
 def stem_conv_plain(x: torch.Tensor, w: torch.Tensor,
@@ -99,14 +130,21 @@ def stem_conv_dw(x: torch.Tensor, g: torch.Tensor, kt: int) -> torch.Tensor:
                          '{} (got {} {} on {})'.format(
                              (B, T, Ho, Wo, 64), x.dtype, x.device,
                              tuple(g.shape), g.dtype, g.device))
-    partial = torch.empty((kt * B * T * _TAP_W,), dtype=torch.float32,
+    if B * T > 65535:
+        raise ValueError('stem_conv_dw: at most 65535 frames (got {})'.format(
+            B * T))
+    packed = x.dtype == torch.bfloat16
+    x_k = pack_x_s2d(x) if packed else x
+    tap_w = _S2D_TAP_W if packed else _TAP_W
+    partial = torch.empty((kt * B * T * tap_w,), dtype=torch.float32,
                           device=x.device)
-    dw_k = torch.empty((kt, 7, 7, 3, 64), dtype=torch.float32, device=x.device)
+    dw_k = torch.empty((kt, tap_w), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        cuda_build.launch(_DW_LAUNCHERS[x.dtype], x.data_ptr(), g.data_ptr(),
+        cuda_build.launch(_DW_LAUNCHERS[x.dtype], x_k.data_ptr(), g.data_ptr(),
                           partial.data_ptr(), dw_k.data_ptr(), B, T, H, W, kt)
     global DW_LAUNCHES
     DW_LAUNCHES += 1
+    dw_k = unpack_dw_s2d(dw_k) if packed else dw_k.view(kt, 7, 7, 3, 64)
     return dw_k.permute(4, 3, 0, 1, 2).contiguous()
 
 

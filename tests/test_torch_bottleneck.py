@@ -12,6 +12,10 @@ against lfb_tpu on the CPU.
   (h1, h2 and the output each rounded to bf16, 2^-8 relative).
 * ``fold_bottleneck_params`` against lfb_tpu's, after ``params_from_jax``:
   1e-6 (the same f32 products).
+* ``kernel_weights``, the weight layout the CUDA kernel streams, against
+  lfb_tpu's kernel layouts (exact), and the block computed the way the
+  bf16 kernel does (products per temporal tap and per shifted 3 x 3 tap
+  over the ``kernel_weights`` matrices) against the plain version: 1e-5.
 * The port's ``Bottleneck`` with ``use_pallas_bottleneck`` against lfb_tpu's
   ``_bottleneck`` (the unfused XLA block on the CPU): 1e-4, as above.
 """
@@ -158,6 +162,56 @@ def test_fold_matches_lfb_tpu(kt):
     jp['res4_1_branch2a_w'] = np.zeros((kt, 3, 1, 64, 16), 'f')
     assert cuda_bottleneck.fold_bottleneck_params(params_from_jax(jp, 'cpu'),
                                                   'res4_1') is None
+
+
+@pytest.mark.parametrize('kt', [1, 3])
+def test_kernel_weights_are_lfb_tpu_kernel_layouts(kt):
+    """``kernel_weights`` (the (K, N) matrices the CUDA kernel streams) of
+    the port's conv weights are lfb_tpu's kernel layouts, flattened: w2a
+    (kT * C, Ci), w2b (9 * Ci, Ci), w2c (Ci, C); exact."""
+    rng = np.random.RandomState(kt + 5)
+    p = block_params(rng, kt)
+    wa, wb, wc = cuda_bottleneck.kernel_weights(
+        *port_layout(p)[0:5:2], torch.float32)
+    np.testing.assert_array_equal(wa.numpy(), p['w2a'].reshape(kt * C, CI))
+    np.testing.assert_array_equal(wb.numpy(), p['w2b'].reshape(9 * CI, CI))
+    np.testing.assert_array_equal(wc.numpy(), p['w2c'])
+
+
+@pytest.mark.parametrize('kt,d,shape', [
+    (3, 1, (B, T, H, W)), (1, 2, (B, T, H, W)), (3, 2, (1, 3, 7, 5))])
+def test_block_as_the_kernel_computes_it_matches_the_plain_version(kt, d,
+                                                                   shape):
+    """The bf16 kernel's formulation on the CPU, in f32: branch2a as one
+    product per temporal tap, branch2b as one per (dh, dw) tap over h1
+    shifted by (dh d, dw d) with zeros outside the image, branch2c, from the
+    matrices of ``kernel_weights``: within 1e-5 of
+    ``fused_identity_bottleneck_plain`` (the same sums in other orders)."""
+    rng = np.random.RandomState(11)
+    p = port_layout(block_params(rng, kt, b2a_shift=1.0))
+    x = torch.from_numpy(rng.randn(*shape, C).astype('f'))
+    wa, wb, wc = cuda_bottleneck.kernel_weights(p[0], p[2], p[4],
+                                                torch.float32)
+    b_, t_, h_, w_ = shape
+    h1 = torch.zeros(b_, t_, h_, w_, CI)
+    for tap in range(kt):
+        src = torch.zeros_like(x)
+        lo, hi = max(0, kt // 2 - tap), min(t_, t_ + kt // 2 - tap)
+        src[:, lo:hi] = x[:, lo + tap - kt // 2:hi + tap - kt // 2]
+        h1 += src @ wa[tap * C:(tap + 1) * C]
+    h1 = torch.relu(h1 + p[1])
+    padded = torch.nn.functional.pad(h1, (0, 0, d, d, d, d))
+    h2 = torch.zeros_like(h1)
+    for tap in range(9):
+        dh, dw = divmod(tap, 3)
+        h2 += padded[:, :, dh * d:dh * d + h_, dw * d:dw * d + w_] @ \
+            wb[tap * CI:(tap + 1) * CI]
+    h2 = torch.relu(h2 + p[3])
+    got = torch.relu(h2 @ wc + p[5] + x)
+    ref = cuda_bottleneck.fused_identity_bottleneck_plain(
+        x, *p, temporal_pad=kt // 2, dilation=d)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize('use_temp_conv,d', [(1, 1), (0, 2)])

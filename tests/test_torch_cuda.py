@@ -16,7 +16,7 @@ to max |plain|: 1e-5 for f32 outputs, 1e-2 for bf16 outputs (each side
 rounds an f32 accumulation to bf16); the backward kernels' outputs are f32
 from the same inputs on both sides, 1e-5 (attention in bf16: 1e-2, the
 bound of the working type, as ``chip_smoke.py`` holds it; stem dW in f32:
-1e-4, sums of up to 51,200 products).  The fused bottleneck: 1e-5 in f32
+1e-4, sums of up to 125,440 products).  The fused bottleneck: 1e-5 in f32
 (three chained sums of at most 6,144 products, in other orders), 1e-2 in
 bf16 (both sides round h1, h2 and the output to bf16).
 """
@@ -276,18 +276,30 @@ def test_roi_bwd_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('crop,kt', [(224, 5), (256, 3), (320, 1),
-                                     (224, 1), (21, 3)])
-def test_stem_dw_kernel_matches_plain(dev, dtype, crop, kt):
-    x = rand((1, 3, crop, crop + 2, 3), dev, dtype=dtype)
+@pytest.mark.parametrize('B,T,crop,kt', [
+    (1, 3, 224, 5), (1, 3, 256, 3), (1, 3, 320, 1), (1, 3, 224, 1),
+    (1, 3, 21, 3),
+    (2, 5, 224, 5),          # 10 frames: the reduction across frames, clips
+    (3, 4, 64, 5)])
+def test_stem_dw_kernel_matches_plain(dev, dtype, B, T, crop, kt):
+    x = rand((B, T, crop, crop + 2, 3), dev, dtype=dtype)
     ho, wo = (crop - 1) // 2 + 1, (crop + 1) // 2 + 1
-    g = rand((1, 3, ho, wo, 64), dev, seed=1, dtype=dtype)
+    g = rand((B, T, ho, wo, 64), dev, seed=1, dtype=dtype)
     before = cuda_stem.DW_LAUNCHES
     got = cuda_stem.stem_conv_dw(x, g, kt)
     assert cuda_stem.DW_LAUNCHES == before + 1
     assert got.shape == (64, 3, kt, 7, 7) and got.dtype == torch.float32
     assert_close(got, cuda_stem.stem_conv_dw_plain(x, g, kt),
                  1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_stem_dw_kernel_is_deterministic(dev, dtype):
+    """No float atomics: the same input gives the same bits."""
+    x = rand((2, 4, 224, 224, 3), dev, dtype=dtype)
+    g = rand((2, 4, 112, 112, 64), dev, seed=1, dtype=dtype)
+    first = cuda_stem.stem_conv_dw(x, g, 5)
+    assert torch.equal(first, cuda_stem.stem_conv_dw(x, g, 5))
 
 
 def test_stem_dw_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -301,6 +313,9 @@ def test_stem_dw_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):                 # output wider than 256
         cuda_stem.stem_conv_dw(rand((1, 1, 8, 520, 3), dev),
                                rand((1, 1, 4, 260, 64), dev), 1)
+    with pytest.raises(ValueError):                 # more than 65535 frames
+        cuda_stem.stem_conv_dw(rand((256, 257, 2, 2, 3), dev),
+                               rand((256, 257, 1, 1, 64), dev), 1)
 
 
 def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
@@ -410,6 +425,8 @@ def bottleneck_params(c, ci, kt, dev, seed=0, b2a_shift=0.0):
     ((1, 4, 40, 40, 512), 128, 3, 1, 0.0),     # res3
     ((1, 4, 20, 20, 1024), 256, 1, 1, 0.0),    # res4
     ((1, 2, 20, 20, 2048), 512, 1, 1, 0.0),    # res5, undilated
+    ((1, 2, 16, 16, 2048), 512, 3, 2, 0.0),    # crop 256: res5, dilated
+    ((2, 3, 10, 21, 512), 128, 1, 1, 3.0),     # W not a multiple of 8
 ])
 def test_fused_bottleneck_matches_plain(dev, dtype, shape, ci, kt, d,
                                         b2a_shift):

@@ -384,6 +384,69 @@ def test_stem_dw_plain_matches_the_pallas_kernel(interpret):
 
 
 # --------------------------------------------------------------------------- #
+# The space-to-depth packing of the bf16 stem dW kernel against lfb_tpu's
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize('temporal_pad', [0, 2])
+def test_stem_s2d_pack_matches_lfb_tpu(temporal_pad):
+    """``pack_x_s2d`` holds lfb_tpu's ``_pack_x`` (which drops the left
+    column halo and pads the columns to 128 lanes); exact."""
+    B, T, H, W = 2, 3, 20, 14
+    x = rand(B, T, H, W, 3, seed=3)
+    ref = np.asarray(pallas_stem._pack_x(jnp.asarray(x), temporal_pad,
+                                         jnp.float32))
+    hp, wp = H // 2, W // 2
+    ref = ref.reshape(B, T + 2 * temporal_pad, 16, hp + 3, 128)
+    ref = ref[:, temporal_pad:temporal_pad + T, :, :, :wp].transpose(
+        0, 1, 3, 4, 2)
+    got = cuda_stem.pack_x_s2d(t(x)).numpy()
+    assert got.shape == (B, T, hp + 3, wp + 3, 16)
+    np.testing.assert_array_equal(got[:, :, :, 2:2 + wp], ref)
+    assert not got[:, :, :, :2].any() and not got[:, :, :, 2 + wp:].any()
+
+
+@pytest.mark.parametrize('kt', [1, 5])
+def test_stem_s2d_unpack_matches_lfb_tpu(kt):
+    """``unpack_dw_s2d`` inverts the same packing as lfb_tpu's
+    ``_unpack_dw4`` (whose packed dW is (kt, dh, c2) x (dw, co)); exact."""
+    dw4 = rand(kt * 4 * 16, 4 * 64, seed=kt)
+    ref = np.asarray(pallas_stem._unpack_dw4(jnp.asarray(dw4), kt, 3, 64))
+    mine = dw4.reshape(kt, 4, 16, 4, 64).transpose(0, 1, 3, 2, 4)
+    np.testing.assert_array_equal(cuda_stem.unpack_dw_s2d(t(mine)).numpy(),
+                                  ref)
+
+
+@pytest.mark.parametrize('H,W,kt', [(20, 18, 5), (21, 23, 3), (9, 12, 1)])
+def test_stem_dw_over_the_s2d_packing_matches_lfb_tpu(H, W, kt):
+    """The bf16 kernel's arithmetic on the CPU: dW of the packed 4 x 4 taps
+    as one product per (frame, temporal tap, tap) over the packed x and g,
+    unpacked, against ``jax.grad`` of lfb_tpu's conv: 1e-4 (odd sizes
+    too)."""
+    x = rand(2, 3, H, W, 3, seed=4)
+    ho, wo = (H + 1) // 2, (W + 1) // 2
+    g = rand(2, 3, ho, wo, 64, seed=5)
+    xs = cuda_stem.pack_x_s2d(t(x))
+    dw4 = torch.zeros(kt, 4, 4, 16, 64)
+    for k in range(kt):
+        for f in range(3):
+            tin = f + k - kt // 2
+            if 0 <= tin < 3:
+                for tap in range(16):
+                    dh, dw = divmod(tap, 4)
+                    dw4[k, dh, dw] += torch.einsum(
+                        'bhwc,bhwo->co', xs[:, tin, dh:dh + ho, dw:dw + wo],
+                        t(g[:, f]))
+
+    def jloss(w):
+        out = jax_conv3d(jnp.asarray(x), w, strides=(1, 2, 2),
+                         padding=(kt // 2, 3, 3))
+        return jnp.sum(out * g)
+
+    ref = jax.grad(jloss)(jnp.zeros((kt, 7, 7, 3, 64), jnp.float32))
+    close(cuda_stem.unpack_dw_s2d(dw4), ref, 1e-4)
+
+
+# --------------------------------------------------------------------------- #
 # The whole step
 # --------------------------------------------------------------------------- #
 
