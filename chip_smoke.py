@@ -10,10 +10,11 @@ away from the rest of the repository, it exits non-zero before printing any
 result):
 
 1. Print the card's name and power limit, build the CUDA kernels of
-   ``lfb_tpu_torch/csrc`` and print the build time, ptxas's registers and
-   spills, and the tensor-core instructions (HMMA, HGMMA) that
-   ``cuobjdump -sass`` finds in each attention kernel, the stem weight
-   gradient and the fused bottleneck: the bf16 ones must have some.
+   ``lfb_tpu_torch/csrc`` and print the build time, ptxas's registers,
+   spills and wgmma notes, and the tensor-core instructions (HMMA, HGMMA)
+   that ``cuobjdump -sass`` finds in each attention kernel, the stem
+   forward and weight gradient and the fused bottleneck: the bf16 ones
+   must have some, and the stem forward HGMMA (``wgmma``).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    flagship shapes (every attention regime; the fused bottleneck at every
    identity-block shape of R101 at crop 256), and time both (median of
@@ -23,7 +24,8 @@ result):
    backends that takes the shape; beside the fused bottleneck, the same
    block as the unfused bf16 path runs it), and the kernel's bound: the
    larger of its operations over the card's peak for their type and its
-   bytes over the memory rate.
+   bytes over the memory rate.  The stem forward is also timed, and its
+   rate logged, at the train step's shape.
 3. Hold the full-width model on the card (f32, kernels) against the same
    model on the CPU (f32, plain versions) on one clip: the flagship, and
    Charades with the fused bottleneck.
@@ -179,24 +181,27 @@ def preamble():
         cuda_build.library_path().name, time.perf_counter() - t0,
         cuda_build.build_seconds))
     for line in cuda_build.build_log.splitlines():
-        if 'registers' in line or 'spill' in line or 'Compiling' in line:
+        if any(key in line for key in ('registers', 'spill', 'Compiling',
+                                       'wgmma', 'Performance')):
             log('  ptxas: ' + line.strip())
     check_tensor_cores(cuda_build.library_path())
 
 
 # The bf16 kernels that must run on the tensor cores (HMMA is the SASS of
 # mma.sync, HGMMA of wgmma): attention forward and backward, the stem
-# weight gradient and the fused bottleneck.
+# forward and weight gradient and the fused bottleneck; those of
+# WGMMA_KERNELS must have HGMMA.
 MMA_KERNELS = ('attn_mma_kernel', 'attn_bwd_dkdv_mma_kernel',
-               'attn_bwd_dq_mma_kernel', 'stem_dw_mma_kernel',
-               'fused_bottleneck_mma_kernel')
+               'attn_bwd_dq_mma_kernel', 'stem_conv_wgmma_kernel',
+               'stem_dw_mma_kernel', 'fused_bottleneck_mma_kernel')
+WGMMA_KERNELS = ('stem_conv_wgmma_kernel',)
 
 
 def check_tensor_cores(lib_path):
-    """Count the tensor-core instructions of each kernel in the built
-    library's SASS (``cuobjdump -sass``) and log those of the attention
-    kernels and of ``MMA_KERNELS``; fail if a kernel of ``MMA_KERNELS`` has
-    none."""
+    """Count the tensor-core instructions (HMMA, HGMMA) of each kernel in
+    the built library's SASS (``cuobjdump -sass``) and log those of the
+    attention kernels and of ``MMA_KERNELS``; fail if a kernel of
+    ``MMA_KERNELS`` has none, or one of ``WGMMA_KERNELS`` no HGMMA."""
     import re
     import shutil
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
@@ -207,15 +212,24 @@ def check_tensor_cores(lib_path):
         m = re.match(r'\s*Function : (\S+)', line)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name is not None and re.search(r'\bH(G)?MMA\b', line):
-            counts[name] += 1
+            counts[name] = {'HMMA': 0, 'HGMMA': 0}
+        elif name is not None:
+            m = re.search(r'\b(HG?MMA)\b', line)
+            if m:
+                counts[name][m.group(1)] += 1
     for fn, n in sorted(counts.items()):
         if 'attn' in fn or any(kernel in fn for kernel in MMA_KERNELS):
-            log('  sass: {} HMMA/HGMMA instructions in {}'.format(n, fn))
+            log('  sass: {} HMMA, {} HGMMA instructions in {}'.format(
+                n['HMMA'], n['HGMMA'], fn))
     for kernel in MMA_KERNELS:
-        if not any(kernel in fn and n > 0 for fn, n in counts.items()):
+        if not any(kernel in fn and sum(n.values()) > 0
+                   for fn, n in counts.items()):
             raise AssertionError('{}: no tensor-core instruction in its '
+                                 'SASS'.format(kernel))
+    for kernel in WGMMA_KERNELS:
+        if not any(kernel in fn and n['HGMMA'] > 0
+                   for fn, n in counts.items()):
+            raise AssertionError('{}: no HGMMA (wgmma) in its '
                                  'SASS'.format(kernel))
 
 
@@ -396,6 +410,19 @@ def check_kernels(iters=TIMING_ITERS):
         r, tolerance='1e-2',
         library='F.conv3d (cuDNN, bf16, channels-last)'), [least_ms(
         2 * out_elems * 735, nbytes(x, w) + 2 * out_elems, 'bfloat16')])
+    log_stem_rate(r['ms'], out_elems, 5)
+    del x, x_cl
+    # The train step's shape (B = 8, crop 224), logged only.
+    x = torch.randint(0, 256, (TRAIN_B, 32, 224, 224, 3), generator=g,
+                      device=dev)
+    x = ((x.float() / 255 - 0.45) / 0.225).to(torch.bfloat16)
+    x_cl = x.permute(0, 4, 1, 2, 3)
+    r = compare(
+        'stem_conv x{} bf16 (train shape)'.format(tuple(x.shape)),
+        lambda: cuda_stem.stem_conv(x, w, temporal_pad=2),
+        lambda: cuda_stem.stem_conv_plain(x, w, 2), 1e-2, iters,
+        lambda: F.conv3d(x_cl, w_cl, None, (1, 2, 2), (2, 3, 3)))
+    log_stem_rate(r['ms'], TRAIN_B * 32 * 112 * 112 * 64, 5)
     del x, x_cl
 
     fmap = torch.relu(torch.randn((B, 16, 16, 2048), generator=g, device=dev))
@@ -445,6 +472,17 @@ def check_kernels(iters=TIMING_ITERS):
     del q, k, v
     results['fused_bottleneck'] = check_bottleneck(g, iters)
     return results
+
+
+def log_stem_rate(ms, out_elems, kt):
+    """The stem forward's rate: the direct conv's operations (kT x 147
+    multiply-adds per output), and those of the product over the
+    space-to-depth packing that the bf16 kernel runs (kT x 256)."""
+    log('  stem_conv: {:.0f} TFLOP/s of the direct conv ({:.0f} GFLOP), {:.0f} '
+        'TFLOP/s of the packed product ({:.0f} GFLOP)'.format(
+            2 * out_elems * kt * 147 / ms / 1e9, 2 * out_elems * kt * 147 / 1e9,
+            2 * out_elems * kt * 256 / ms / 1e9,
+            2 * out_elems * kt * 256 / 1e9))
 
 
 def bottleneck_params(c, ci, kt, g):

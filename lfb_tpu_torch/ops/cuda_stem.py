@@ -8,23 +8,25 @@ Forward: replaces ``lfb_tpu/ops/pallas_stem.py:stem_conv_s2d`` (kernel
 -> Cout 64, channels-last, f32 accumulation.  Weight gradient: replaces
 ``pallas_stem.py:stem_conv_s2d_dw`` (kernel ``_stem_dw_kernel``).
 
-What bounds it on an H100: with Cin = 3 each output needs only kT * 147
-multiply-adds of a tiny weight set, so the work is FMA issue and
-shared-memory traffic rather than device memory (the input is read about
-once per temporal tap).  The forward kernel is a direct conv: per CTA one
-(clip, frame, band of output rows), the input halo and one temporal tap's
-weights staged in shared memory, 4 pixels x 16 channels of accumulators per
-thread.  It takes any crop whose output width is at most 256 (224, 256 and
-320 all are); the TPU envelope (H/2 % 16 == 0, W/2 <= 128) is gone.
+Both run over the TPU kernel's space-to-depth packing in bf16
+(:func:`pack_x_s2d`, :func:`pack_w_s2d`, :func:`unpack_dw_s2d`;
+``pallas_stem.py``'s ``_pack_x`` / ``_pack_w`` / ``_unpack_dw4``), which
+makes the stride-2 7 x 7 x 3 conv a stride-1 4 x 4 conv over 16 channels:
+every (dh, dw) tap is one k16 tensor-core operand.  The forward is an
+implicit GEMM on ``wgmma`` (pixels x 64 channels, K = kT x 256) that packs
+x inside the kernel, with every temporal tap's packed weights (from
+:func:`pack_w_s2d`, at most 160 KB: kT <= 5) resident in shared memory.
+It takes any crop whose output width is at most 256 (224, 256 and 320 all
+are); the TPU envelope (H/2 % 16 == 0, W/2 <= 128) is gone.  In f32 both
+stay on the FMA units (the f32 paths are held to the CPU at 1e-4, which
+TF32 would break): a direct conv per (clip, frame, band of output rows).
 
 The weight gradient is a product per frame and temporal tap, reduced over
 the frame's output pixels: one CTA per (frame, temporal tap) writes the
 frame's partial dW and a second launch sums the partials in frame order, so
 no sum crosses CTAs and the result does not change from run to run.  In
-bf16 it runs on the tensor cores over the TPU kernel's space-to-depth
-packing (:func:`pack_x_s2d`, :func:`unpack_dw_s2d`; ``pallas_stem.py``'s
-``_pack_x`` / ``_unpack_dw4``), which the wrapper does with PyTorch ops; in
-f32 on the FMA units, from x as it is.
+bf16 it runs on ``mma.sync`` over x packed by :func:`pack_x_s2d` in the
+wrapper.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ LAUNCHES = 0
 DW_LAUNCHES = 0
 
 MAX_OUT_WIDTH = 256
+MAX_BF16_KT = 5           # the bf16 forward keeps every tap's weights resident
 _LAUNCHERS = {torch.float32: 'lfb_stem_conv_f32',
               torch.bfloat16: 'lfb_stem_conv_bf16'}
 _DW_LAUNCHERS = {torch.float32: 'lfb_stem_conv_dw_f32',
@@ -75,6 +78,26 @@ def unpack_dw_s2d(dw4: torch.Tensor) -> torch.Tensor:
     return d.reshape(kt, 8, 8, 3, 64)[:, 1:, 1:]
 
 
+def pack_w_s2d(w: torch.Tensor) -> torch.Tensor:
+    """(64, 3, kT, 7, 7) -> the bf16 forward kernel's weights (in w's
+    dtype), (kT, 4, 4, 8, 2, 8, 8) as (kt, dh, dw, co // 8, c16 // 8, co %
+    8, c16 % 8).
+
+    That is W4[kt, dh, dw, c16, co], ``pallas_stem._pack_w``'s packing (tap
+    kh = 2 dh + hp - 1, kw = 2 dw + wp - 1 with a leading zero tap, c16 =
+    (hp, wp, ci) zero-padded from 12 to 16), with each tap's 16 x 64 slice
+    cut into the 8 x 8 core matrices of a K-major ``wgmma`` B operand
+    without swizzle: core matrix (co // 8, c16 // 8) at byte (2 (co // 8) +
+    c16 // 8) * 128 of the tap's 2 KB, row co % 8 at 16 bytes each."""
+    kt = w.shape[2]
+    w = w.permute(2, 3, 4, 1, 0)                        # (kt, 7, 7, 3, 64)
+    w = torch.nn.functional.pad(w, (0, 0, 0, 0, 1, 0, 1, 0))   # 8 x 8 taps
+    w = w.reshape(kt, 4, 2, 4, 2, 3, 64).permute(0, 1, 3, 2, 4, 5, 6)
+    w = torch.nn.functional.pad(w.reshape(kt, 4, 4, 12, 64), (0, 0, 0, 4))
+    return w.reshape(kt, 4, 4, 2, 8, 8, 8).permute(0, 1, 2, 5, 3, 6,
+                                                    4).contiguous()
+
+
 def stem_conv_plain(x: torch.Tensor, w: torch.Tensor,
                     temporal_pad: int) -> torch.Tensor:
     return conv3d(x, w, strides=(1, 2, 2), padding=(temporal_pad, 3, 3))
@@ -102,9 +125,10 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor, *,
     _check(x, w, temporal_pad)
     B, T, H, W, _ = x.shape
     kt = w.shape[2]
-    # (Cout, Cin, kT, 7, 7) -> (kT, 7, 7, Cin, Cout) f32, rounded to x's
-    # dtype first so the kernel multiplies the same weights as cuDNN would.
-    w_k = w.to(x.dtype).float().permute(2, 3, 4, 1, 0).contiguous()
+    if x.dtype == torch.bfloat16:
+        w_k = pack_w_s2d(w.to(torch.bfloat16))
+    else:   # (Cout, Cin, kT, 7, 7) -> (kT, 7, 7, Cin, Cout)
+        w_k = w.float().permute(2, 3, 4, 1, 0).contiguous()
     Ho, Wo = (H - 1) // 2 + 1, (W - 1) // 2 + 1
     out = torch.empty((B, T, Ho, Wo, 64), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
@@ -192,6 +216,9 @@ def _check(x, w, temporal_pad) -> None:
                          '{}, w {})'.format(tuple(x.shape), tuple(w.shape)))
     if temporal_pad != w.shape[2] // 2:
         raise ValueError('stem_conv: temporal_pad must be kT // 2')
+    if x.dtype == torch.bfloat16 and w.shape[2] > MAX_BF16_KT:
+        raise ValueError('stem_conv: the bf16 kernel takes kT <= {} (got '
+                         '{})'.format(MAX_BF16_KT, w.shape[2]))
     _check_shape(x, w.shape[2])
 
 

@@ -127,7 +127,11 @@ def test_roi_wrapper_refuses_what_the_kernel_does_not_take(dev):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape,kt', [
     ((2, 4, 20, 18, 3), 5), ((1, 3, 21, 19, 3), 1),
-    ((1, 2, 224, 224, 3), 5), ((1, 2, 320, 320, 3), 5)])
+    ((1, 2, 224, 224, 3), 5), ((1, 2, 320, 320, 3), 5),
+    ((2, 8, 256, 256, 3), 5), ((2, 8, 256, 256, 3), 3),   # crop 256
+    ((1, 2, 512, 512, 3), 5),      # Wo = 256, the envelope's edge
+    ((1, 2, 510, 510, 3), 5),      # Wo = 255: blocks of one output row
+    ((3, 7, 200, 136, 3), 5)])     # 567 blocks: not a multiple of the SMs
 def test_stem_kernel_matches_plain(dev, dtype, shape, kt):
     x = rand(shape, dev, dtype=dtype)
     w = rand((64, 3, kt, 7, 7), dev, seed=1) * (2 / (kt * 147)) ** 0.5
@@ -138,6 +142,27 @@ def test_stem_kernel_matches_plain(dev, dtype, shape, kt):
     assert_close(got, cuda_stem.stem_conv_plain(x, w, kt // 2), bound)
 
 
+def test_stem_kernel_takes_an_unaligned_input(dev):
+    """x 2 bytes past a 4-byte boundary: the bf16 kernel reads it by 2-byte
+    loads instead of 4-byte copies."""
+    shape = (1, 3, 40, 36, 3)
+    n = int(np.prod(shape))
+    x = rand((n + 1,), dev, dtype=torch.bfloat16)[1:].view(shape)
+    w = rand((64, 3, 5, 7, 7), dev, seed=1) * (2 / 735) ** 0.5
+    assert_close(cuda_stem.stem_conv(x, w, temporal_pad=2),
+                 cuda_stem.stem_conv_plain(x, w, 2), 1e-2)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_stem_kernel_is_deterministic(dev, dtype):
+    """Each output is one CTA's sum in a fixed order: two launches on the
+    same input give the same bits."""
+    x = rand((2, 8, 224, 224, 3), dev, dtype=dtype)
+    w = rand((64, 3, 5, 7, 7), dev, seed=1) * (2 / 735) ** 0.5
+    first = cuda_stem.stem_conv(x, w, temporal_pad=2)
+    assert torch.equal(first, cuda_stem.stem_conv(x, w, temporal_pad=2))
+
+
 def test_stem_wrapper_refuses_what_the_kernel_does_not_take(dev):
     w = rand((64, 3, 5, 7, 7), dev)
     with pytest.raises(ValueError):                 # output wider than 256
@@ -146,6 +171,9 @@ def test_stem_wrapper_refuses_what_the_kernel_does_not_take(dev):
         cuda_stem.stem_conv(rand((1, 4, 8, 8, 3), dev), w, temporal_pad=1)
     with pytest.raises(ValueError):                 # 4 input channels
         cuda_stem.stem_conv(rand((1, 4, 8, 8, 4), dev), w, temporal_pad=2)
+    with pytest.raises(ValueError):                 # bf16 with kT above 5
+        cuda_stem.stem_conv(rand((1, 4, 8, 8, 3), dev, dtype=torch.bfloat16),
+                            rand((64, 3, 7, 7, 7), dev), temporal_pad=3)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

@@ -446,6 +446,74 @@ def test_stem_dw_over_the_s2d_packing_matches_lfb_tpu(H, W, kt):
     close(cuda_stem.unpack_dw_s2d(dw4), ref, 1e-4)
 
 
+def unpack_w_desc(w_desc):
+    """``pack_w_s2d``'s core-matrix layout (kt, dh, dw, co // 8, c16 // 8,
+    co % 8, c16 % 8) back to W4 (kt, dh, dw, c16, co)."""
+    kt = w_desc.shape[0]
+    return w_desc.permute(0, 1, 2, 4, 6, 3, 5).reshape(kt, 4, 4, 16, 64)
+
+
+@pytest.mark.parametrize('kt', [1, 3, 5])
+def test_stem_pack_w_matches_lfb_tpu(kt):
+    """``pack_w_s2d`` holds lfb_tpu's ``_pack_w`` (whose packed weights are
+    (kt, dh, c16) x (dw, co)) through the documented core-matrix
+    permutation; exact."""
+    w = rand(kt, 7, 7, 3, 64, seed=kt)
+    ref = np.asarray(pallas_stem._pack_w(jnp.asarray(w), jnp.float32))
+    ref = ref.reshape(kt, 4, 16, 4, 64).transpose(0, 1, 3, 2, 4)
+    got = cuda_stem.pack_w_s2d(t(tpu_to_c2('conv1_w', w)))
+    assert tuple(got.shape) == (kt, 4, 4, 8, 2, 8, 8)
+    np.testing.assert_array_equal(unpack_w_desc(got).numpy(), ref)
+
+
+def stem_over_the_s2d_packing(x, w, kt):
+    """The bf16 forward kernel's arithmetic on the CPU in f32: out (b, t,
+    ho, wo) = sum over the temporal taps whose frame t + kt - kT/2 exists
+    and the 16 (dh, dw) taps of packed pixel (ho + dh, wo + dw) of
+    ``pack_x_s2d(x)`` . W4 of ``pack_w_s2d(w)``."""
+    B, T, H, W, _ = x.shape
+    ho, wo = (H + 1) // 2, (W + 1) // 2
+    xs = cuda_stem.pack_x_s2d(t(x))
+    w4 = unpack_w_desc(cuda_stem.pack_w_s2d(t(tpu_to_c2('conv1_w', w))))
+    out = torch.zeros(B, T, ho, wo, 64)
+    for f in range(T):
+        for k in range(kt):
+            tin = f + k - kt // 2
+            if 0 <= tin < T:
+                for tap in range(16):
+                    dh, dw = divmod(tap, 4)
+                    out[:, f] += torch.einsum(
+                        'bhwc,co->bhwo', xs[:, tin, dh:dh + ho, dw:dw + wo],
+                        w4[k, dh, dw])
+    return out
+
+
+@pytest.mark.parametrize('H,W,kt', [(32, 32, 1), (32, 32, 5), (32, 64, 1),
+                                    (32, 64, 5)])
+def test_stem_forward_over_the_s2d_packing_matches_the_pallas_kernel(
+        interpret, H, W, kt):
+    """Against ``pallas_stem.stem_conv_s2d`` in interpret mode, f32, inside
+    its envelope (H/2 % 16 == 0, W/2 <= 128): 1e-4."""
+    x = rand(1, 3, H, W, 3, seed=6)
+    w = rand(kt, 7, 7, 3, 64, seed=7, scale=0.1)
+    ref = pallas_stem.stem_conv_s2d(jnp.asarray(x), jnp.asarray(w),
+                                    temporal_pad=kt // 2,
+                                    compute_dtype=jnp.float32)
+    assert ref is not None
+    close(stem_over_the_s2d_packing(x, w, kt), ref, 1e-4)
+
+
+@pytest.mark.parametrize('H,W', [(21, 23), (9, 12)])
+def test_stem_forward_over_the_s2d_packing_matches_conv3d(H, W):
+    """Odd sizes outside the Pallas envelope, kT 3 over T = 3 (the first
+    and last frames reach padded frames), against lfb_tpu's conv3d: 1e-4."""
+    x = rand(2, 3, H, W, 3, seed=8)
+    w = rand(3, 7, 7, 3, 64, seed=9, scale=0.1)
+    ref = jax_conv3d(jnp.asarray(x), jnp.asarray(w), strides=(1, 2, 2),
+                     padding=(1, 3, 3))
+    close(stem_over_the_s2d_packing(x, w, 3), ref, 1e-4)
+
+
 # --------------------------------------------------------------------------- #
 # The whole step
 # --------------------------------------------------------------------------- #
