@@ -24,8 +24,11 @@ result):
    backends that takes the shape; beside the fused bottleneck, the same
    block as the unfused bf16 path runs it), and the kernel's bound: the
    larger of its operations over the card's peak for their type and its
-   bytes over the memory rate.  The stem forward is also timed, and its
-   rate logged, at the train step's shape.
+   bytes over the memory rate.  Each kernel's device time is taken apart
+   too (:func:`device_ms`: 20 calls back to back, enqueued while the card
+   sleeps), since a timing from an idle card also holds the wrapper's host
+   work.  The stem forward is also timed, and its rate logged, at the
+   train step's shape.
 3. Hold the full-width model on the card (f32, kernels) against the same
    model on the CPU (f32, plain versions) on one clip: the flagship, and
    Charades with the fused bottleneck.
@@ -49,8 +52,9 @@ result):
    ``FrameDeviceBank`` goes to the card; phase B runs 3 batches of the eval
    step with windows from ``gather_centers``.  Launches are checked as in 4.
 6. Hold each backward kernel against its plain PyTorch version at the
-   flagship train shapes (B = 8 clips x 4 boxes, T 32, crop 224), and the
-   forward attention kernel's row log-sum-exp against ``torch.logsumexp``;
+   flagship train shapes (B = 8 clips x 4 boxes, T 32, crop 224), the RoI
+   forward at that shape too, and the forward attention kernel's row
+   log-sum-exp against ``torch.logsumexp``;
    time both, with the library call and the bound, as in phase 2 (cuDNN's
    weight gradient for the stem; SDPA's backward, its forward + backward
    less its forward, for attention).
@@ -68,8 +72,9 @@ TF32 is off for matmuls and cuDNN convolutions throughout, so the plain
 versions the kernels are compared with compute in full f32.
 
 The second-to-last line is a JSON object with one entry per kernel (its
-launches on the main path, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-library_ms, null where no one PyTorch call computes the same function);
+launches on the main path, max_abs_err, ms, device_ms, plain_ms, bound_ms,
+bound_by, library_ms, null where no one PyTorch call computes the same
+function);
 the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile DIR`` runs none of the checks: it traces
@@ -248,14 +253,51 @@ def cuda_ms(fn, iters):
     return statistics.median(times)
 
 
+DEVICE_ITERS = 20
+
+
+def device_ms(fn, iters=DEVICE_ITERS):
+    """The card's time for one call of ``fn`` in ms: after a warm-up, ``iters``
+    calls back to back between two CUDA events, over ``iters``.  The card
+    first sleeps (``torch.cuda._sleep``) while the host enqueues them all, so
+    the wrapper's host work does not pace the kernels; if the card woke
+    before the last call was enqueued, the sleep is lengthened and the
+    timing taken again."""
+    import torch
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    cycles = int(4e9 * max(host_s, 1e-4))   # 2x the enqueue at 2 GHz
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()       # the card still asleep: all enqueued
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise AssertionError('device_ms: the host could not enqueue {} calls '
+                         'ahead of the card'.format(iters))
+
+
 def compare(label, kernel_fn, plain_fn, bound, iters, library_fn=None,
             library_label='library'):
     """Kernel vs plain on the same inputs; returns {err: max_abs_err, ms,
-    plain_ms, library_ms}.  ``bound`` is relative to max |plain|; a function
-    that returns a tuple (dq, dk, dv) is held output by output, each to its
-    own max |plain|.  ``library_fn``, one PyTorch call computing the same
-    function (or another yardstick, logged as ``library_label``), is timed
-    in the same turns (library_ms None without one)."""
+    device_ms, plain_ms, library_ms}.  ``bound`` is relative to max |plain|;
+    a function that returns a tuple (dq, dk, dv) is held output by output,
+    each to its own max |plain|.  ``ms`` is the median of single calls from
+    an idle card (the wrapper's host work included), ``device_ms`` the
+    kernel's time alone (:func:`device_ms`).  ``library_fn``, one PyTorch
+    call computing the same function (or another yardstick, logged as
+    ``library_label``), is timed in the same turns (library_ms None without
+    one)."""
     import torch
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
@@ -278,15 +320,15 @@ def compare(label, kernel_fn, plain_fn, bound, iters, library_fn=None,
         for fn, ts in zip(fns, times):
             ts.append(cuda_ms(fn, 1))
     ms, plain_ms, *lib = [statistics.median(ts) for ts in times]
-    log('{}: max_abs_err {:.3e}, rel {:.3e} (bound {:.0e}); kernel {:.4f} ms, '
-        'plain {:.4f} ms{}'.format(label, err, rel, bound, ms, plain_ms,
-                                   ', {} {:.4f} ms'.format(library_label,
-                                                           lib[0])
-                                   if lib else ''))
+    dev_ms = device_ms(kernel_fn)
+    log('{}: max_abs_err {:.3e}, rel {:.3e} (bound {:.0e}); kernel {:.4f} ms '
+        '(device {:.4f} ms), plain {:.4f} ms{}'.format(
+            label, err, rel, bound, ms, dev_ms, plain_ms,
+            ', {} {:.4f} ms'.format(library_label, lib[0]) if lib else ''))
     if not rel <= bound:
         raise AssertionError('{}: error {:.3e} of max|ref|, above {:.0e}'.format(
             label, rel, bound))
-    return {'err': err, 'ms': ms, 'plain_ms': plain_ms,
+    return {'err': err, 'ms': ms, 'device_ms': dev_ms, 'plain_ms': plain_ms,
             'library_ms': lib[0] if lib else None}
 
 
@@ -442,7 +484,8 @@ def check_kernels(iters=TIMING_ITERS):
     regimes = [('res3 NL', 64, 4096, 1024, 256, torch.bfloat16, 2),
                ('res4 NL', 16, 4096, 1024, 512, torch.bfloat16, 3),
                ('FBO-NL', 64, 1, 300, 512, torch.float32, 3)]
-    total = {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
+    total = {'err': 0.0, 'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0,
+             'library_ms': 0.0}
     parts, backends = [], []
     for label, b, nq, nk, c, dtype, calls in regimes:
         q, k, v = (torch.randn((b, n, c), generator=g, device=dev).to(dtype)
@@ -457,14 +500,15 @@ def check_kernels(iters=TIMING_ITERS):
             1e-2 if dtype == torch.bfloat16 else 1e-5, iters, lib_fwd)
         log('  SDPA backend for {}: {}'.format(label, backend))
         total['err'] = max(total['err'], r['err'])
-        for key in ('ms', 'plain_ms', 'library_ms'):
+        for key in ('ms', 'device_ms', 'plain_ms', 'library_ms'):
             total[key] += calls * r[key]
         ms, by = least_ms(4 * b * nq * nk * c, 2 * nbytes(q) + nbytes(k, v),
                           str(dtype).split('.')[-1])
         parts.append((calls * ms, by))
-    log('attention, the 8 calls of one phase-B forward: kernel {:.3f} ms, '
-        'plain {:.3f} ms, SDPA {:.3f} ms'.format(
-            total['ms'], total['plain_ms'], total['library_ms']))
+    log('attention, the 8 calls of one phase-B forward: kernel {:.3f} ms '
+        '(device {:.3f} ms), plain {:.3f} ms, SDPA {:.3f} ms'.format(
+            total['ms'], total['device_ms'], total['plain_ms'],
+            total['library_ms']))
     results['attention'] = add_bound(dict(
         total, tolerance='1e-5 f32, 1e-2 bf16',
         library='F.scaled_dot_product_attention ({})'.format(
@@ -535,8 +579,8 @@ def check_bottleneck(g, iters):
     (:func:`unfused_block`), timed in the same turns."""
     import torch
     from lfb_tpu_torch.ops import cuda_bottleneck as cb
-    err, totals = 0.0, {'flagship': [0.0, 0.0, 0.0],
-                        'Charades': [0.0, 0.0, 0.0]}
+    err, totals = 0.0, {'flagship': [0.0, 0.0, 0.0, 0.0],
+                        'Charades': [0.0, 0.0, 0.0, 0.0]}
     parts = []
     for label, shape, ci, kt, d, n_ava, n_charades in BLOCKS:
         x = torch.relu(torch.randn(shape, generator=g, device=g.device))
@@ -555,17 +599,19 @@ def check_bottleneck(g, iters):
             totals[name][0] += n * r['ms']
             totals[name][1] += n * r['plain_ms']
             totals[name][2] += n * r['library_ms']
+            totals[name][3] += n * r['device_ms']
         pixels, c = x.numel() // shape[-1], shape[-1]
         ms, by = least_ms(2 * pixels * (c * ci * kt + 9 * ci * ci + ci * c),
                           2 * nbytes(x) + 2 * (c * ci * kt + 9 * ci * ci
                                                + ci * c), 'bfloat16')
         parts.append((n_ava * ms, by))
         del x
-    for name, (ms, plain_ms, unfused_ms) in totals.items():
+    for name, (ms, plain_ms, unfused_ms, dev_ms) in totals.items():
         log('fused_bottleneck, the 29 launches of one {} forward: kernel '
-            '{:.3f} ms, plain {:.3f} ms, the unfused bf16 blocks {:.3f} '
-            'ms'.format(name, ms, plain_ms, unfused_ms))
+            '{:.3f} ms (device {:.3f} ms), plain {:.3f} ms, the unfused bf16 '
+            'blocks {:.3f} ms'.format(name, ms, dev_ms, plain_ms, unfused_ms))
     return add_bound({'err': err, 'ms': totals['flagship'][0],
+                      'device_ms': totals['flagship'][3],
                       'plain_ms': totals['flagship'][1], 'library_ms': None,
                       'tolerance': '1e-2'}, parts)
 
@@ -993,6 +1039,15 @@ def check_backward_kernels(iters=TIMING_ITERS):
     rois_np = rand_rois(rng, TRAIN_B, BOXES_PER_CLIP, 224)
     rois = torch.from_numpy(rois_np).to(dev)
     dout = torch.randn((n, 2048), generator=g, device=dev)
+    # The forward at the train step's shape, logged only.
+    compare('roi_align_maxpool fmap{} rois{} f32 (train shape)'.format(
+        tuple(fmap.shape), tuple(rois.shape)),
+        lambda: cuda_roi_align.roi_align_maxpool(fmap, rois),
+        lambda: cuda_roi_align.roi_align_maxpool_plain(fmap, rois), 1e-5,
+        iters)
+    log('  roi_align_maxpool bound at the train shape: {:.4f} ms'.format(
+        least_ms(0, roi_pixels(rois_np, 14) * 2048 * 4 + nbytes(rois)
+                 + n * 2048 * 4, 'float32')[0]))
     r = compare(
         'roi_align_maxpool_bwd fmap{} rois{} f32'.format(tuple(fmap.shape),
                                                          tuple(rois.shape)),
@@ -1011,7 +1066,8 @@ def check_backward_kernels(iters=TIMING_ITERS):
     regimes = [('res3 NL', 32, 3136, 784, 256, torch.bfloat16, 2),
                ('res4 NL', 8, 3136, 784, 512, torch.bfloat16, 3),
                ('FBO-NL', n, 1, 300, 512, torch.float32, 3)]
-    total = {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
+    total = {'err': 0.0, 'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0,
+             'library_ms': 0.0}
     parts, backends = [], []
     for label, b, nq, nk, c, dtype, calls in regimes:
         q, k, v, do = (torch.randn((b, m, c), generator=g, device=dev).to(dtype)
@@ -1043,6 +1099,7 @@ def check_backward_kernels(iters=TIMING_ITERS):
             label, backend, lib_ms))
         total['err'] = max(total['err'], r['err'])
         total['ms'] += calls * r['ms']
+        total['device_ms'] += calls * r['device_ms']
         total['plain_ms'] += calls * r['plain_ms']
         total['library_ms'] += calls * lib_ms
         ms, by = least_ms(10 * b * nq * nk * c,
@@ -1050,9 +1107,10 @@ def check_backward_kernels(iters=TIMING_ITERS):
                               q.numel() + k.numel() + v.numel()),
                           str(dtype).split('.')[-1])
         parts.append((calls * ms, by))
-    log('attention_bwd, the 8 calls of one train step: kernel {:.3f} ms, '
-        'plain {:.3f} ms, SDPA backward {:.3f} ms'.format(
-            total['ms'], total['plain_ms'], total['library_ms']))
+    log('attention_bwd, the 8 calls of one train step: kernel {:.3f} ms '
+        '(device {:.3f} ms), plain {:.3f} ms, SDPA backward {:.3f} ms'.format(
+            total['ms'], total['device_ms'], total['plain_ms'],
+            total['library_ms']))
     results['attention_bwd'] = add_bound(dict(
         total, tolerance='1e-5 f32, 1e-2 bf16',
         library='F.scaled_dot_product_attention backward ({})'.format(
@@ -1317,6 +1375,7 @@ def main():
                         'launches': (launches[name] + charades_launches[name]
                                      + train_launches[name]),
                         'max_abs_err': r['err'], 'ms': r['ms'],
+                        'device_ms': r['device_ms'],
                         'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                         'bound_by': r['bound_by'],
                         'library_ms': r['library_ms'],

@@ -36,9 +36,8 @@ SIGNATURES = {
     'lfb_attention_bwd_bf16': (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
     'lfb_fused_bottleneck_f32': (_P,) * 8 + (_I,) * 8 + (_P,),
     'lfb_fused_bottleneck_bf16': (_P,) * 8 + (_I,) * 8 + (_P,),
-    'lfb_roi_align_maxpool': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    'lfb_roi_align_maxpool_bwd': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                  _P),
+    'lfb_roi_align_maxpool': (_P, _P, _P) + (_I,) * 6 + (_F, _I, _I, _P),
+    'lfb_roi_align_maxpool_bwd': (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _P),
     'lfb_stem_conv_f32': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     'lfb_stem_conv_bf16': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     'lfb_stem_conv_dw_f32': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -8,18 +8,20 @@ Forward: replaces ``lfb_tpu/ops/pallas_roi_align.py:_fwd_call`` (kernel
 (box, channel) gradient goes to the box's FIRST maximal bin in row-major
 order, then through the bilinear weights into the (B, H, W, C) map.
 
-What bounds it on an H100: it is a data-dependent bilinear gather (at most
-49 bins x 16 samples x 4 corners per box and channel) over a feature map
-that sits in L2, so memory latency, not arithmetic, is the limit.  The TPU
-had to express the gather as a one-hot matmul because it cannot index VMEM
-per element; here each CTA takes one box and 128 channels, computes the
-box's sample positions once in shared memory, and lets each thread walk the
-bins for its channel with coalesced NHWC reads, keeping a running max.  All
-of it is f32 (the TPU needed ``Precision.HIGHEST`` so near-tie max bins
-would not flip).  The backward kernel gives each (batch element, 128
-channels) to one CTA, which walks that element's boxes in proposal order,
-recomputes each box's bin means with the forward's code to find the max
-bin, and scatters into its own channels: no atomics, any box order.
+What bounds it on an H100: bytes, the map pixels the boxes reach read once
+(and in the backward the whole gradient map written once); the arithmetic
+is a few hundred f32 operations per box and channel.  The TPU had to express
+the gather as a one-hot matmul because it cannot index VMEM per element.
+Here one CTA per (batch element, chunk of channels) copies its slice of the
+map into shared memory once, finds its own boxes among the rois in proposal
+order, and forms every bin from shared memory, so a pixel leaves device
+memory once however many boxes and samples reach it.  :func:`channel_chunk`
+picks the chunk so the slice fits; a map too large for the smallest chunk
+is refused.  All of it is f32 (the TPU needed ``Precision.HIGHEST`` so
+near-tie max bins would not flip).  The backward reuses the slice's buffer
+for its slice of the gradient, scatters box after box with one writer per
+element (no atomics, repeatable bit for bit), and writes the slice out
+once, so the gradient map needs no zero fill.
 """
 
 from __future__ import annotations
@@ -36,6 +38,38 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 MAX_POOLED = 16
+# Channels per CTA, in order of preference.  Beside the map slice the 8
+# warps' partials for 4 boxes (4 bytes a channel each), and the sample
+# tables of 4 boxes, as ``roi_align_maxpool.cu`` lays them out.
+CHUNKS = (64, 32, 16, 8)
+SMEM_PREFERRED = 64 * 1024
+SMEM_MAX = 227 * 1024 - 3 * 1024        # less the kernels' static arrays
+
+
+def smem_bytes(H: int, W: int, chunk: int, backward: bool,
+               pooled: int = 7) -> int:
+    """Dynamic shared memory of one CTA: the map slice (and in the backward
+    its gradient accumulator), the partials and the tables (``fwd_smem`` /
+    ``bwd_smem`` of the source)."""
+    tables = 4 * (2 * pooled * (4 * 16 + 4) + 4)
+    return chunk * (H * W + (2 if backward else 1) * 4 * 8) * 4 + tables
+
+
+def channel_chunk(H: int, W: int, C: int, backward: bool,
+                  pooled: int = 7) -> int:
+    """Channels per CTA: the largest of :data:`CHUNKS` (none twice as wide
+    as C) whose slices take at most SMEM_PREFERRED bytes, so several CTAs
+    share an SM; else the smallest that fits.  Raises ValueError for a map
+    whose slice does not fit at 8 channels."""
+    fits = [cc for cc in CHUNKS if (cc == CHUNKS[-1] or cc // 2 < C)
+            and smem_bytes(H, W, cc, backward, pooled) <= SMEM_MAX]
+    if not fits:
+        raise ValueError('roi_align_maxpool: a {} x {} map does not fit in '
+                         'shared memory (at most {} bytes, {} needed at {} '
+                         'channels)'.format(H, W, SMEM_MAX, smem_bytes(
+                             H, W, CHUNKS[-1], backward, pooled), CHUNKS[-1]))
+    preferred = [cc for cc in fits if H * W * cc * 4 <= SMEM_PREFERRED]
+    return preferred[0] if preferred else fits[-1]
 
 
 def roi_align_maxpool_plain(features: torch.Tensor, rois: torch.Tensor,
@@ -80,11 +114,13 @@ def roi_align_maxpool(features: torch.Tensor, rois: torch.Tensor, *,
     _check(features, rois, pooled)
     B, H, W, C = features.shape
     N = rois.shape[0]
+    chunk = channel_chunk(H, W, C, backward=False, pooled=pooled)
     out = torch.empty((N, C), dtype=torch.float32, device=features.device)
     with torch.cuda.device(features.device):
         cuda_build.launch('lfb_roi_align_maxpool', features.data_ptr(),
                           rois.data_ptr(), out.data_ptr(), B, H, W, C, N,
-                          pooled, float(spatial_scale))
+                          pooled, float(spatial_scale), chunk,
+                          _vec(features))
     global LAUNCHES
     LAUNCHES += 1
     return out
@@ -102,11 +138,13 @@ def roi_align_maxpool_bwd(features: torch.Tensor, rois: torch.Tensor,
     _check(features, rois, pooled, dout=dout)
     B, H, W, C = features.shape
     N = rois.shape[0]
-    dfmap = torch.zeros_like(features)
+    chunk = channel_chunk(H, W, C, backward=True, pooled=pooled)
+    dfmap = torch.empty_like(features)      # the kernel writes every element
     with torch.cuda.device(features.device):
         cuda_build.launch('lfb_roi_align_maxpool_bwd', features.data_ptr(),
                           rois.data_ptr(), dout.data_ptr(), dfmap.data_ptr(),
-                          B, H, W, C, N, pooled, float(spatial_scale))
+                          B, H, W, C, N, pooled, float(spatial_scale), chunk,
+                          _vec(features))
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     return dfmap
@@ -135,6 +173,11 @@ class RoIAlignMaxPool(torch.autograd.Function):
         return dfmap.to(features.dtype), None, None, None
 
 
+def _vec(features) -> int:
+    """1 where the kernels may move the map in 16-byte pieces."""
+    return int(features.shape[-1] % 4 == 0 and features.data_ptr() % 16 == 0)
+
+
 def _check(features, rois, pooled, dout=None) -> None:
     tensors = [('features', features, 4), ('rois', rois, 2)]
     if dout is not None:
@@ -146,15 +189,15 @@ def _check(features, rois, pooled, dout=None) -> None:
         if t.dtype != torch.float32 or t.dim() != ndim or not t.is_contiguous():
             raise ValueError('roi_align_maxpool: {} must be a contiguous {}-D '
                              'float32 tensor'.format(name, ndim))
-    if rois.shape[1] != 5 or not 1 <= rois.shape[0] <= 65535:
-        raise ValueError('roi_align_maxpool: rois must be (N, 5) with 1 <= N '
-                         '<= 65535 (got {})'.format(tuple(rois.shape)))
+    if rois.shape[1] != 5 or rois.shape[0] < 1:
+        raise ValueError('roi_align_maxpool: rois must be (N, 5) with N >= 1 '
+                         '(got {})'.format(tuple(rois.shape)))
     if dout is not None and tuple(dout.shape) != (rois.shape[0],
                                                   features.shape[-1]):
         raise ValueError('roi_align_maxpool: dout must be (N, C) = {} (got '
                          '{})'.format((rois.shape[0], features.shape[-1]),
                                       tuple(dout.shape)))
-    if dout is not None and features.shape[0] > 65535:
+    if features.shape[0] > 65535:
         raise ValueError('roi_align_maxpool: at most 65535 batch elements')
     if not 1 <= pooled <= MAX_POOLED or min(features.shape) < 1:
         raise ValueError('roi_align_maxpool: unsupported pooled={} or features '

@@ -291,6 +291,99 @@ def test_roi_bwd_kernel_matches_plain(dev, size, C, pooled, tie):
         fmap, rois, dout, pooled), 1e-5)
 
 
+def crop_rois(rng, batch_idx, height, width):
+    """Boxes in input pixels over a height x width crop, some past its
+    border, for the batch elements ``batch_idx``, in that order."""
+    n = len(batch_idx)
+    x = np.sort(rng.uniform(-0.1 * width, 1.1 * width, (n, 2)), axis=1)
+    y = np.sort(rng.uniform(-0.1 * height, 1.1 * height, (n, 2)), axis=1)
+    return torch.from_numpy(np.stack(
+        [np.asarray(batch_idx, np.float32), x[:, 0], y[:, 0], x[:, 1],
+         y[:, 1]], axis=1).astype(np.float32))
+
+
+def test_roi_bwd_writes_zeros_where_no_box_reaches(dev):
+    """The gradient map is not zero-filled before the kernel: batch element
+    1, which no box reaches, must come out exactly 0 from its own CTAs even
+    where the allocator hands back memory full of NaN."""
+    fmap = torch.relu(rand((3, 16, 16, 256), dev))
+    rois = crop_rois(np.random.default_rng(0), [0, 2, 2, 0], 256, 256).to(dev)
+    dout = rand((4, 256), dev, seed=1)
+    junk = torch.full_like(fmap, float('nan'))
+    del junk
+    got = cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout)
+    torch.cuda.synchronize()
+    assert bool((got[1] == 0).all())
+    assert_close(got, cuda_roi_align.roi_align_maxpool_bwd_plain(
+        fmap, rois, dout), 1e-5)
+
+
+@pytest.mark.parametrize('shape', [(2, 20, 27, 2048), (3, 14, 14, 2048)])
+def test_roi_kernels_at_larger_and_train_maps(dev, shape):
+    """A 20 x 27 map (a 320-high crop of a wide frame, above the flagship's
+    16 x 16) and the train step's 14 x 14, forward and backward."""
+    B_, H, W, C = shape
+    fmap = torch.relu(rand(shape, dev, seed=H))
+    rois = crop_rois(np.random.default_rng(H),
+                     np.repeat(np.arange(B_), 4), 16 * H, 16 * W).to(dev)
+    dout = rand((rois.shape[0], C), dev, seed=2)
+    assert_close(cuda_roi_align.roi_align_maxpool(fmap, rois),
+                 cuda_roi_align.roi_align_maxpool_plain(fmap, rois), 1e-5)
+    assert_close(cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout),
+                 cuda_roi_align.roi_align_maxpool_bwd_plain(fmap, rois, dout),
+                 1e-5)
+
+
+def test_roi_kernels_take_many_boxes_in_any_order(dev):
+    """40 boxes on batch element 1 among 270 of elements 0 and 2, shuffled:
+    310 rois, more than one scan of the kernels' 256 threads."""
+    rng = np.random.default_rng(3)
+    idx = np.concatenate([np.full(40, 1), rng.integers(0, 2, 270) * 2])
+    rois = crop_rois(rng, rng.permutation(idx), 256, 256).to(dev)
+    fmap = torch.relu(rand((3, 16, 16, 512), dev, seed=4))
+    dout = rand((rois.shape[0], 512), dev, seed=5)
+    assert_close(cuda_roi_align.roi_align_maxpool(fmap, rois),
+                 cuda_roi_align.roi_align_maxpool_plain(fmap, rois), 1e-5)
+    assert_close(cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout),
+                 cuda_roi_align.roi_align_maxpool_bwd_plain(fmap, rois, dout),
+                 1e-5)
+
+
+def test_roi_kernels_take_an_unaligned_map(dev):
+    """C a multiple of 4 but the map off a 16-byte boundary: the kernels
+    stage it with 4-byte loads."""
+    flat = rand((2 * 14 * 14 * 64 + 1,), dev, seed=6)
+    fmap = flat[1:].view(2, 14, 14, 64)
+    assert fmap.data_ptr() % 16 != 0
+    rois = torch.from_numpy(ROIS).to(dev)
+    dout = rand((rois.shape[0], 64), dev, seed=7)
+    assert_close(cuda_roi_align.roi_align_maxpool(fmap, rois),
+                 cuda_roi_align.roi_align_maxpool_plain(fmap, rois), 1e-5)
+    assert_close(cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout),
+                 cuda_roi_align.roi_align_maxpool_bwd_plain(fmap, rois, dout),
+                 1e-5)
+
+
+def test_roi_bwd_kernel_is_deterministic(dev):
+    fmap = torch.relu(rand((3, 16, 16, 2048), dev, seed=8))
+    rois = torch.from_numpy(BWD_ROIS).to(dev)
+    dout = rand((rois.shape[0], 2048), dev, seed=9)
+    first = cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout)
+    second = cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_roi_wrappers_refuse_a_map_whose_slice_does_not_fit(dev):
+    rois = torch.from_numpy(ROIS).to(dev)
+    fmap = rand((2, 128, 128, 8), dev)              # 8 channels: 512 KB
+    with pytest.raises(ValueError):
+        cuda_roi_align.roi_align_maxpool(fmap, rois)
+    with pytest.raises(ValueError):
+        cuda_roi_align.roi_align_maxpool_bwd(fmap, rois,
+                                             rand((rois.shape[0], 8), dev))
+
+
 def test_roi_bwd_wrapper_refuses_what_the_kernel_does_not_take(dev):
     fmap, rois = rand((2, 8, 8, 16), dev), torch.from_numpy(ROIS).to(dev)
     dout = rand((rois.shape[0], 16), dev)

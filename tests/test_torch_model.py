@@ -236,6 +236,53 @@ def test_phase_b_logits_and_prob_match_lfb_tpu(setup):
     assert np.abs(np.asarray(ref['logits'])).max() > 1.0   # not a flat output
 
 
+@pytest.mark.parametrize('head', ['roi', 'basic'])
+def test_heads_take_their_f32_mean_of_bf16_features(head, setup):
+    """Each head's f32 mean of bf16 res5 features, taken as they are read
+    (``mean(dtype=float32)``; the RoI head's through ``TemporalMean``, whose
+    gradient is a broadcast view), against the ``.float().mean()`` form
+    within 1e-6 of max |ref| (the same bf16 values summed in f32), gradient
+    included, and against lfb_tpu's head (``jnp.mean(features.astype(f32))``)
+    within 1e-5 (RoIAlign's sums in other orders, as in test_torch_ops)."""
+    from lfb_tpu.models import heads as jax_heads
+    from lfb_tpu_torch.models.heads import RoIHead, basic_head
+    from lfb_tpu_torch.ops.cuda_roi_align import RoIAlignMaxPool
+    cfg, _, batch = setup
+    spec = build_spec(cfg, 'test')
+    rng = np.random.RandomState(5)
+    shape = (B, spec.pool_stride, CROP // 16, CROP // 16, 2048)
+    feats = torch.from_numpy(np.abs(rng.randn(*shape)).astype('f')).bfloat16()
+    rois = torch.from_numpy(batch['proposals'])
+    jfeats = jnp.asarray(feats.float().numpy()).astype(jnp.bfloat16)
+    jspec = jax_models.build_spec(cfg, 'test')
+    if head == 'roi':
+        def new(x):
+            return RoIHead(spec)(x, rois)
+
+        def old(x):
+            return RoIAlignMaxPool.apply(x.float().mean(dim=1), rois,
+                                         spec.roi_resolution,
+                                         spec.roi_spatial_scale)
+        ref = jax_heads.roi_head(jspec, jfeats, jnp.asarray(batch['proposals']))
+    else:
+        def new(x):
+            return basic_head(spec, x)
+
+        def old(x):
+            return x.float().mean(dim=(1, 2, 3))
+        ref = jax_heads.basic_head(jspec, jfeats)
+    x = feats.clone().requires_grad_(True)
+    got, want = new(x), old(x)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    close(got.detach(), want.detach().numpy(), 1e-6)
+    dy = torch.from_numpy(rng.randn(*got.shape).astype('f'))
+    g_new, = torch.autograd.grad(got, x, dy)
+    g_old, = torch.autograd.grad(old(x), x, dy)
+    assert g_new.dtype == torch.bfloat16
+    close(g_new.float(), g_old.float().numpy(), 1e-6)
+    close(got.detach(), ref, 1e-5)
+
+
 def test_charades_cfg_is_the_released_config():
     released = load_config(os.path.join(REPO, 'configs',
                                         'charades_r101_lfb_nl.yaml'))

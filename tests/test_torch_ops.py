@@ -161,6 +161,29 @@ def test_roi_align_maxpool_matches_lfb_tpu(size):
     close(cuda_roi_align.roi_align_maxpool(t(fmap), t(rois)), ref, 1e-5)
 
 
+@pytest.mark.parametrize('H,W,C,backward,chunk', [
+    (16, 16, 2048, False, 64),      # phase B, crop 256: a 64 KB slice
+    (14, 14, 2048, False, 64),      # the train step's forward, crop 224
+    (14, 14, 2048, True, 64),       # its backward: one buffer, map then grad
+    (20, 27, 2048, False, 16),      # a 320-high crop of a wide frame
+    (16, 16, 24, False, 32),        # no chunk twice as wide as C
+    (40, 40, 2048, False, 8),       # only 8 channels stay within 64 KB
+    (60, 60, 2048, False, 8),       # none does: the smallest that fits
+])
+def test_roi_channel_chunk_fits_shared_memory(H, W, C, backward, chunk):
+    """The channels per CTA of the RoI kernels, chosen from the map's size
+    alone (the launch needs no card to plan)."""
+    assert cuda_roi_align.channel_chunk(H, W, C, backward) == chunk
+    assert cuda_roi_align.smem_bytes(H, W, chunk,
+                                     backward) <= cuda_roi_align.SMEM_MAX
+
+
+@pytest.mark.parametrize('backward', [False, True])
+def test_roi_channel_chunk_refuses_a_map_that_does_not_fit(backward):
+    with pytest.raises(ValueError):     # 8 channels of 128 x 128: 512 KB
+        cuda_roi_align.channel_chunk(128, 128, 2048, backward)
+
+
 # --------------------------------------------------------------------------- #
 # Stem conv (kernel 3's module) and the other convolutions
 # --------------------------------------------------------------------------- #
