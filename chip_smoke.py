@@ -9,15 +9,18 @@ Phases (any failure raises and exits non-zero; without a CUDA device, or
 away from the rest of the repository, it exits non-zero before printing any
 result):
 
-1. Print the card's name and power limit, build the CUDA kernels of
+1. Print the card's name and power limit, and what the host has of the
+   modules a data layer could use (found without importing them); then
+   build the CUDA kernels of
    ``lfb_tpu_torch/csrc`` and print the build time, ptxas's registers,
    spills and wgmma notes, and the tensor-core instructions (HMMA, HGMMA)
    that ``cuobjdump -sass`` finds in each attention kernel, the stem
    forward and weight gradient and the fused bottleneck: the bf16 ones
    must have some, and the stem forward HGMMA (``wgmma``).
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   flagship shapes (every attention regime; the fused bottleneck at every
-   identity-block shape of R101 at crop 256), and time both (median of
+   flagship shapes (every attention regime, and the EPIC FBO-NL's decode
+   shapes; the fused bottleneck at every identity-block shape of R101 at
+   crop 256), and time both (median of
    CUDA-event timings, taken in turns), with one PyTorch call that computes
    the same function where there is one (``F.conv3d`` for the stem,
    ``F.scaled_dot_product_attention`` for attention, under the first of its
@@ -30,8 +33,8 @@ result):
    work.  The stem forward is also timed, and its rate logged, at the
    train step's shape.
 3. Hold the full-width model on the card (f32, kernels) against the same
-   model on the CPU (f32, plain versions) on one clip: the flagship, and
-   Charades with the fused bottleneck.
+   model on the CPU (f32, plain versions) on one clip: the flagship,
+   Charades with the fused bottleneck, and EPIC verb with it.
 4. The flagship main path at full width: ``flagship_cfg()`` (R101-I3D-NL,
    3-layer FBO-NL, 300-row windows, T 32, crop 256), 16 clips x 4 boxes per
    batch, seeded perturbed weights, uint8 frames.  Phase A runs the bank
@@ -51,22 +54,38 @@ result):
    (1,814 videos of 15-45 s at 24 fps, a row every 12 frames); the
    ``FrameDeviceBank`` goes to the card; phase B runs 3 batches of the eval
    step with windows from ``gather_centers``.  Launches are checked as in 4.
-6. Hold each backward kernel against its plain PyTorch version at the
+6. EPIC verb: ``epic_verb_cfg`` (``configs/epic_verb_r50_lfb_nl.yaml`` read
+   by the port's ``load_config``) with ``TPU.PALLAS_BOTTLENECK``: R50-I3D-NL,
+   125 softmax classes, 2-layer pre-act FBO-NL over 40-row windows.  Phase A
+   runs ``extract_frame_bank(..., 'epic')`` over 2 batches of clips named by
+   video; synthetic rows top the bank up to the val split (50 videos of
+   P26-P31, 2-16 min at 30 fps, a row a second); it goes to the card keyed
+   by ``video_name_to_idx``; phase B runs 3 batches.  Launches are checked
+   as in 4, softmax rows must sum to 1.
+7. EPIC noun: ``epic_noun_cfg`` (unfused), phase B only: a synthetic
+   detector bank (0-10 boxes a second over the same videos) goes through
+   ``write_lfb``, ``LFB.LOAD_LFB_PATH`` set by ``merge_cfg_from_list``,
+   ``load_lfb`` and ``build_device_bank``; 3 batches with 120-row windows.
+8. The checkpoint layer on the card: the EPIC verb params and momentum
+   saved and loaded back bitwise; a K400-style pretrained pickle (BN
+   statistics, momentum, 400 classes, a 2-D stem) converted into the EPIC
+   verb model, and one forward on it.
+9. Hold each backward kernel against its plain PyTorch version at the
    flagship train shapes (B = 8 clips x 4 boxes, T 32, crop 224), the RoI
    forward at that shape too, and the forward attention kernel's row
    log-sum-exp against ``torch.logsumexp``;
    time both, with the library call and the bound, as in phase 2 (cuDNN's
    weight gradient for the stem; SDPA's backward, its forward + backward
    less its forward, for attention).
-7. One full-width f32 train step (1 clip x 4 boxes, dropout 0) on the card
-   (kernels) against the same step on the CPU (plain versions), from the
-   same params: the loss and every momentum buffer.
-8. The train phase: ``make_train_step`` of ``build_spec(flagship_cfg(),
-   'train')`` (crop 224, dropout 0.3 / 0.2, ``TPU.REMAT ''``), bf16 compute
-   with f32 master weights, 8 clips x 4 boxes of uint8 frames per step, bank
-   windows drawn from phase 4's AVA-scale device bank with a per-step
-   generator: 2 warm-up and 5 timed steps, each with its launch counts
-   checked, a finite loss, and nonzero momentum after it.
+10. One full-width f32 train step (1 clip x 4 boxes, dropout 0) on the card
+    (kernels) against the same step on the CPU (plain versions), from the
+    same params: the loss and every momentum buffer.
+11. The train phase: ``make_train_step`` of ``build_spec(flagship_cfg(),
+    'train')`` (crop 224, dropout 0.3 / 0.2, ``TPU.REMAT ''``), bf16 compute
+    with f32 master weights, 8 clips x 4 boxes of uint8 frames per step, bank
+    windows drawn from phase 4's AVA-scale device bank with a per-step
+    generator: 2 warm-up and 5 timed steps, each with its launch counts
+    checked, a finite loss, and nonzero momentum after it.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so the plain
 versions the kernels are compared with compute in full f32.
@@ -84,6 +103,7 @@ operator tables to DIR (see :func:`profile`).
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -99,6 +119,15 @@ AVA_VIDEOS = 235
 CHARADES_VIDEOS = 1814                  # TEST.DATASET_SIZE, the val split
 CHARADES_FRAMES = (15 * 24, 45 * 24)    # video lengths, 30 s on average
 CHARADES_ROW_EVERY = 12                 # 24 fps / 2 bank clips per second
+# EPIC-Kitchens' val split: persons P26-P31 (lfb_tpu/data/epic.py), about 50
+# videos of 2-16 min at 30 fps, 7.4 h in all; the verb bank has a row a
+# second, the noun (detector) bank 0-10 boxes a second.
+EPIC_PERSONS = ('P26', 'P27', 'P28', 'P29', 'P30', 'P31')
+EPIC_VIDEOS = 50
+EPIC_FPS = 30
+EPIC_FRAMES = (2 * 60 * EPIC_FPS, 16 * 60 * EPIC_FPS)
+EPIC_TOTAL_FRAMES = int(7.4 * 3600 * EPIC_FPS)
+EPIC_MAX_BOXES = 10
 TIMING_ITERS = 10
 CFG_OVERRIDES = {'NUM_GPUS': 1}
 FUSED = {'TPU.PALLAS_BOTTLENECK': True}
@@ -138,6 +167,16 @@ PER_FORWARD = {'A': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 5,
                               'attention': 5, **_FUSED_LAUNCHES, **_NO_BWD},
                'Charades B': {'stem_conv': 1, 'roi_align_maxpool': 0,
                               'attention': 7, **_FUSED_LAUNCHES, **_NO_BWD},
+               # R50: 5 non-local blocks, 12 identity blocks (2 + 3 + 5 + 2).
+               'EPIC verb A': {'stem_conv': 1, 'roi_align_maxpool': 0,
+                               'attention': 5, 'fused_bottleneck': 12,
+                               **_NO_BWD},
+               'EPIC verb B': {'stem_conv': 1, 'roi_align_maxpool': 0,
+                               'attention': 7, 'fused_bottleneck': 12,
+                               **_NO_BWD},
+               'EPIC noun B': {'stem_conv': 1, 'roi_align_maxpool': 0,
+                               'attention': 7, 'fused_bottleneck': 0,
+                               **_NO_BWD},
                'train': {'stem_conv': 1, 'stem_conv_dw': 1,
                          'roi_align_maxpool': 1, 'roi_align_maxpool_bwd': 1,
                          'attention': 8, 'attention_bwd': 8,
@@ -179,6 +218,7 @@ def preamble():
     log('card: ' + card_line())
     log('torch {} cuda {}; TF32 off for matmul and cuDNN'.format(
         torch.__version__, torch.version.cuda))
+    log(host_record())
     from lfb_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
     cuda_build.library()
@@ -190,6 +230,19 @@ def preamble():
                                        'wgmma', 'Performance')):
             log('  ptxas: ' + line.strip())
     check_tensor_cores(cuda_build.library_path())
+
+
+def host_record():
+    """What the host has of the modules a data layer could use, found
+    without importing any of them: Python modules by
+    ``importlib.util.find_spec``, libjpeg by ``ctypes.util.find_library``."""
+    import ctypes.util
+    import importlib.util
+    found = {name: importlib.util.find_spec(name) is not None
+             for name in ('yaml', 'cv2', 'PIL', 'torchvision', 'sklearn')}
+    found['libjpeg'] = ctypes.util.find_library('jpeg')
+    return 'host has: ' + ', '.join('{} {}'.format(k, v)
+                                    for k, v in found.items())
 
 
 # The bf16 kernels that must run on the tensor cores (HMMA is the SASS of
@@ -509,6 +562,22 @@ def check_kernels(iters=TIMING_ITERS):
         '(device {:.3f} ms), plain {:.3f} ms, SDPA {:.3f} ms'.format(
             total['ms'], total['device_ms'], total['plain_ms'],
             total['library_ms']))
+    # The clip-level FBO-NL's decode shapes (Nq 1, f32) of the EPIC phases,
+    # logged with their bound; the totals above stay the flagship's.
+    for label, nk in (('EPIC verb FBO-NL', 40), ('EPIC noun FBO-NL', 120)):
+        q = torch.randn((B, 1, 512), generator=g, device=dev)
+        k, v = (torch.randn((B, nk, 512), generator=g, device=dev)
+                for _ in range(2))
+        lib_fwd, _, backend = sdpa_call(q, k, v, q, 512 ** -0.5)
+        r = compare(
+            'attention {} q{} k{} float32 (SDPA {})'.format(
+                label, (B, 1, 512), (B, nk, 512), backend),
+            lambda: cuda_attention.fused_attention(q, k, v, scale=512 ** -0.5),
+            lambda: cuda_attention.attention_plain(q, k, v, 512 ** -0.5),
+            1e-5, iters, lib_fwd)
+        total['err'] = max(total['err'], r['err'])
+        log('  bound for {}: {:.5f} ms, {}'.format(label, *least_ms(
+            4 * B * nk * 512, 2 * nbytes(q) + nbytes(k, v), 'float32')))
     results['attention'] = add_bound(dict(
         total, tolerance='1e-5 f32, 1e-2 bf16',
         library='F.scaled_dot_product_attention ({})'.format(
@@ -636,10 +705,13 @@ def perturbed_params(spec, device):
     return params
 
 
-def make_clip_batch(spec, rng, device, *, n_clips=B, with_lfb=False):
-    """A clip-level (Charades) batch: uint8 frames and, for phase B, either
-    explicit bank windows ('lfb') or the device bank's (video, center)
-    keys, centers inside every video's length."""
+def make_clip_batch(spec, rng, device, *, n_clips=B, with_lfb=False,
+                    lengths=None):
+    """A clip-level (Charades, EPIC) batch: uint8 frames and, for phase B,
+    either explicit bank windows ('lfb') or the device bank's (video,
+    center) keys, centers inside the video: ``lengths`` gives each video's
+    frames by its dense id (Charades without it: every video is longer than
+    ``CHARADES_FRAMES[0]``)."""
     import torch
     crop, t = spec.crop_size, spec.video_length
     batch = {'data': rng.integers(0, 256, (n_clips, t, crop, crop, 3),
@@ -647,11 +719,16 @@ def make_clip_batch(spec, rng, device, *, n_clips=B, with_lfb=False):
     if with_lfb:
         batch['lfb'] = np.abs(rng.standard_normal(
             (n_clips, spec.fbo.num_lfb_feat, 2048), np.float32)) * 0.5
-    elif spec.fbo.enabled and not spec.lfb_infer_only:
+    elif spec.fbo.enabled and not spec.lfb_infer_only and lengths is None:
         batch['lfb_video_idx'] = rng.integers(0, CHARADES_VIDEOS, n_clips,
                                               dtype=np.int32)
         batch['lfb_center'] = rng.integers(0, CHARADES_FRAMES[0], n_clips,
                                            dtype=np.int32)
+    elif spec.fbo.enabled and not spec.lfb_infer_only:
+        videos = rng.integers(0, len(lengths), n_clips)
+        batch['lfb_video_idx'] = videos.astype(np.int32)
+        batch['lfb_center'] = (rng.random(n_clips)
+                               * lengths[videos]).astype(np.int32)
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
@@ -679,12 +756,12 @@ def make_batch(spec, rng, device, *, n_clips=B, boxes=BOXES_PER_CLIP,
 
 def reference_check(cfg):
     """Phase 3: full width, one clip, f32: kernels on the card vs plain
-    versions on the CPU, for the flagship and for Charades with the fused
-    bottleneck (all 29 identity blocks launch it on the card).  Bound
-    2e-3 x max|CPU| (f32 sums through 101 layers, taken in other orders by
-    cuDNN, the kernels and the CPU)."""
+    versions on the CPU, for the flagship, for Charades with the fused
+    bottleneck (all 29 identity blocks launch it on the card) and for EPIC
+    verb with it (R50's 12).  Bound 2e-3 x max|CPU| (f32 sums through 101
+    layers, taken in other orders by cuDNN, the kernels and the CPU)."""
     import torch
-    from lfb_tpu_torch.config import charades_cfg, flagship_cfg
+    from lfb_tpu_torch.config import charades_cfg, epic_verb_cfg, flagship_cfg
     from lfb_tpu_torch.models.spec import build_spec
     from lfb_tpu_torch.ops import cuda_bottleneck
     f32 = {'NUM_GPUS': 1, 'TPU.COMPUTE_DTYPE': 'float32'}
@@ -701,6 +778,15 @@ def reference_check(cfg):
                           ('pool5', 'logits', 'prob'))
     if cuda_bottleneck.LAUNCHES - before != _FUSED_LAUNCHES['fused_bottleneck']:
         raise AssertionError('Charades reference: {} fused launches'.format(
+            cuda_bottleneck.LAUNCHES - before))
+    spec = build_spec(epic_verb_cfg({**f32, **FUSED}), 'test')
+    batch = make_clip_batch(spec, np.random.default_rng(SEED + 9), 'cuda',
+                            n_clips=1, with_lfb=True)
+    before = cuda_bottleneck.LAUNCHES
+    hold_card_against_cpu('EPIC verb, fused bottleneck', spec, batch,
+                          ('pool5', 'logits', 'prob'))
+    if cuda_bottleneck.LAUNCHES - before != 12:
+        raise AssertionError('EPIC verb reference: {} fused launches'.format(
             cuda_bottleneck.LAUNCHES - before))
 
 
@@ -728,6 +814,12 @@ def hold_card_against_cpu(label, spec, batch, keys):
         's'.format(label, t1 - t0, t2 - t1))
 
 
+def tiled_rows(rng, total):
+    """``total`` rows x 2048 f32 from one tiled random block."""
+    block = np.abs(rng.standard_normal((4096, 2048), np.float32)) * 0.5
+    return np.tile(block, (-(-total // 4096), 1))[:total]
+
+
 def synthetic_frame_bank(host_bank, rng):
     """Top the Charades ``host_bank`` up to the val split: every video gets
     a length of 15-45 s at 24 fps and a row at each bank frame it lacks
@@ -735,9 +827,7 @@ def synthetic_frame_bank(host_bank, rng):
     one tiled random block."""
     lengths = rng.integers(CHARADES_FRAMES[0], CHARADES_FRAMES[1] + 1,
                            CHARADES_VIDEOS)
-    total = int((lengths // CHARADES_ROW_EVERY).sum())
-    block = np.abs(rng.standard_normal((4096, 2048), np.float32)) * 0.5
-    feats = np.tile(block, (-(-total // 4096), 1))[:total]
+    feats = tiled_rows(rng, int((lengths // CHARADES_ROW_EVERY).sum()))
     pos = 0
     for v, n in enumerate(lengths.tolist()):
         frames = host_bank.setdefault(v, {})
@@ -752,9 +842,7 @@ def synthetic_host_bank(host_bank, rng):
     Poisson(2) rows (clipped to 25) from one tiled random block."""
     from lfb_tpu_torch.bank.device_bank import AVA_NUM_SECS, AVA_SEC_BASE
     counts = rng.poisson(2.0, size=(AVA_VIDEOS, AVA_NUM_SECS)).clip(0, 25)
-    total = int(counts.sum())
-    block = np.abs(rng.standard_normal((4096, 2048), np.float32)) * 0.5
-    feats = np.tile(block, (-(-total // 4096), 1))[:total]
+    feats = tiled_rows(rng, int(counts.sum()))
     pos = 0
     for v in range(AVA_VIDEOS):
         secs = host_bank.setdefault(v, {})
@@ -956,12 +1044,8 @@ def charades_path():
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     del host_bank
-    log('Charades bank: {} rows ({} extracted) x 2048 {} = {:.2f} GiB on the '
-        'card, {} videos x {} table columns; synthesis {:.1f} s, build + copy '
-        '{:.1f} s'.format(
-            bank.feats.shape[0], n, str(bank.feats.dtype).split('.')[-1],
-            bank.feats.numel() * bank.feats.element_size() / 2 ** 30,
-            bank.num_videos(), bank.frame_ids.shape[1], t1 - t0, t2 - t1))
+    log_bank('Charades', bank, n, ('synthesis', t1 - t0),
+             ('build + copy', t2 - t1))
 
     infer = make_eval_step(spec_b, bank=bank)
     batches = [make_clip_batch(spec_b, rng, dev)
@@ -970,18 +1054,354 @@ def charades_path():
         'Charades B (FBO inference, frame device bank)',
         lambda bs: [infer(params, b) for b in bs], batches,
         PER_FORWARD['Charades B'])
-    for out in outs:
-        prob = out['prob']
-        if tuple(prob.shape) != (B, spec_b.num_classes) or \
-                not (torch.isfinite(out['logits']).all()
-                     and bool(((prob >= 0) & (prob <= 1)).all())):
-            raise AssertionError('Charades phase B: bad logits/prob')
+    check_clip_outputs('Charades phase B', outs, spec_b)
     log('Charades two-phase: {:.1f} clips/s (each clip once per phase); '
         'peak device memory {:.2f} GiB, {:.2f} GiB of it held from the '
         'flagship phases (their bank and params)'.format(
             2 * B / ((ms_a + ms_b) / 1e3),
             torch.cuda.max_memory_allocated() / 2 ** 30, held / 2 ** 30))
     return {k: launches_a[k] + launches_b[k] for k in launches_a}
+
+
+def check_clip_outputs(label, outs, spec):
+    """Each batch's prob: (B, classes), finite logits, values in [0, 1];
+    softmax rows (single-label heads) summing to 1 within 1e-3."""
+    import torch
+    for out in outs:
+        prob = out['prob'].float()
+        ok = (tuple(prob.shape) == (B, spec.num_classes)
+              and bool(torch.isfinite(out['logits']).all())
+              and bool(((prob >= 0) & (prob <= 1)).all()))
+        if ok and not spec.multi_label:
+            ok = (prob.sum(-1) - 1).abs().max().item() <= 1e-3
+        if not ok:
+            raise AssertionError('{}: bad logits/prob'.format(label))
+
+
+def epic_videos(rng):
+    """The EPIC val split's videos: names (P26_01, P27_01, ...), each
+    one's length in frames (2-16 min, scaled to 7.4 h in all), and the
+    dense ids of the bank's video index,
+    a permutation of the names' order; returns (names, {name: frames},
+    {name: id}, frames by id)."""
+    names = ['{}_{:02d}'.format(EPIC_PERSONS[i % len(EPIC_PERSONS)],
+                                i // len(EPIC_PERSONS) + 1)
+             for i in range(EPIC_VIDEOS)]
+    frames = rng.integers(EPIC_FRAMES[0], EPIC_FRAMES[1] + 1, EPIC_VIDEOS)
+    frames = np.clip(np.round(frames * (EPIC_TOTAL_FRAMES / frames.sum())),
+                     *EPIC_FRAMES).astype(np.int64)
+    ids = rng.permutation(EPIC_VIDEOS)
+    by_id = np.empty(EPIC_VIDEOS, np.int64)
+    by_id[ids] = frames
+    return (names, dict(zip(names, frames.tolist())),
+            dict(zip(names, ids.tolist())), by_id)
+
+
+def bank_frames(n):
+    """A video of ``n`` frames' bank frames: one a second (the verb bank's
+    sweep takes frames 30, 60, ..., ``lfb_tpu/data/epic.py:
+    lfb_frame_annotations``; the noun bank's detector ran at 1 fps)."""
+    return range(EPIC_FPS, n + 1, EPIC_FPS)
+
+
+def synthetic_verb_bank(host_bank, frames_of, rng):
+    """Top the EPIC verb ``host_bank`` {video name: {frame: feat}} up to a
+    row at every bank frame of every video."""
+    feats = tiled_rows(rng, sum(len(bank_frames(n))
+                                for n in frames_of.values()))
+    pos = 0
+    for name, n in frames_of.items():
+        frames = host_bank.setdefault(name, {})
+        for f in bank_frames(n):
+            frames.setdefault(f, feats[pos])
+            pos += 1
+    return host_bank
+
+
+def synthetic_noun_bank(frames_of, name_to_idx, rng):
+    """A detector bank {video id: {frame: (n, 2048)}} with n drawn from
+    0-10 at every bank frame; returns it and its row count."""
+    counts = {name: rng.integers(0, EPIC_MAX_BOXES + 1, len(bank_frames(n)))
+              for name, n in frames_of.items()}
+    total = sum(int(c.sum()) for c in counts.values())
+    feats = tiled_rows(rng, total)
+    bank, pos = {}, 0
+    for name, n in frames_of.items():
+        frames = bank[name_to_idx[name]] = {}
+        for f, k in zip(bank_frames(n), counts[name].tolist()):
+            frames[f] = feats[pos:pos + k]
+            pos += k
+    return bank, total
+
+
+def log_cfg(label, cfg, spec):
+    log('{}: configs/epic_{}_r50_lfb_nl.yaml by the port\'s load_config: R{} '
+        'arc {}, {} {} classes, FBO-{} {} layers ({}-act) over {} rows, T {}, '
+        'crop {}, fused bottleneck {}'.format(
+            label, cfg.EPIC.CLASS_TYPE, spec.depth, spec.arc_choice,
+            spec.num_classes, 'sigmoid' if spec.multi_label else 'softmax',
+            spec.fbo.fbo_type, spec.fbo.num_layers,
+            'pre' if spec.fbo.pre_act else 'post', spec.fbo.num_lfb_feat,
+            spec.video_length, spec.crop_size, spec.use_pallas_bottleneck))
+
+
+def log_bank(label, bank, extracted, *stages):
+    """The device bank's rows, size and index table, and the seconds of
+    each (name, seconds) stage that built it."""
+    log('{} bank: {} rows ({} extracted) x 2048 {} = {:.2f} GiB on the card, '
+        '{} videos x {} table columns; {}'.format(
+            label, bank.feats.shape[0], extracted,
+            str(bank.feats.dtype).split('.')[-1],
+            bank.feats.numel() * bank.feats.element_size() / 2 ** 30,
+            bank.num_videos(), bank.frame_ids.shape[1],
+            ', '.join('{} {:.1f} s'.format(k, v) for k, v in stages)))
+
+
+def log_gather(label, bank, batch):
+    """The window gather's time (``choose_rows``' argsort over the table
+    width, then the rows) for one batch's keys."""
+    ms = cuda_ms(lambda: bank.gather_centers(batch['lfb_video_idx'],
+                                             batch['lfb_center']),
+                 TIMING_ITERS)
+    log('{}: the window gather of {} clips takes {:.3f} ms (median of {})'
+        .format(label, B, ms, TIMING_ITERS))
+
+
+def epic_verb_path(videos):
+    """Phase 6: EPIC verb with the fused bottleneck: the bank sweep over
+    clips named by video (phase A), the bank topped up to the val split and
+    keyed by the dense ids of ``video_name_to_idx``, FBO inference with
+    windows gathered from it (phase B).  Returns the launches and (spec,
+    params, bank, a phase-B batch) for :func:`checkpoint_phase`."""
+    import torch
+    from lfb_tpu_torch.bank.device_bank import build_device_bank
+    from lfb_tpu_torch.bank.lfb import extract_frame_bank
+    from lfb_tpu_torch.config import epic_verb_cfg
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.train.steps import make_eval_step
+    dev = torch.device('cuda')
+    names, frames_of, name_to_idx, lengths = videos
+    cfg = epic_verb_cfg({**CFG_OVERRIDES, **FUSED})
+    spec_a = build_spec(cfg, 'test', lfb_infer_only=True)
+    spec_b = build_spec(cfg, 'test')
+    log_cfg('EPIC verb', cfg, spec_b)
+    params = perturbed_params(spec_b, dev)
+    rng = np.random.default_rng(SEED + 11)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The sweep's clip list: rows (person, video name, frame, frame, 0, 0)
+    # as lfb_frame_annotations makes them, distinct videos.
+    n = EXTRACT_BATCHES * B
+    clips = [(names[v][:3], names[v], f, f, 0, 0) for v, f in zip(
+        rng.choice(EPIC_VIDEOS, n, replace=False).tolist(),
+        (EPIC_FPS * rng.integers(1, EPIC_FRAMES[0] // EPIC_FPS + 1,
+                                 n)).tolist())]
+    batches = [make_clip_batch(spec_a, rng, dev)
+               for _ in range(EXTRACT_BATCHES)]
+    ms_a, host_bank, launches_a = run_phase(
+        'EPIC verb A (bank extraction by video name)',
+        lambda bs: extract_frame_bank(spec_a, params, bs, clips, 'epic'),
+        batches, PER_FORWARD['EPIC verb A'])
+    feats = [f for frames in host_bank.values() for f in frames.values()]
+    if sorted(host_bank) != sorted(c[1] for c in clips) or not all(
+            f.shape == (2048,) and np.isfinite(f).all() for f in feats):
+        raise AssertionError('EPIC verb phase A: bad host bank')
+    del batches
+
+    t0 = time.perf_counter()
+    host_bank = synthetic_verb_bank(host_bank, frames_of, rng)
+    t1 = time.perf_counter()
+    bank = build_device_bank(cfg, host_bank, name_to_idx, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del host_bank
+    log_bank('EPIC verb', bank, n, ('synthesis', t1 - t0),
+             ('build + copy', t2 - t1))
+
+    infer = make_eval_step(spec_b, bank=bank)
+    batches = [make_clip_batch(spec_b, rng, dev, lengths=lengths)
+               for _ in range(INFER_BATCHES)]
+    ms_b, outs, launches_b = run_phase(
+        'EPIC verb B (FBO inference, name-keyed frame device bank)',
+        lambda bs: [infer(params, b) for b in bs], batches,
+        PER_FORWARD['EPIC verb B'])
+    check_clip_outputs('EPIC verb phase B', outs, spec_b)
+    log_gather('EPIC verb phase B', bank, batches[0])
+    log('EPIC verb two-phase: {:.1f} clips/s (each clip once per phase); '
+        'peak device memory {:.2f} GiB, {:.2f} GiB of it held from the '
+        'flagship phases'.format(
+            2 * B / ((ms_a + ms_b) / 1e3),
+            torch.cuda.max_memory_allocated() / 2 ** 30, held / 2 ** 30))
+    return ({k: launches_a[k] + launches_b[k] for k in launches_a},
+            (spec_b, params, bank, batches[0]))
+
+
+def epic_noun_path(videos):
+    """Phase 7: EPIC noun, phase B only (its bank comes from a detector),
+    unfused: a synthetic detector bank over the same videos goes the
+    released path, ``write_lfb``, ``LFB.LOAD_LFB_PATH`` set by a CLI-style
+    override, ``load_lfb``, ``build_device_bank``; then FBO inference with
+    120-row windows gathered from it."""
+    import tempfile
+    import torch
+    from lfb_tpu_torch.bank.device_bank import build_device_bank
+    from lfb_tpu_torch.bank.lfb import load_lfb, write_lfb
+    from lfb_tpu_torch.config import epic_noun_cfg
+    from lfb_tpu_torch.core.config import merge_cfg_from_list
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.ops import cuda_build
+    from lfb_tpu_torch.train.steps import make_eval_step
+    dev = torch.device('cuda')
+    _, frames_of, name_to_idx, lengths = videos
+    cfg = epic_noun_cfg(CFG_OVERRIDES)
+    spec_b = build_spec(cfg, 'test')
+    log_cfg('EPIC noun', cfg, spec_b)
+    params = perturbed_params(spec_b, dev)
+    rng = np.random.default_rng(SEED + 12)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    host_bank, rows = synthetic_noun_bank(frames_of, name_to_idx, rng)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(
+            prefix='epic_noun_lfb_', dir=cuda_build.BUILD_DIR.parent) as d:
+        merge_cfg_from_list(cfg, ['CHECKPOINT.DIR', d, 'LFB.LOAD_LFB_PATH', d])
+        path = write_lfb(cfg, host_bank, is_train=False)
+        size = os.path.getsize(path)
+        del host_bank
+        t2 = time.perf_counter()
+        host_bank = load_lfb(cfg, is_train=False)
+        t3 = time.perf_counter()
+    bank = build_device_bank(cfg, host_bank, device=dev)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    del host_bank
+    if bank.feats.shape[0] != rows + 1:
+        raise AssertionError('EPIC noun bank: {} rows, not {}'.format(
+            bank.feats.shape[0] - 1, rows))
+    log_bank('EPIC noun', bank, 0, ('synthesis', t1 - t0),
+             ('write_lfb ({:.2f} GiB pickle)'.format(size / 2 ** 30), t2 - t1),
+             ('load_lfb', t3 - t2), ('build + copy', t4 - t3))
+
+    infer = make_eval_step(spec_b, bank=bank)
+    batches = [make_clip_batch(spec_b, rng, dev, lengths=lengths)
+               for _ in range(INFER_BATCHES)]
+    _, outs, launches = run_phase(
+        'EPIC noun B (FBO inference, detector device bank)',
+        lambda bs: [infer(params, b) for b in bs], batches,
+        PER_FORWARD['EPIC noun B'])
+    check_clip_outputs('EPIC noun phase B', outs, spec_b)
+    log_gather('EPIC noun phase B', bank, batches[0])
+    log('EPIC noun: peak device memory {:.2f} GiB, {:.2f} GiB of it held from '
+        'the earlier phases'.format(
+            torch.cuda.max_memory_allocated() / 2 ** 30, held / 2 ** 30))
+    return launches
+
+
+def checkpoint_phase(spec, params, bank, batch):
+    """Phase 8: the port's checkpoint layer on the card.  ``save_params``
+    of the EPIC verb params and an ``SGDState``'s momentum, then
+    ``load_params_into`` fresh ones on the card: every tensor bitwise.
+    Then a K400-style pretrained pickle built from the port's own names of
+    the BN-mode R50 (``_bn_rm`` / ``_bn_riv``, ``*_momentum``, a 400-class
+    classifier, a 2-D stem kernel) loads with ``convert_model``: the BN
+    folds, the classifier and the FBO keep their values, the stem inflates,
+    every other blob loads as it is; one EPIC verb forward on it is
+    finite."""
+    import tempfile
+    import torch
+    from lfb_tpu_torch.config import epic_verb_cfg
+    from lfb_tpu_torch.models.model import init_params
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.ops import cuda_build
+    from lfb_tpu_torch.train import checkpoints, optimizer
+    from lfb_tpu_torch.train.steps import make_eval_step, split_params
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    _, frozen = split_params(spec, params)
+    state = optimizer.init_state(params, set(frozen))
+    for value in state.momentum.values():
+        value.normal_(generator=g)
+    fresh = init_params(spec, torch.Generator(device=dev).manual_seed(
+        SEED + 14))
+    bn_spec = build_spec(epic_verb_cfg({
+        **CFG_OVERRIDES, 'MODEL.USE_AFFINE': False, 'NONLOCAL.USE_BN': True,
+        'NONLOCAL.USE_AFFINE': False, 'MODEL.NUM_CLASSES': 400,
+        'LFB.ENABLED': False}), 'test')
+    rng = np.random.default_rng(SEED + 13)
+    blobs = {k: v.cpu().numpy() for k, v in perturbed_params(bn_spec,
+                                                              dev).items()}
+    for name in blobs:
+        if name.endswith('_bn_riv'):
+            blobs[name] = 1 + 0.1 * np.abs(rng.standard_normal(
+                blobs[name].shape, np.float32))
+    blobs['conv1_w'] = np.ascontiguousarray(blobs['conv1_w'][:, :, 0])
+    for name in ('conv1_w', 'res2_0_branch2a_w', 'pred_w'):
+        blobs[name + '_momentum'] = np.ones_like(blobs[name])
+    with tempfile.TemporaryDirectory(
+            prefix='checkpoints_', dir=cuda_build.BUILD_DIR.parent) as d:
+        path = os.path.join(d, 'c2_model_iter36000.pkl')
+        t0 = time.perf_counter()
+        checkpoints.save_params(path, params, model_iter=36000, lr=1e-5,
+                                momentum=state.momentum)
+        t1 = time.perf_counter()
+        loaded, momentum, it, _ = checkpoints.load_params_into(
+            path, fresh, load_momentum=True,
+            momentum=optimizer.init_state(fresh, set(frozen)).momentum)
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+        k400 = os.path.join(d, 'r50_k400_pretrained.pkl')
+        checkpoints.write_pkl(k400, {'blobs': blobs})
+        converted, _, _, _ = checkpoints.load_params_into(
+            k400, fresh, convert_model=True)
+    for got, want in ((loaded, params), (momentum, state.momentum)):
+        if sorted(got) != sorted(want) or not all(
+                got[k].is_cuda and got[k].dtype == torch.float32
+                and torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError('checkpoint round trip: not bitwise')
+    if it != 36000:
+        raise AssertionError('checkpoint round trip: model_iter {}'.format(it))
+    log('checkpoint: save_params of {} params + {} momentum buffers ({:.2f} '
+        'GiB pickle) {:.1f} s, load_params_into on the card {:.1f} s: every '
+        'tensor bitwise'.format(len(params), len(state.momentum),
+                                size / 2 ** 30, t1 - t0, t2 - t1))
+
+    kept, folded = [], 0
+    for name, value in converted.items():
+        if name.startswith('pred_') or name not in blobs:
+            kept.append(name)
+            want = fresh[name]
+        elif name == 'conv1_w':
+            want = torch.from_numpy(blobs[name] / np.float32(5))[:, :, None]
+            want = want.expand(value.shape).to(dev)
+        elif name.endswith(('_bn_s', '_bn_b')) and (
+                name[:-len('_bn_s')] + '_bn_rm' in blobs):
+            layer = name[:-len('_bn_s')]
+            std = np.sqrt(blobs[layer + '_bn_riv'] + 1e-5)
+            scale = blobs[layer + '_bn_s']
+            want = torch.from_numpy(
+                scale / std if name.endswith('_s')
+                else blobs[layer + '_bn_b'] - blobs[layer + '_bn_rm'] * scale
+                / std).to(dev)
+            folded += name.endswith('_s')
+        else:
+            want = torch.from_numpy(blobs[name]).to(dev)
+        if value.shape != want.shape or not torch.equal(value, want):
+            raise AssertionError('K400 conversion: {}'.format(name))
+    if not (kept and all(k.startswith(('pred_', 'lfb_')) or 'fbonl' in k
+                         for k in kept) and 'pred_w' in kept
+            and blobs['pred_w'].shape == (400, 2048)):
+        raise AssertionError('K400 conversion: kept {}'.format(kept))
+    out = make_eval_step(spec, bank=bank)(converted, batch)
+    if not bool(torch.isfinite(out['logits']).all()):
+        raise AssertionError('K400 conversion: non-finite logits')
+    log('checkpoint: a K400-style pickle ({} blobs, 400 classes) loaded with '
+        'convert_model: {} BN layers folded, the stem inflated to {}, {} '
+        'params kept (classifier, FBO); an EPIC verb forward on it is '
+        'finite'.format(len(blobs), folded, tuple(converted['conv1_w'].shape),
+                        len(kept)))
 
 
 def busy_us(intervals, t0, t1):
@@ -997,7 +1417,7 @@ def busy_us(intervals, t0, t1):
 
 
 def check_backward_kernels(iters=TIMING_ITERS):
-    """Phase 6: each backward kernel vs its plain version at the flagship
+    """Phase 9: each backward kernel vs its plain version at the flagship
     train shapes (B = 8 clips x 4 boxes, T 32, crop 224), and the forward
     attention kernel's row log-sum-exp vs ``torch.logsumexp``.
 
@@ -1119,7 +1539,7 @@ def check_backward_kernels(iters=TIMING_ITERS):
 
 
 def train_reference_check(cfg):
-    """Phase 7: one full-width f32 train step (1 clip x 4 boxes, T 32, crop
+    """Phase 10: one full-width f32 train step (1 clip x 4 boxes, T 32, crop
     224, dropout 0) on the card (kernels) against the same step on the CPU
     (plain versions), from the same params and batch.
 
@@ -1189,7 +1609,7 @@ def train_reference_check(cfg):
 
 
 def train_phase(cfg, bank):
-    """Phase 8: the flagship train step at B = 8 clips x 4 boxes with the
+    """Phase 11: the flagship train step at B = 8 clips x 4 boxes with the
     AVA-scale device bank; returns the launch counts of its steps."""
     import torch
     from lfb_tpu_torch.models.spec import build_spec
@@ -1364,16 +1784,20 @@ def main():
     results = check_kernels()
     reference_check(cfg)
     launches, bank = main_path(cfg)
-    charades_launches = charades_path()
+    path_launches = [launches, charades_path()]
+    videos = epic_videos(np.random.default_rng(SEED + 10))
+    verb_launches, verb_state = epic_verb_path(videos)
+    path_launches += [verb_launches, epic_noun_path(videos)]
+    checkpoint_phase(*verb_state)
+    del verb_state
     results.update(check_backward_kernels())
     train_reference_check(cfg)
-    train_launches = train_phase(cfg, bank)
+    path_launches.append(train_phase(cfg, bank))
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]
         kernels.append({'name': name, **meta,
-                        'launches': (launches[name] + charades_launches[name]
-                                     + train_launches[name]),
+                        'launches': sum(n[name] for n in path_launches),
                         'max_abs_err': r['err'], 'ms': r['ms'],
                         'device_ms': r['device_ms'],
                         'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import logging
 import os
-import pickle
 from typing import Dict, Iterable, List, Mapping, Sequence
 
 import numpy as np
@@ -90,8 +89,7 @@ def write_lfb(cfg, lfb: Dict, is_train: bool) -> str:
     reference); returns the path."""
     path = os.path.join(cfg.CHECKPOINT.DIR,
                         'train_lfb.pkl' if is_train else 'val_lfb.pkl')
-    with open(path, 'wb') as f:
-        pickle.dump(lfb, f, protocol=2)
+    checkpoints.write_pkl(path, lfb)
     logger.info('Inferred LFB saved as %s', path)
     return path
 

@@ -1,4 +1,4 @@
-"""The configurations the port runs, built without YAML.
+"""The configurations the port runs.
 
 * ``ava_r101_lfb_nl_3l`` (:func:`flagship_cfg`): R101-I3D-NL backbone, AVA
   RoI head and a 3-layer FBO-NL over a 60 s x 5-feature (300-row) bank
@@ -11,19 +11,34 @@
   post-act FBO-NL over 20 rows of a frame-level bank (2 clips a second of
   24 fps video), every key of ``configs/charades_r101_lfb_nl.yaml`` that the
   port reads.
+* ``epic_verb_r50_lfb_nl`` / ``epic_noun_r50_lfb_nl`` (:func:`epic_verb_cfg`,
+  :func:`epic_noun_cfg`): R50-I3D-NL without res5 dilation, a clip-level
+  softmax head (125 verbs, 352 nouns) and a 2-layer pre-act FBO-NL over 40
+  rows of a bank the model extracts (one clip a second) or 120 rows of a
+  detector bank (10 boxes a second) that is loaded.  These two are read
+  from the released YAMLs of ``configs/`` by :func:`load_config`.
 
-The machines the port runs on need not have ``pyyaml``, so nothing here
-reads a YAML file.  ``TPU.REMAT`` is off: rematerialization is not ported,
-and the flagship step at B = 8 fits one card without it (as ``bench.py``
-runs it).  ``TPU.PALLAS_BOTTLENECK`` stays at its default (off); callers
-set it.
+The flagship and Charades configs are built from dicts, the two EPIC ones
+from their YAML files; ``tests/test_torch_config.py`` holds the first two
+to their YAML files too.  ``TPU.REMAT`` is off: rematerialization is not
+ported, and the flagship step at B = 8 fits one card without it (as
+``bench.py`` runs it).  ``TPU.PALLAS_BOTTLENECK`` stays at its default
+(off); callers set it.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 
-from lfb_tpu_torch.core.config import Config, default_config, finalize
+from lfb_tpu_torch.core.config import (Config, default_config, finalize,
+                                       load_config)
+
+CONFIG_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'configs')
+
+# The port's own settings on top of a released YAML.
+PORT_SETTINGS = {'TPU.REMAT': ''}
 
 FLAGSHIP_OVERRIDES = {
     'DATASET': 'ava',
@@ -134,3 +149,23 @@ def flagship_cfg(overrides: dict | None = None) -> Config:
 def charades_cfg(overrides: dict | None = None) -> Config:
     """The finalized Charades R101 LFB-NL config, as :func:`flagship_cfg`."""
     return _finalized(CHARADES_OVERRIDES, overrides)
+
+
+def _released_cfg(name: str, overrides: dict | None = None) -> Config:
+    """``load_config`` of ``configs/{name}.yaml`` with
+    :data:`PORT_SETTINGS` and ``overrides`` ({dotted.key: value}) as CLI
+    overrides, so each is type-checked against the key's default."""
+    opts = []
+    for key, value in {**PORT_SETTINGS, **(overrides or {})}.items():
+        opts += [key, repr(value)]
+    return load_config(os.path.join(CONFIG_DIR, name + '.yaml'), opts)
+
+
+def epic_verb_cfg(overrides: dict | None = None) -> Config:
+    """The finalized EPIC-Kitchens verb R50 LFB-NL config."""
+    return _released_cfg('epic_verb_r50_lfb_nl', overrides)
+
+
+def epic_noun_cfg(overrides: dict | None = None) -> Config:
+    """The finalized EPIC-Kitchens noun R50 LFB-NL config."""
+    return _released_cfg('epic_noun_r50_lfb_nl', overrides)

@@ -1,13 +1,14 @@
-"""Weights carried between ``lfb_tpu`` and the port.
+"""Weights carried between ``lfb_tpu``'s params in memory and the port's.
 
 ``lfb_tpu`` keeps conv kernels as (kT, kH, kW, Cin, Cout) and FC weights as
 (Cin, Cout); the port keeps the Caffe2 layout, which is PyTorch's own:
 (Cout, Cin/g, kT, kH, kW) and (Cout, Cin).  The names are the Caffe2 blob
-names in both, so a released ``.pkl`` loads through
-``lfb_tpu.train.checkpoints.load_params_into`` followed by
-:func:`params_from_jax`.  An optimizer state (``lfb_tpu``'s or the port's
-``SGDState``) converts too: its momentum buffers have the params' names and
-layouts.
+names in both.  A released ``.pkl`` (or a checkpoint of either package)
+loads into the port through its own
+:func:`lfb_tpu_torch.train.checkpoints.load_params_into`; the functions
+here carry params between the two packages in memory, as the tests do.  An
+optimizer state (``lfb_tpu``'s or the port's ``SGDState``) converts too:
+its momentum buffers have the params' names and layouts.
 """
 
 from __future__ import annotations

@@ -1,18 +1,25 @@
-"""The config keys and defaults, and their finalization: the port's own
-copy of ``lfb_tpu/core/config.py``'s ``AttrDict`` / ``Config``,
-``default_config`` and ``finalize`` (reference ``lib/core/config.py``).
+"""The config keys and defaults, and the loading of a config: the port's own
+copy of ``lfb_tpu/core/config.py`` (``AttrDict`` / ``Config``,
+``default_config``, the type-checked merges of a YAML file and of CLI
+overrides, ``finalize``, ``clone`` and ``load_config``; reference
+``lib/core/config.py``).
 
-The port builds its configs from dicts (``lfb_tpu_torch/config.py``), so
-the YAML loading and the CLI override parsing stay in ``lfb_tpu``.  The
-comments on the ``TPU.*`` keys describe ``lfb_tpu``'s use of them; the port
-reads ``TPU.COMPUTE_DTYPE``, ``TPU.PALLAS_BOTTLENECK``, ``TPU.REMAT`` and the
-bank keys.  ``tests/test_torch_model.py`` holds this copy to the original
-key by key.
+YAML files are read by :mod:`lfb_tpu_torch.core.yaml_subset`, which gives
+the values PyYAML's ``safe_load`` gives for the released configs, so the
+port needs no PyYAML.  The comments on the ``TPU.*`` keys describe
+``lfb_tpu``'s use of them; the port reads ``TPU.COMPUTE_DTYPE``,
+``TPU.PALLAS_BOTTLENECK``, ``TPU.REMAT`` and the bank keys.
+``tests/test_torch_model.py`` and ``tests/test_torch_config.py`` hold this
+copy to the original key by key.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import copy
+from ast import literal_eval
+from typing import Any, Iterable
+
+from lfb_tpu_torch.core import yaml_subset
 
 
 class AttrDict(dict):
@@ -319,6 +326,68 @@ def default_config() -> Config:
     return c
 
 
+def _coerce(value: Any, old: Any, key: str) -> Any:
+    """Coerce ``value`` to the type of the default ``old`` (with literal_eval
+    of strings), enforcing type compatibility like reference
+    ``config.py:394-420``."""
+    if isinstance(value, str):
+        try:
+            value = literal_eval(value)
+        except (ValueError, SyntaxError):
+            pass
+    if old is None or value is None:
+        return value
+    if isinstance(old, bool) is not isinstance(value, bool) and (
+            isinstance(old, bool) or isinstance(value, bool)):
+        raise ValueError('Type mismatch (bool) for config key: {}'.format(key))
+    if isinstance(old, float) and isinstance(value, int):
+        return float(value)
+    if type(old) is not type(value):
+        # str defaults accept any str-able literal-eval failure case
+        if isinstance(old, str) and isinstance(value, (bytes,)):
+            return value.decode()
+        raise ValueError('Type mismatch ({} vs. {}) for config key: {}'.format(
+            type(old), type(value), key))
+    return value
+
+
+def merge_dict_into(cfg: Config, other: dict, prefix: str = '') -> None:
+    """Recursively merge ``other`` into ``cfg``, type-checked."""
+    for key, value in other.items():
+        full = prefix + key
+        if key not in cfg:
+            raise KeyError('Invalid key in config file: {}'.format(full))
+        if isinstance(value, dict):
+            if not isinstance(cfg[key], AttrDict):
+                raise ValueError('Config key {} is not a section'.format(full))
+            merge_dict_into(cfg[key], value, full + '.')
+        else:
+            cfg[key] = _coerce(value, cfg[key], full)
+
+
+def merge_cfg_from_file(cfg: Config, filename: str) -> None:
+    """Merge the YAML file ``filename`` into ``cfg`` (read by
+    :mod:`~lfb_tpu_torch.core.yaml_subset`)."""
+    loaded = yaml_subset.load_file(filename)
+    if loaded:
+        merge_dict_into(cfg, loaded)
+
+
+def merge_cfg_from_list(cfg: Config, args_list: Iterable[str]) -> None:
+    """Apply dotted-key overrides, e.g. ['TRAIN.BATCH_SIZE', '16']."""
+    args_list = list(args_list)
+    assert len(args_list) % 2 == 0, 'Specify values or keys for args'
+    for key, value in zip(args_list[0::2], args_list[1::2]):
+        parts = key.split('.')
+        node = cfg
+        for subkey in parts[:-1]:
+            assert subkey in node, 'Config key {} not found'.format(key)
+            node = node[subkey]
+        subkey = parts[-1]
+        assert subkey in node, 'Config key {} not found'.format(key)
+        node[subkey] = _coerce(value, node[subkey], key)
+
+
 def finalize(cfg: Config) -> Config:
     """Compute derived keys + invariants (reference ``config.py:373-391``)."""
     if cfg.SOLVER.STEPS is None:
@@ -343,3 +412,32 @@ def finalize(cfg: Config) -> Config:
     cfg.LFB.NUM_LFB_FEAT = (
         cfg.AVA.LFB_MAX_NUM_FEAT_PER_STEP * cfg.LFB.WINDOW_SIZE)
     return cfg
+
+
+def clone(cfg: Config, overrides: dict | None = None) -> Config:
+    """Deep-copy a config, optionally applying {dotted.key: value} overrides.
+
+    This replaces the reference's pattern of mutating the global config
+    between phases (e.g. multi-crop scale loops at
+    ``tools/test_net.py:62-70``).
+    """
+    new = copy.deepcopy(cfg)
+    if overrides:
+        for key, value in overrides.items():
+            parts = key.split('.')
+            node = new
+            for subkey in parts[:-1]:
+                node = node[subkey]
+            node[parts[-1]] = value
+    return new
+
+
+def load_config(config_file: str | None = None,
+                opts: Iterable[str] = ()) -> Config:
+    """Build a finalized config: defaults <- YAML <- CLI overrides."""
+    cfg = default_config()
+    if config_file:
+        merge_cfg_from_file(cfg, config_file)
+    if opts:
+        merge_cfg_from_list(cfg, opts)
+    return finalize(cfg)

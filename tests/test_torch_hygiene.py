@@ -1,11 +1,12 @@
 """Import hygiene of the port: in a fresh interpreter, importing every
 module of ``lfb_tpu_torch`` and ``chip_smoke``, running a tiny device-bank
 eval step, a tiny train step (dropout on, bank windows from the device bank)
-and a tiny Charades eval step (fused bottleneck, frame-level bank) loads
-no module of the JAX package ``lfb_tpu`` (the port keeps its own copies of
-what it took from it), and neither ``jax`` nor ``cv2`` nor ``yaml`` (the GPU
-machines the port runs on have no JAX install to rely on, no OpenCV and no
-PyYAML)."""
+and a tiny Charades eval step (fused bottleneck, frame-level bank), loading
+the EPIC configs from their YAML files and a checkpoint through the port's
+checkpoint layer loads no module of the JAX package ``lfb_tpu`` (the port
+keeps its own copies of what it took from it), and neither ``jax`` nor
+``cv2`` nor ``yaml`` (the GPU machines the port runs on have no JAX install
+to rely on, no OpenCV and no PyYAML)."""
 
 import json
 import os
@@ -80,6 +81,19 @@ out = make_eval_step(spec, bank=bank)(
         'data': torch.zeros((1, 8, 32, 32, 3), dtype=torch.uint8),
         'lfb_video_idx': torch.tensor([0]), 'lfb_center': torch.tensor([11])})
 assert out['prob'].shape == (1, 157) and bool(torch.isfinite(out['prob']).all())
+
+import os, tempfile
+from lfb_tpu_torch.config import epic_noun_cfg, epic_verb_cfg
+from lfb_tpu_torch.train import checkpoints
+assert epic_verb_cfg({'NUM_GPUS': 1}).MODEL.NUM_CLASSES == 125
+assert epic_noun_cfg().LFB.WINDOW_SIZE == 120
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, 'c2_model_iter1.pkl')
+    checkpoints.save_params(path, {'pred_b': torch.ones(3)}, model_iter=1,
+                            lr=0.1)
+    loaded = checkpoints.load_params_into(path, {'pred_b': torch.zeros(3)},
+                                          device='cpu')[0]
+assert bool((loaded['pred_b'] == 1).all())
 print(json.dumps({'modules': names,
                   'loaded': sorted(m for m in sys.modules
                                    if m in ('jax', 'cv2', 'yaml', 'lfb_tpu')

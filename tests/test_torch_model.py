@@ -22,6 +22,7 @@ arc.
 import dataclasses
 import os
 import re
+import tempfile
 
 import numpy as np
 import pytest
@@ -33,20 +34,24 @@ import jax.numpy as jnp  # noqa: E402
 
 import lfb_tpu.models as jax_models  # noqa: E402
 from lfb_tpu.bank.device_bank import FrameDeviceBank as JaxFrameDeviceBank  # noqa: E402
+from lfb_tpu.bank.device_bank import \
+    build_device_bank as jax_build_device_bank  # noqa: E402
 from lfb_tpu.core import config as jax_config  # noqa: E402
 from lfb_tpu.core.config import load_config  # noqa: E402
 from lfb_tpu.train.steps import make_eval_step as jax_make_eval_step  # noqa: E402
 from lfb_tpu_torch.bank.device_bank import (AvaDeviceBank,  # noqa: E402
                                             FrameDeviceBank, build_device_bank)
-from lfb_tpu_torch.bank.lfb import extract_frame_bank  # noqa: E402
+from lfb_tpu_torch.bank.lfb import (extract_frame_bank, load_lfb,  # noqa: E402
+                                    write_lfb)
 from lfb_tpu_torch.config import (CHARADES_OVERRIDES,  # noqa: E402
                                   FLAGSHIP_OVERRIDES, charades_cfg,
-                                  flagship_cfg)
+                                  epic_noun_cfg, epic_verb_cfg, flagship_cfg)
 from lfb_tpu_torch.core import config as port_config  # noqa: E402
 from lfb_tpu_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from lfb_tpu_torch.models import model as port_model  # noqa: E402
 from lfb_tpu_torch.models.spec import build_spec  # noqa: E402
 from lfb_tpu_torch.ops import cuda_bottleneck  # noqa: E402
+from lfb_tpu_torch.train import checkpoints  # noqa: E402
 from lfb_tpu_torch.train.steps import make_eval_step  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -362,7 +367,17 @@ DEFAULT_DEVICE_CALLS = {
         'test'))['conv1_w'],
     'params_from_jax': lambda: params_from_jax(
         {'pred_b': np.zeros(3, np.float32)})['pred_b'],
+    'load_params_into': lambda: load_into_default_device(),
 }
+
+
+def load_into_default_device():
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, 'c2_model_iter1.pkl')
+        checkpoints.save_params(path, {'pred_b': torch.ones(3)}, model_iter=1,
+                                lr=0.1)
+        return checkpoints.load_params_into(
+            path, {'pred_b': torch.zeros(3)})[0]['pred_b']
 
 
 @pytest.mark.parametrize('entry', sorted(DEFAULT_DEVICE_CALLS))
@@ -443,3 +458,131 @@ def test_charades_phases_match_lfb_tpu(charades_setup, monkeypatch, fused):
         close(out[key], ref_b[key])
     assert np.abs(np.asarray(ref_b['logits'])).max() > 1.0
     assert len(calls) == (2 * R50_IDENTITY_BLOCKS if fused else 0)
+
+
+# EPIC at R50, T = 8, crop 32: verb windows of 4 rows (+-2 s of a bank with
+# a row a second), noun windows of 20 rows (10 detector boxes a second:
+# +-1 s).  The verb bank is keyed by video name; its dense ids do not
+# follow the names' order.
+EPIC_TINY = {'TRAIN.VIDEO_LENGTH': 8, 'TEST.VIDEO_LENGTH': 8,
+             'TRAIN.CROP_SIZE': 32, 'TEST.CROP_SIZE': 32,
+             'LFB.WINDOW_SIZE': 4, 'TPU.COMPUTE_DTYPE': 'float32',
+             'NUM_GPUS': 1}
+EPIC_NOUN_TINY = {**EPIC_TINY, 'LFB.WINDOW_SIZE': 20}
+VERB_VIDEOS = {'P26_01': 2, 'P27_03': 0, 'P31_14': 1}
+
+
+def assert_softmax(prob, classes):
+    assert prob.shape == (2, classes)
+    assert bool((prob >= 0).all()) and bool((prob <= 1).all())
+    np.testing.assert_allclose(prob.sum(-1).numpy(), 1.0, atol=1e-5)
+
+
+@pytest.fixture(scope='module')
+def epic_verb_setup():
+    """lfb_tpu's phase A pool5 and phase B outputs on one tiny EPIC verb
+    batch, with the name-keyed bank through its ``build_device_bank``."""
+    cfg = epic_verb_cfg(EPIC_TINY)
+    jspec_a = jax_models.build_spec(cfg, 'test', lfb_infer_only=True)
+    jspec_b = jax_models.build_spec(cfg, 'test')
+    rng = np.random.RandomState(12)
+    params = perturbed_params(jspec_b, rng)
+    host_bank = {name: {f: (np.abs(rng.randn(2048)) * 0.5).astype('f')
+                        for f in range(30, 1800, 30) if rng.rand() < 0.8}
+                 for name in VERB_VIDEOS}
+    batch = {'data': rng.randint(0, 256, (2, 8, 32, 32, 3)).astype(np.uint8),
+             'lfb_video_idx': np.array([VERB_VIDEOS['P31_14'],
+                                        VERB_VIDEOS['P26_01']], np.int32),
+             'lfb_center': np.array([95, 931], np.int32)}
+    names_a = set(jax_shapes(jspec_a))
+    ref_a = jax_models.forward(
+        jspec_a,
+        {k: jnp.asarray(v) for k, v in params.items() if k in names_a},
+        {'data': jnp.asarray(batch['data'])}, train=False)
+    jbank = jax_build_device_bank(cfg, host_bank, VERB_VIDEOS)
+    ref_b = jax_make_eval_step(jspec_b, bank=jbank)(
+        {k: jnp.asarray(v) for k, v in params.items()},
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    return params, names_a, host_bank, batch, ref_a, ref_b
+
+
+@pytest.mark.parametrize('fused', [False, True])
+def test_epic_verb_phases_match_lfb_tpu(epic_verb_setup, monkeypatch, fused):
+    """``epic_verb_cfg`` (the released YAML): the bank sweep keyed by
+    video name, the name-keyed device bank, the softmax head."""
+    params, names_a, host_bank, batch, ref_a, ref_b = epic_verb_setup
+    cfg = epic_verb_cfg({**EPIC_TINY, 'TPU.PALLAS_BOTTLENECK': fused})
+    calls = []
+    plain = cuda_bottleneck.fused_identity_bottleneck_plain
+    monkeypatch.setattr(cuda_bottleneck, 'fused_identity_bottleneck_plain',
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    spec_a = build_spec(cfg, 'test', lfb_infer_only=True)
+    clips = [('P26', 'P26_01', 450, 450, 0, 0), ('P31', 'P31_14', 1230, 1230,
+                                                 0, 0)]
+    bank = extract_frame_bank(
+        spec_a, params_from_jax({k: params[k] for k in names_a}, device='cpu'),
+        [{'data': tbatch['data']}], clips, 'epic')
+    assert {v: sorted(f) for v, f in bank.items()} == {'P26_01': [450],
+                                                      'P31_14': [1230]}
+    for i, (_, name, frame, *_) in enumerate(clips):
+        assert bank[name][frame].shape == (2048,)
+        close(torch.from_numpy(bank[name][frame]),
+              np.asarray(ref_a['pool5'])[i])
+
+    spec_b = build_spec(cfg, 'test')
+    dev_bank = build_device_bank(cfg, host_bank, VERB_VIDEOS, device='cpu')
+    assert dev_bank.window_mode == 'epic_verb' and dev_bank.num_videos() == 3
+    out = make_eval_step(spec_b, bank=dev_bank)(
+        params_from_jax(params, device='cpu'), tbatch)
+    assert set(out) == {'pool5', 'logits', 'prob'}
+    assert_softmax(out['prob'], 125)
+    for key in ('pool5', 'logits', 'prob'):
+        close(out[key], ref_b[key])
+    assert np.abs(np.asarray(ref_b['logits'])).max() > 1.0
+    assert len(calls) == (2 * R50_IDENTITY_BLOCKS if fused else 0)
+
+
+def test_epic_verb_bank_needs_its_name_map():
+    with pytest.raises(ValueError, match='video_name_to_idx'):
+        build_device_bank(epic_verb_cfg(EPIC_TINY), {'P26_01': {}},
+                          device='cpu')
+
+
+def test_epic_noun_phase_b_matches_lfb_tpu(tmp_path):
+    """``epic_noun_cfg`` (the released YAML): a detector bank written by
+    ``write_lfb``, found through ``LFB.LOAD_LFB_PATH`` set as a CLI
+    override, read by ``load_lfb``, flattened by ``build_noun``, and the
+    eval step with its 20-row windows; the unfused R50 blocks."""
+    cfg = epic_noun_cfg({**EPIC_NOUN_TINY, 'CHECKPOINT.DIR': str(tmp_path)})
+    assert cfg.LFB.LOAD_LFB and not cfg.TPU.PALLAS_BOTTLENECK
+    jspec = jax_models.build_spec(cfg, 'test')
+    rng = np.random.RandomState(13)
+    params = perturbed_params(jspec, rng)
+    host_bank = {v: {f: (np.abs(rng.randn(rng.randint(0, 11), 2048))
+                         * 0.5).astype('f') for f in range(30, 1800, 30)}
+                 for v in range(3)}
+    batch = {'data': rng.randint(0, 256, (2, 8, 32, 32, 3)).astype(np.uint8),
+             'lfb_video_idx': np.array([2, 0], np.int32),
+             'lfb_center': np.array([300, 1015], np.int32)}
+    jbank = jax_build_device_bank(cfg, host_bank)
+    ref = jax_make_eval_step(jspec, bank=jbank)(
+        {k: jnp.asarray(v) for k, v in params.items()},
+        {k: jnp.asarray(v) for k, v in batch.items()})
+
+    write_lfb(cfg, host_bank, is_train=False)
+    port_config.merge_cfg_from_list(cfg, ['LFB.LOAD_LFB_PATH', str(tmp_path)])
+    dev_bank = build_device_bank(cfg, load_lfb(cfg, is_train=False),
+                                 device='cpu')
+    assert dev_bank.window_mode == 'epic_noun'
+    out = make_eval_step(build_spec(cfg, 'test'), bank=dev_bank)(
+        params_from_jax(params, device='cpu'),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert_softmax(out['prob'], 352)
+    for key in ('pool5', 'logits', 'prob'):
+        close(out[key], ref[key])
+    assert np.abs(np.asarray(ref['logits'])).max() > 1.0
+    rows = dev_bank.choose_rows(torch.tensor([2, 0]), *dev_bank.window(
+        torch.tensor([300, 1015])))
+    assert int((rows != dev_bank.zero_idx).sum()) > 10     # windows not empty
