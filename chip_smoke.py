@@ -31,7 +31,9 @@ result):
    too (:func:`device_ms`: 20 calls back to back, enqueued while the card
    sleeps), since a timing from an idle card also holds the wrapper's host
    work.  The stem forward is also timed, and its rate logged, at the
-   train step's shape.
+   train step's shape; the RoI forward also at the AVA dataset's layout
+   (``TPU.MAX_BOXES_PER_CLIP`` 32 rows a clip, 1-6 of them boxes, the rest
+   zero rows of clip 0: 512 rows a batch).
 3. Hold the full-width model on the card (f32, kernels) against the same
    model on the CPU (f32, plain versions) on one clip: the flagship,
    Charades with the fused bottleneck, and EPIC verb with it.
@@ -86,6 +88,38 @@ result):
     windows drawn from phase 4's AVA-scale device bank with a per-step
     generator: 2 warm-up and 5 timed steps, each with its launch counts
     checked, a finite loss, and nonzero momentum after it.
+12. The flagship from JPEG frames on disk, through the entry points a user
+    runs.  A synthetic AVA split in the reference's file formats goes into a
+    temporary directory under ``build/`` (:func:`write_ava_split`: 16 videos
+    x 510 JPEG frames of 640 x 360 at 30 fps over secs 900-916, keyframes at
+    902-913 with 1-6 predicted boxes each, scores uniform over 0.8-1.0, GT
+    boxes with 1-3 classes, the labelmap, an empty exclusions file), with
+    seeded weights saved by ``save_params``.
+    ``lfb_tpu_torch.tools.test_net.main`` runs on it with
+    ``configs/ava_r101_lfb_nl_3l.yaml``, ``NUM_GPUS 1``, ``TPU.REMAT ''``,
+    ``TPU.DEVICE_BANK True``, ``LFB.WRITE_LFB True`` and the split's paths:
+    the bank sweep (``get_lfb``), FBO inference over the device bank, the
+    detections CSV and the frame-mAP, 10 batches of 16 clips (the bank
+    sweep) and 12 (the test sweep), two to three times the loader's
+    prefetch window of 4; then
+    ``tools.lfb_loader.main`` with ``LFB.LOAD_LFB`` reads the written
+    ``val_lfb.pkl`` back.  Checks: the bank holds one finite 2048-d row per
+    predicted box at or above 0.9, keyed by (video, sec), and the rows of
+    the last batch's padding (lfb_tpu's sweep keeps them); the detections
+    CSV one line per (box at or above 0.85, class); the frame-mAP is finite
+    and in [0, 1]; the launch counters read each sweep's forwards times its
+    launches per forward (as phase 4's A and B); both sweeps ran on the card;
+    ``lfb_loader`` read the bank back bitwise.  Printed for each sweep: the
+    whole sweep's seconds and clips/s, the first batch's ms; then, over the
+    batches after the first and again over those after the first prefetch
+    window (the steady state, which the loader began only once the sweep
+    had taken a batch), ms per batch, clips/s, the host's time per batch
+    (decode + transforms on the loader's thread, waiting for the batch,
+    ``to_device``), the card's time per batch between CUDA events around
+    each step and its busy share, with ``os.cpu_count()`` and
+    ``DATALOADER.NUM_WORKERS``; then the ms per batch of each sweep's first
+    4 batches held on the card, and the RoI forward on the rows of the
+    first test batch against its plain version.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so the plain
 versions the kernels are compared with compute in full f32.
@@ -95,6 +129,9 @@ launches on the main path, max_abs_err, ms, device_ms, plain_ms, bound_ms,
 bound_by, library_ms, null where no one PyTorch call computes the same
 function);
 the last line is ``{"ok": true, "device": {...}}``.
+
+OpenCV is imported only by phase 12 (and by the port's data layer, at
+first use).
 
 ``python3 chip_smoke.py --profile DIR`` runs none of the checks: it traces
 the full-width phase-B forward, the same forward with the fused bottleneck
@@ -130,6 +167,17 @@ EPIC_TOTAL_FRAMES = int(7.4 * 3600 * EPIC_FPS)
 EPIC_MAX_BOXES = 10
 TIMING_ITERS = 10
 CFG_OVERRIDES = {'NUM_GPUS': 1}
+MAX_BOXES_PER_CLIP = 32                 # TPU.MAX_BOXES_PER_CLIP, the default
+# Phase 12's AVA split on disk: 16 videos, JPEG frames at 30 fps over secs
+# 900-916 (510 a video), keyframes at secs 902-913, 640 x 360 frames.  A
+# sweep is then 10-12 batches of 16, about three times the loader's prefetch
+# window, so its later batches show the loader's steady rate.
+AVA_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'configs', 'ava_r101_lfb_nl_3l.yaml')
+DISK_VIDEOS, DISK_FPS, DISK_FRAMES = 16, 30, 510
+MEMORY_BATCHES = 4                      # each sweep's, timed from memory
+DISK_KEYFRAMES = range(902, 914)
+DISK_SIZE = (360, 640)
 FUSED = {'TPU.PALLAS_BOTTLENECK': True}
 
 KERNELS = {
@@ -473,6 +521,41 @@ def rand_rois(rng, n_clips, boxes, crop):
         axis=1).astype(np.float32)
 
 
+def roi_layout(rng, n_clips, max_boxes, crop):
+    """RoI rows as the AVA dataset lays them out (``data/ava.py``): clip b
+    owns rows [b * max_boxes, (b + 1) * max_boxes), its 1-6 boxes first,
+    then zero rows, which name clip 0."""
+    rois = np.zeros((n_clips * max_boxes, 5), np.float32)
+    for b in range(n_clips):
+        n = int(rng.integers(1, 7))
+        rois[b * max_boxes:b * max_boxes + n] = rand_rois(rng, 1, n, crop)
+        rois[b * max_boxes:b * max_boxes + n, 0] = b
+    return rois
+
+
+def check_roi_layout(label, fmap, rois_np, dense, iters):
+    """The RoI forward on the dataset's padded rows (``rois_np``, most of
+    them zero rows of clip 0) against its plain version, logged beside
+    ``dense``, the same kernel's timing at 4 boxes a clip."""
+    import torch
+    from lfb_tpu_torch.ops import cuda_roi_align
+    rois = torch.from_numpy(rois_np).to(fmap.device)
+    real = int((rois_np[:, 1:] != 0).any(axis=1).sum())
+    r = compare(
+        'roi_align_maxpool fmap{} rois{} f32, the dataset layout ({}; {} '
+        'real rows)'.format(tuple(fmap.shape), tuple(rois.shape), label, real),
+        lambda: cuda_roi_align.roi_align_maxpool(fmap, rois),
+        lambda: cuda_roi_align.roi_align_maxpool_plain(fmap, rois), 1e-5,
+        iters)
+    bound = least_ms(0, roi_pixels(rois_np, fmap.shape[1]) * 2048 * 4
+                     + nbytes(rois) + rois.shape[0] * 2048 * 4, 'float32')[0]
+    log('  roi_align_maxpool at {} rows: device {:.4f} ms, bound {:.4f} ms; '
+        'at {} rows (4 boxes a clip): device {:.4f} ms'.format(
+            rois.shape[0], r['device_ms'], bound, B * BOXES_PER_CLIP,
+            dense['device_ms']))
+    return r
+
+
 def check_kernels(iters=TIMING_ITERS):
     """Phase 2: each kernel vs its plain version at the flagship shapes, with
     its bound and, where one PyTorch call computes the same function, that
@@ -532,6 +615,9 @@ def check_kernels(iters=TIMING_ITERS):
     results['roi_align_maxpool'] = add_bound(dict(r, tolerance='1e-5'), [
         least_ms(0, roi_pixels(rois_np, 16) * 2048 * 4 + nbytes(rois)
                  + rois.shape[0] * 2048 * 4, 'float32')])
+    # The layout of a batch from the AVA dataset (phase 12), logged beside.
+    check_roi_layout('1-6 boxes a clip', fmap,
+                     roi_layout(rng, B, MAX_BOXES_PER_CLIP, 256), r, iters)
 
     # (label, B, Nq, Nk, C, dtype, calls per phase-B forward)
     regimes = [('res3 NL', 64, 4096, 1024, 256, torch.bfloat16, 2),
@@ -1665,6 +1751,284 @@ def train_phase(cfg, bank):
     return launches
 
 
+def write_ava_split(root, rng):
+    """Phase 12's AVA split, in the reference's file formats (frame lists,
+    GT and predicted-box CSVs, the labelmap, an empty exclusions file):
+    ``DISK_VIDEOS`` videos of ``DISK_FRAMES`` JPEG frames each, named
+    ``<video>_%06d.jpg``, 640 x 360 (a camera pan over smooth colour
+    gradients, with N(0, 2) noise, so a file is the size of a real frame's);
+    1-6 boxes a keyframe, predicted with scores uniform over 0.8-1.0, each a
+    GT box with 1-3 of the 80 classes.  Returns (the config overrides, the
+    predicted scores by (video idx, sec), the mean JPEG bytes, seconds)."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    h, w = DISK_SIZE
+    y, x = np.mgrid[0:h, 0:w + DISK_FRAMES].astype(np.float32)
+    noise = [rng.normal(0, 2, (h, w, 3)).astype(np.float32) for _ in range(4)]
+    names = ['vid{:02d}'.format(v) for v in range(DISK_VIDEOS)]
+    jobs, lists = [], ['original_vido_id video_id frame_id path labels']
+    for v, name in enumerate(names):
+        os.makedirs(os.path.join(root, 'frames', name))
+        base = np.stack([128 + 90 * np.sin(x / 97.0 + v),
+                         128 + 90 * np.cos(y / 61.0 + 2 * v) + 0 * x,
+                         128 + 60 * np.sin((x + y) / 143.0 + 3 * v)], -1)
+        for i in range(DISK_FRAMES):
+            rel = os.path.join(name, '{}_{:06d}.jpg'.format(name, i + 1))
+            jobs.append((os.path.join(root, 'frames', rel), base, i))
+            lists.append('{} {} {} {} ""'.format(name, v, i, rel))
+
+    def write(job):
+        path, base, i = job
+        img = np.clip(base[:, i:i + w] + noise[i % 4], 0, 255)
+        if not cv2.imwrite(path, img.astype(np.uint8)):
+            raise IOError('could not write ' + path)
+        return os.path.getsize(path)
+
+    with ThreadPoolExecutor(8) as pool:
+        sizes = list(pool.map(write, jobs))
+    os.makedirs(os.path.join(root, 'frame_lists'))
+    for split in ('train', 'val'):
+        with open(os.path.join(root, 'frame_lists', split + '.csv'), 'w') as f:
+            f.write('\n'.join(lists) + '\n')
+    ann = os.path.join(root, 'annotations')
+    os.makedirs(ann)
+    gt, pred, scores = [], [], {}
+    for v, name in enumerate(names):
+        for sec in DISK_KEYFRAMES:
+            boxes = set()
+            while len(boxes) < int(rng.integers(1, 7)) or not boxes:
+                x1, y1 = rng.uniform(0, 0.5, 2)
+                boxes.add('{:.3f},{:.3f},{:.3f},{:.3f}'.format(
+                    x1, y1, min(1.0, x1 + rng.uniform(0.2, 0.5)),
+                    min(1.0, y1 + rng.uniform(0.2, 0.5))))
+            for box in sorted(boxes):
+                score = '{:.3f}'.format(rng.uniform(0.8, 1.0))
+                scores.setdefault((v, sec), []).append(float(score))
+                pred.append('{},{},{},,{}'.format(name, sec, box, score))
+                for label in rng.choice(80, int(rng.integers(1, 4)),
+                                        replace=False):
+                    gt.append('{},{},{},{}'.format(name, sec, box, label + 1))
+    for fname, rows in (('ava_val_v2.1.csv', gt),
+                        ('ava_val_predicted_boxes.csv', pred)):
+        with open(os.path.join(ann, fname), 'w') as f:
+            f.write('\n'.join(rows) + '\n')
+    with open(os.path.join(
+            ann, 'ava_action_list_v2.1_for_activitynet_2018.pbtxt'), 'w') as f:
+        for c in range(1, 81):
+            f.write('item {\n  name: "action%d"\n  id: %d\n}\n' % (c, c))
+    open(os.path.join(ann, 'ava_val_excluded_timestamps_v2.1.csv'), 'w').close()
+    opts = ['DATADIR', os.path.join(root, 'frames'),
+            'AVA.FRAME_LIST_DIR', os.path.join(root, 'frame_lists'),
+            'AVA.ANNOTATION_DIR', ann]
+    return opts, scores, statistics.mean(sizes), time.perf_counter() - t0
+
+
+def same_bank(a, b):
+    """Whether two AVA host banks hold the same rows, bitwise."""
+    return a.keys() == b.keys() and all(
+        a[v].keys() == b[v].keys() and all(
+            len(a[v][sec]) == len(b[v][sec]) and all(
+                np.array_equal(x, y) for x, y in zip(a[v][sec], b[v][sec]))
+            for sec in b[v]) for v in b)
+
+
+def check_disk_outputs(out, scores, metrics, batch_size):
+    """Phase 12's checks of what ``test_net`` left in ``out``: the bank
+    (``val_lfb.pkl``) holds one finite 2048-d row for each predicted box at
+    or above 0.9, keyed by (video idx, sec), and the rows of the last
+    batch's padding; the detections CSV one line per (box at or above 0.85,
+    class); the frame-mAP is finite, in [0, 1].  Returns the bank."""
+    import pickle
+    full_map = metrics['full_map']
+    if not (np.isfinite(full_map) and 0.0 <= full_map <= 1.0):
+        raise AssertionError('phase 12: frame-mAP {}'.format(full_map))
+
+    with open(os.path.join(out, 'val_lfb.pkl'), 'rb') as f:
+        bank = pickle.load(f)
+    got = {(v, sec): len(feats) for v, secs in bank.items()
+           for sec, feats in secs.items()}
+    expect = {k: n for k, ss in sorted(scores.items())
+              for n in [sum(s >= 0.9 for s in ss)] if n}
+    # As in lfb_tpu, the last batch is padded with its first keyframe, whose
+    # boxes the sweep then adds once per padded slot (construct_ava_lfb
+    # keeps every row of box_mask 1).
+    last = list(expect)[(len(expect) - 1) // batch_size * batch_size]
+    padded = -len(expect) % batch_size
+    expect[last] += padded * expect[last]
+    if got != expect or not all(
+            f.shape == (2048,) and np.isfinite(f).all()
+            for secs in bank.values() for feats in secs.values()
+            for f in feats):
+        raise AssertionError('phase 12: the bank has rows {} for the '
+                             'predicted boxes {}'.format(got, expect))
+    csvs = [f for f in os.listdir(out) if f.startswith('detections_')]
+    if len(csvs) != 1:
+        raise AssertionError('phase 12: detections CSVs {}'.format(csvs))
+    with open(os.path.join(out, csvs[0])) as f:
+        lines = f.read().splitlines()
+    keys = {'vid{:02d},{:04d}'.format(v, sec): n for (v, sec), ss
+            in scores.items() for n in [sum(s >= 0.85 for s in ss)] if n}
+    per_key = {}
+    for line in lines:
+        key = ','.join(line.split(',')[:2])
+        per_key[key] = per_key.get(key, 0) + 1
+    if per_key != {k: 80 * n for k, n in keys.items()}:
+        raise AssertionError('phase 12: {} detection lines, {} '
+                             'expected'.format(len(lines),
+                                               80 * sum(keys.values())))
+    log('phase 12 checks: the bank {} rows over {} (video, sec) keys, finite: '
+        'one per predicted box at or above 0.9, and {} rows of the last '
+        "batch's {} padded slots (keyframe {}); {} detection lines ({} boxes "
+        'x 80 classes); frame-mAP {:.4f} (random weights)'.format(
+            sum(got.values()), len(got), padded * expect[last] // (padded + 1),
+            padded, last, len(lines), sum(keys.values()), full_map))
+    return bank
+
+
+def log_feed(feed):
+    """Log a ``DeviceFeed`` summary: the whole sweep, the batches after the
+    first, and those after the first prefetch window (the steady state)."""
+    if feed['card_ms'] is None or feed['steady'] is None:
+        raise AssertionError('phase 12: a sweep ran off the card or within '
+                             'one prefetch window: {}'.format(feed))
+    log('phase 12 from disk, {label}: {batches} batches, the whole sweep '
+        '{sweep_s:.2f} s, {sweep_clips_per_s:.1f} clips/s; the first batch '
+        '{first_ms:.1f} ms'.format(**feed))
+    for name, means in (('after the first', feed),
+                        ('steady (after the first prefetch window)',
+                         feed['steady'])):
+        log('phase 12 from disk, {}, {}: {batches} batches, {wall_ms:.1f} ms '
+            'per batch, {clips_per_s:.1f} clips/s; host per batch: decode + '
+            "transforms {build_ms:.1f} ms (on the loader's threads), waiting "
+            'for the batch {wait_ms:.1f} ms, to_device {to_device_ms:.1f} ms; '
+            'the card {card_ms:.1f} ms per batch (CUDA events around each '
+            'step), busy share {card_busy:.3f}'.format(
+                feed['label'], name, **means))
+
+
+def disk_path(roi_dense):
+    """Phase 12: the flagship from JPEG frames on disk through the entry
+    points a user runs: ``tools.test_net.main`` (the bank sweep, FBO
+    inference over the device bank, the detections CSV and the frame-mAP),
+    then ``tools.lfb_loader.main`` reading the bank back; then the first
+    ``MEMORY_BATCHES`` batches of the same two sweeps held in memory on the
+    card, and the RoI forward on one of those batches' rows, logged beside
+    ``roi_dense`` (phase 2's result at 4 boxes a clip).  Returns the launch
+    counts."""
+    import tempfile
+    import torch
+    from lfb_tpu_torch.bank.lfb import extract_ava_bank
+    from lfb_tpu_torch.core.config import clone, load_config
+    from lfb_tpu_torch.data import loader as data_loader
+    from lfb_tpu_torch.data.loader import DataLoader, get_input_db, to_device
+    from lfb_tpu_torch.models.model import init_params
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.tools import lfb_loader, test_net
+    from lfb_tpu_torch.train import checkpoints
+    from lfb_tpu_torch.train.steps import make_eval_step
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(SEED + 12)
+    os.makedirs('build', exist_ok=True)
+    with tempfile.TemporaryDirectory(dir='build') as root:
+        opts, scores, jpeg_bytes, write_s = write_ava_split(root, rng)
+        n_bank = sum(s >= 0.9 for ss in scores.values() for s in ss)
+        n_test = sum(s >= 0.85 for ss in scores.values() for s in ss)
+        log('phase 12 split: {} videos x {} JPEG frames ({} x {}), mean {:.1f} '
+            'KB a file, written in {:.1f} s; {} keyframes, {} predicted boxes, '
+            '{} at or above 0.9 (the bank), {} at or above 0.85 (the '
+            'test)'.format(DISK_VIDEOS, DISK_FRAMES, DISK_SIZE[1],
+                           DISK_SIZE[0], jpeg_bytes / 1e3, write_s,
+                           len(scores), sum(map(len, scores.values())),
+                           n_bank, n_test))
+        out = os.path.join(root, 'out')
+        opts += ['NUM_GPUS', '1', 'TPU.REMAT', "''", 'TPU.DEVICE_BANK', 'True',
+                 'CHECKPOINT.DIR', out, 'LFB.WRITE_LFB', 'True']
+        cfg = load_config(AVA_YAML, opts)
+        specs = {'LFB.MODEL_PARAMS_FILE': build_spec(cfg, 'val',
+                                                     lfb_infer_only=True),
+                 'TEST.PARAMS_FILE': build_spec(cfg, 'val')}
+        for key, spec in specs.items():
+            path = os.path.join(root, key.split('.')[0].lower() + '.pkl')
+            checkpoints.save_params(path, perturbed_params(spec, dev),
+                                    model_iter=0, lr=0.0)
+            opts += [key, path]
+        log('phase 12 host: os.cpu_count() {}, DATALOADER.NUM_WORKERS {}, '
+            'PREFETCH_BATCHES {}, TEST.BATCH_SIZE {}, '
+            'TPU.MAX_BOXES_PER_CLIP {}'.format(
+                os.cpu_count(), cfg.DATALOADER.NUM_WORKERS,
+                cfg.DATALOADER.PREFETCH_BATCHES, cfg.TEST.BATCH_SIZE,
+                cfg.TPU.MAX_BOXES_PER_CLIP))
+
+        reset_launches()
+        data_loader.SWEEPS.clear()
+        t0 = time.perf_counter()
+        metrics = test_net.main(['--config_file', AVA_YAML] + opts)
+        t1 = time.perf_counter()
+        launches = read_launches()
+        feeds = list(data_loader.SWEEPS)
+        if [f['label'] for f in feeds] != ['LFB sweep (val)',
+                                           'test sweep (shift 1)']:
+            raise AssertionError('phase 12: sweeps {}'.format(feeds))
+        for feed in feeds:
+            log_feed(feed)
+        want = {k: feeds[0]['batches'] * PER_FORWARD['A'][k]
+                + feeds[1]['batches'] * PER_FORWARD['B'][k]
+                for k in PER_FORWARD['A']}
+        log('phase 12 test_net.main: {:.1f} s; launches {} (want {}); '
+            'frame-mAP {}'.format(t1 - t0, launches, want, metrics))
+        if launches != want:
+            raise AssertionError('phase 12: kernel launch counts {} != '
+                                 '{}'.format(launches, want))
+        bank = check_disk_outputs(out, scores, metrics, cfg.TEST.BATCH_SIZE)
+        loaded = lfb_loader.main(['--config_file', AVA_YAML, '--splits', 'val']
+                                 + opts + ['LFB.LOAD_LFB', 'True',
+                                           'LFB.LOAD_LFB_PATH', out])['val']
+        if not same_bank(loaded, bank):
+            raise AssertionError('phase 12: lfb_loader read back another bank')
+        log('phase 12: lfb_loader read the bank back bitwise')
+
+        # The first batches of the same sweeps, held on the card.
+        gen = torch.Generator(device=dev).manual_seed(cfg.RNG_SEED)
+        spec_a, spec_b = specs['LFB.MODEL_PARAMS_FILE'], specs['TEST.PARAMS_FILE']
+        params = {key: checkpoints.load_params_into(
+            opts[opts.index(key) + 1], init_params(spec, gen), device=dev)[0]
+            for key, spec in specs.items()}
+        cfg_t = clone(cfg, {'AVA.FULL_EVAL': True,
+                            'AVA.DETECTION_SCORE_THRESH': 0.85})
+        sweeps = [get_input_db(cfg, 'val', lfb_infer_only=True, shift=1,
+                               device=dev),
+                  get_input_db(cfg_t, 'val', shift=1, lfb=bank, device=dev)]
+        host = []
+        for db in sweeps:
+            loader = DataLoader(db, cfg.TEST.BATCH_SIZE,
+                                num_workers=cfg.DATALOADER.NUM_WORKERS,
+                                prefetch=cfg.DATALOADER.PREFETCH_BATCHES,
+                                seed=cfg.RNG_SEED)
+            host.append(list(loader.batches(MEMORY_BATCHES)))
+            loader.shutdown()
+        ms_a, _, la = run_phase(
+            '12 from memory, the bank sweep',
+            lambda bs: extract_ava_bank(spec_a, params['LFB.MODEL_PARAMS_FILE'],
+                                        bs),
+            [to_device(b, dev) for b in host[0]], PER_FORWARD['A'])
+        step = make_eval_step(spec_b, bank=sweeps[1].lfb, bank_seed=SEED)
+        ms_b, _, lb = run_phase(
+            '12 from memory, the test sweep',
+            lambda bs: [step(params['TEST.PARAMS_FILE'], b) for b in bs],
+            [to_device(b, dev) for b in host[1]], PER_FORWARD['B'])
+        log('phase 12 ms per batch from disk (after the first; steady) '
+            'against from memory (after the first): bank sweep {:.1f}; '
+            '{:.1f} vs {:.1f}, test sweep {:.1f}; {:.1f} vs {:.1f}'.format(
+                feeds[0]['wall_ms'], feeds[0]['steady']['wall_ms'], ms_a,
+                feeds[1]['wall_ms'], feeds[1]['steady']['wall_ms'], ms_b))
+        # The RoI forward on the rows of the first test batch.
+        fmap = torch.relu(torch.randn((B, 16, 16, 2048), device=dev))
+        check_roi_layout('a test batch of phase 12', fmap,
+                         host[1][0]['proposals'], roi_dense, TIMING_ITERS)
+    return {k: launches[k] + la[k] + lb[k] for k in launches}
+
+
 def trace_window(label, run, count, out, stem):
     """Run ``run(i)`` for i < ``count`` on the host clock, then the same
     under torch.profiler; write the Chrome trace and the operator table to
@@ -1793,6 +2157,8 @@ def main():
     results.update(check_backward_kernels())
     train_reference_check(cfg)
     path_launches.append(train_phase(cfg, bank))
+    del bank
+    path_launches.append(disk_path(results['roi_align_maxpool']))
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]

@@ -56,6 +56,9 @@ class AvaDeviceBank:
         self.window_size = window_size
         self.k = k
 
+    def num_videos(self) -> int:
+        return self.table.shape[0]
+
     @classmethod
     def build(cls, host_bank: Dict[int, Dict[int, list]], *, window_size: int,
               k: int, lfb_dim: int = 2048, k_store: int = 0,

@@ -1,26 +1,29 @@
 """Long-term feature bank construction (port of ``lfb_tpu/bank/lfb.py``;
 reference ``tools/lfb_loader.py``).
 
-:func:`extract_ava_bank` and :func:`extract_frame_bank` are the sweep loop
-of ``get_lfb`` (``lfb_tpu/bank/lfb.py:153-177``): the bank-extraction
-(lfb_infer_only) forward over a sequence of batches, collected into the
-reference-format host bank, ``{video_idx: {sec: [2048-d feats]}}`` for AVA
-and ``{video: {frame: 2048-d feat}}`` for Charades and EPIC.  Bank pickles
-(:func:`load_lfb`, :func:`write_lfb`) are the reference's format, so banks
-interchange with ``lfb_tpu`` and the reference.  The ``DataLoader`` wiring
-of ``get_lfb`` is not ported.
+:func:`get_lfb` loads a pickled bank or sweeps a whole split with the
+bank-extraction (lfb_infer_only) model: the split's frames come from disk
+through the data layer's ``DataLoader`` and ``DeviceFeed``, and
+:func:`extract_ava_bank` / :func:`extract_frame_bank` run the forward over
+those batches and collect the reference-format host bank,
+``{video_idx: {sec: [2048-d feats]}}`` for AVA and ``{video: {frame: 2048-d
+feat}}`` for Charades and EPIC.  Bank pickles (:func:`load_lfb`,
+:func:`write_lfb`) are the reference's format, so banks interchange with
+``lfb_tpu`` and the reference.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Iterable, List, Mapping, Sequence
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
-from lfb_tpu_torch.models.spec import ModelSpec
+from lfb_tpu_torch.data.loader import DataLoader, DeviceFeed, get_input_db
+from lfb_tpu_torch.models.model import init_params
+from lfb_tpu_torch.models.spec import ModelSpec, build_spec
 from lfb_tpu_torch.train import checkpoints
 from lfb_tpu_torch.train.steps import make_eval_step
 
@@ -128,3 +131,52 @@ def extract_frame_bank(spec: ModelSpec, params: Mapping[str, torch.Tensor],
     features = [_host(step(params, batch)['pool5'].float())
                 for batch in batches]
     return construct_frame_level_lfb(features, clip_metadata, dataset)
+
+
+def get_lfb(cfg, params_file: str, is_train: bool, *, device='cuda',
+            params: Optional[Mapping[str, torch.Tensor]] = None) -> Dict:
+    """Build (or load) the bank of one split (``lfb_tpu/bank/lfb.py:100``).
+
+    ``LFB.LOAD_LFB`` reads the split's pickle (:func:`load_lfb`).  Otherwise
+    the bank-extraction model, ``params`` or its init with ``params_file``
+    loaded into it, sweeps the split on ``device``: the lfb_infer_only
+    dataset at the center crop, with the TRAIN lists when ``is_train``,
+    batch by batch from the ``DataLoader`` through ``to_device``.  AVA's
+    metadata and box masks stay on the host, from the numpy batches.  With
+    ``LFB.WRITE_LFB`` the bank is pickled into ``CHECKPOINT.DIR``.
+    """
+    if cfg.LFB.LOAD_LFB:
+        return load_lfb(cfg, is_train)
+    device = torch.device(device)
+    split = cfg.TEST.DATA_TYPE or 'val'
+    spec = build_spec(cfg, split, lfb_infer_only=True)
+    if params is None:
+        assert params_file, 'LFB.MODEL_PARAMS_FILE is not specified.'
+        logger.info('Inferring LFB from %s', params_file)
+        init = init_params(spec, torch.Generator(device=device).manual_seed(
+            cfg.RNG_SEED))
+        params = checkpoints.load_params_into(params_file, init,
+                                              device=device)[0]
+    db = get_input_db(cfg, split, lfb_infer_only=True, shift=1,
+                      get_train_lfb=is_train, device=device)
+    loader = DataLoader(db, cfg.TEST.BATCH_SIZE,
+                        num_workers=cfg.DATALOADER.NUM_WORKERS,
+                        prefetch=cfg.DATALOADER.PREFETCH_BATCHES,
+                        seed=cfg.RNG_SEED, is_train=False)
+    feed = DeviceFeed(loader, device, 'LFB sweep ({})'.format(
+        'train' if is_train else split))
+    try:
+        if cfg.DATASET == 'ava':
+            lfb = extract_ava_bank(spec, params, (
+                {**dev, 'metadata': host['metadata'],
+                 'box_mask': host['box_mask']} for host, dev in feed))
+        else:
+            lfb = extract_frame_bank(
+                spec, params, (dev for _, dev in feed),
+                db.lfb_frames if cfg.DATASET == 'charades' else db.annotations,
+                cfg.DATASET)
+    finally:
+        loader.shutdown()
+    if cfg.LFB.WRITE_LFB:
+        write_lfb(cfg, lfb, is_train)
+    return lfb

@@ -17,6 +17,8 @@ CPU.
   host samplers'.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -25,6 +27,8 @@ torch = pytest.importorskip('torch')
 import jax.numpy as jnp  # noqa: E402
 
 import lfb_tpu.models as jax_models  # noqa: E402
+from lfb_tpu.bank import get_lfb as jax_get_lfb  # noqa: E402
+from lfb_tpu.core.config import load_config as jax_load_config  # noqa: E402
 import lfb_tpu.bank.device_bank as jax_bank  # noqa: E402
 from lfb_tpu.bank.device_bank import AvaDeviceBank as JaxAvaDeviceBank  # noqa: E402
 from lfb_tpu.bank.lfb import construct_ava_lfb as jax_construct_ava_lfb  # noqa: E402
@@ -37,13 +41,20 @@ from lfb_tpu_torch.bank.device_bank import (AVA_NUM_SECS, AVA_SEC_BASE,  # noqa:
                                             AvaDeviceBank, FrameDeviceBank,
                                             build_device_bank)
 from lfb_tpu_torch.bank.lfb import (construct_frame_level_lfb,  # noqa: E402
-                                    extract_ava_bank, load_lfb, write_lfb)
+                                    extract_ava_bank, get_lfb, load_lfb,
+                                    write_lfb)
 from lfb_tpu_torch.config import charades_cfg, flagship_cfg  # noqa: E402
 from lfb_tpu_torch.convert import params_from_jax  # noqa: E402
 from lfb_tpu_torch.models.model import forward  # noqa: E402
 from lfb_tpu_torch.models.spec import build_spec  # noqa: E402
 from lfb_tpu_torch.train.steps import make_eval_step  # noqa: E402
+from lfb_tpu_torch.core import config as port_config  # noqa: E402
+from tests import synthetic  # noqa: E402
 from tests.test_torch_model import TINY, close, perturbed_params  # noqa: E402
+from tests.test_torch_tools import REPO, dataset_opts, save_weights  # noqa: E402
+from tests.test_torch_tools import TINY as TOOLS_TINY  # noqa: E402
+from tests.test_torch_tools import \
+    assert_same_bank as assert_same_host_bank  # noqa: E402
 
 
 def host_bank(n_videos, secs, max_per_sec, dim, seed=0):
@@ -376,3 +387,40 @@ def test_write_then_load_lfb_round_trips(tmp_path):
         assert back[v].keys() == bank[v].keys()
         for f in bank[v]:
             np.testing.assert_array_equal(back[v][f], bank[v][f])
+
+
+# AVA's get_lfb is held to lfb_tpu's in test_torch_tools.py, through the
+# command lines, on both splits.
+GET_LFB_CASES = {
+    'charades': (synthetic.build_charades, 'charades_r101_lfb_nl.yaml',
+                 ['TPU.PALLAS_BOTTLENECK', 'True']),
+    'epic verb': (synthetic.build_epic, 'epic_verb_r50_lfb_nl.yaml', []),
+}
+
+
+@pytest.mark.parametrize('case', sorted(GET_LFB_CASES))
+def test_get_lfb_matches_lfb_tpu(tmp_path, case):
+    """``get_lfb`` over a tiny on-disk split (the DataLoader, to_device and
+    the extraction sweep; Charades through the fused bottleneck's plain
+    version) against ``lfb_tpu.bank.get_lfb`` on the same pickle: the same
+    keys, rows within 1e-4 of their largest value (f32 through R50, sums in
+    other orders), and the pickle ``LFB.WRITE_LFB`` writes is the bank."""
+    build, yaml, extra = GET_LFB_CASES[case]
+    root = str(tmp_path)
+    yaml = os.path.join(REPO, 'configs', yaml)
+    opts = TOOLS_TINY + extra + dataset_opts(build(root))
+    opts += save_weights(yaml, opts, root) + ['CHECKPOINT.DIR', root]
+    cfg = port_config.load_config(yaml, opts + ['LFB.WRITE_LFB', 'True'])
+    port = get_lfb(cfg, cfg.LFB.MODEL_PARAMS_FILE, is_train=False,
+                   device='cpu')
+    ref = jax_get_lfb(jax_load_config(yaml, opts + ['LFB.WRITE_LFB', 'False']),
+                      cfg.LFB.MODEL_PARAMS_FILE, is_train=False)
+    assert len(ref) == 2
+    assert_same_host_bank(port, ref)
+    written = load_lfb(port_config.clone(cfg, {'LFB.LOAD_LFB_PATH': root}),
+                       is_train=False)
+    assert written.keys() == port.keys()
+    for video in port:
+        for key in port[video]:
+            np.testing.assert_array_equal(np.asarray(written[video][key]),
+                                          np.asarray(port[video][key]))

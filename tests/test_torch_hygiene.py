@@ -1,12 +1,22 @@
-"""Import hygiene of the port: in a fresh interpreter, importing every
-module of ``lfb_tpu_torch`` and ``chip_smoke``, running a tiny device-bank
-eval step, a tiny train step (dropout on, bank windows from the device bank)
-and a tiny Charades eval step (fused bottleneck, frame-level bank), loading
-the EPIC configs from their YAML files and a checkpoint through the port's
-checkpoint layer loads no module of the JAX package ``lfb_tpu`` (the port
-keeps its own copies of what it took from it), and neither ``jax`` nor
-``cv2`` nor ``yaml`` (the GPU machines the port runs on have no JAX install
-to rely on, no OpenCV and no PyYAML)."""
+"""Import hygiene of the port, in fresh interpreters.
+
+* Importing every module of ``lfb_tpu_torch`` and ``chip_smoke``, running a
+  tiny device-bank eval step, a tiny train step (dropout on, bank windows
+  from the device bank) and a tiny Charades eval step (fused bottleneck,
+  frame-level bank), loading the EPIC configs from their YAML files and a
+  checkpoint through the port's checkpoint layer loads no module of the JAX
+  package ``lfb_tpu`` (the port keeps its own copies of what it took from
+  it), and none of ``jax``, ``cv2``, ``yaml`` or ``sklearn``.  The GPU
+  machines the port runs on have no JAX install to rely on and no
+  scikit-learn; they have OpenCV and PyYAML, but the port reads its YAML
+  itself and imports OpenCV only
+  where it decodes and resizes frames (``data/transforms.py``) or reads a
+  frame's size (``eval/multicrop.py``), at first use.
+* ``python -m lfb_tpu_torch.tools.test_net``'s ``main`` with ``--device
+  cpu`` on a tiny AVA split on disk (bank sweep, test sweep, detections
+  CSV, frame-mAP) loads ``cv2`` and none of ``jax``, ``yaml``, ``sklearn``
+  or ``lfb_tpu``.
+"""
 
 import json
 import os
@@ -20,8 +30,11 @@ pytest.importorskip('torch')
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+FORBIDDEN = ('jax', 'cv2', 'yaml', 'sklearn', 'lfb_tpu')
+
 SCRIPT = r'''
 import importlib, json, pkgutil, sys
+FORBIDDEN = %r
 import numpy as np
 import torch
 import lfb_tpu_torch
@@ -96,14 +109,15 @@ with tempfile.TemporaryDirectory() as d:
 assert bool((loaded['pred_b'] == 1).all())
 print(json.dumps({'modules': names,
                   'loaded': sorted(m for m in sys.modules
-                                   if m in ('jax', 'cv2', 'yaml', 'lfb_tpu')
+                                   if m in FORBIDDEN
                                    or m.startswith('lfb_tpu.'))}))
 '''
 
 
 def test_port_imports_no_jax_cv2_or_yaml():
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, '-c', SCRIPT], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, '-c', SCRIPT % (FORBIDDEN,)],
+                          cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -111,3 +125,54 @@ def test_port_imports_no_jax_cv2_or_yaml():
         [os.path.join(REPO, 'lfb_tpu_torch')], 'lfb_tpu_torch.'))
     assert result['modules'] == expected and len(expected) >= 20
     assert result['loaded'] == []
+
+
+CLI_SCRIPT = r'''
+import json, sys
+from lfb_tpu_torch.tools import test_net
+metrics = test_net.main(sys.argv[1:])
+print(json.dumps({'full_map': metrics['full_map'],
+                  'loaded': sorted(m for m in sys.modules
+                                   if m in %r or m.startswith('lfb_tpu.'))}))
+'''
+
+
+def test_test_net_cli_loads_cv2_and_nothing_forbidden(tmp_path):
+    pytest.importorskip('cv2')
+    import torch
+    from lfb_tpu_torch.core.config import load_config
+    from lfb_tpu_torch.models.model import init_params
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.train import checkpoints
+    from tests import synthetic
+    ov = synthetic.build_ava(str(tmp_path), num_secs=2)
+    yaml = os.path.join(REPO, 'configs', 'ava_r101_lfb_nl_3l.yaml')
+    opts = ['NUM_GPUS', '1', 'TPU.REMAT', "''", 'MODEL.DEPTH', '50',
+            'MODEL.VIDEO_ARC_CHOICE', '2', 'TRAIN.VIDEO_LENGTH', '4',
+            'TEST.VIDEO_LENGTH', '4', 'TRAIN.CROP_SIZE', '32',
+            'TEST.CROP_SIZE', '32', 'TEST.SCALE', '36',
+            'LFB.WINDOW_SIZE', '3', 'TPU.COMPUTE_DTYPE', 'float32',
+            'TPU.MAX_BOXES_PER_CLIP', '4', 'TEST.BATCH_SIZE', '4',
+            'DATALOADER.NUM_WORKERS', '2', 'DATADIR', ov['DATADIR'],
+            'AVA.FRAME_LIST_DIR', ov['AVA']['FRAME_LIST_DIR'],
+            'AVA.ANNOTATION_DIR', ov['AVA']['ANNOTATION_DIR'],
+            'CHECKPOINT.DIR', str(tmp_path / 'out')]
+    cfg = load_config(yaml, opts)
+    for key, infer in (('LFB.MODEL_PARAMS_FILE', True),
+                       ('TEST.PARAMS_FILE', False)):
+        path = str(tmp_path / (key + '.pkl'))
+        checkpoints.save_params(path, init_params(
+            build_spec(cfg, 'val', lfb_infer_only=infer),
+            torch.Generator().manual_seed(0)), model_iter=0, lr=0.0)
+        opts += [key, path]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, '-c', CLI_SCRIPT % (FORBIDDEN,), '--config_file',
+         yaml, '--device', 'cpu'] + opts,
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result['loaded'] == ['cv2']
+    assert 0.0 <= result['full_map'] <= 1.0
+    assert (tmp_path / 'out' / 'detections_final_36_shift1_0.850.csv').is_file()
+    assert (tmp_path / 'out' / 'val_lfb.pkl').is_file()
