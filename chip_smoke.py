@@ -87,7 +87,18 @@ result):
     with f32 master weights, 8 clips x 4 boxes of uint8 frames per step, bank
     windows drawn from phase 4's AVA-scale device bank with a per-step
     generator: 2 warm-up and 5 timed steps, each with its launch counts
-    checked, a finite loss, and nonzero momentum after it.
+    checked, a finite loss, and nonzero momentum after it.  Then the
+    released global batch, 16 clips, 2 warm-up and 5 timed steps under
+    ``TPU.REMAT`` 'stage' and under '' from the same params, batches and
+    generators: the launches per step ('stage' runs the 5 backbone
+    attention forwards again in the backward: 13 a step), ms per step,
+    clips/s and the peak memory of each; the first step's loss under
+    'stage' within 2e-2 of ''s (bf16) and within 1e-6 on one f32 clip; a
+    lower peak under 'stage'.  Then Charades stage 2
+    (``MODEL.FREEZE_BACKBONE``, 'stage') at 16 clips with windows from phase
+    5's frame bank: 1 warm-up and 3 timed steps, no stem weight gradient,
+    the attention backward only for the 2 FBO layers, momentum only on the
+    head and the backbone unchanged.
 12. The flagship from JPEG frames on disk, through the entry points a user
     runs.  A synthetic AVA split in the reference's file formats goes into a
     temporary directory under ``build/`` (:func:`write_ava_split`: 16 videos
@@ -120,6 +131,26 @@ result):
     ``DATALOADER.NUM_WORKERS``; then the ms per batch of each sweep's first
     4 batches held on the card, and the RoI forward on the rows of the
     first test batch against its plain version.
+13. Stage-2 training from the same JPEG frames (the split has train lists
+    too) through ``lfb_tpu_torch.tools.train_net.main`` with the flagship
+    YAML, ``NUM_GPUS 1``, ``TPU.DEVICE_BANK True``, ``TPU.REMAT`` left at
+    its 'stage', 16 clips a step at crop 224 and dropout 0.3: both bank
+    sweeps with phase 12's baseline pickle, then 8 steps from a K400-style
+    R101 pickle (``CONVERT_MODEL``, ``RESET_START_ITER``) with a warm-up to
+    iteration 3 and an LR step at 5, checkpoints at 4 and 8 and the
+    train-time eval at 8; then the same command with ``SOLVER.MAX_ITER 10``
+    resumes at 8 (the banks read back from their pickles) and tests the
+    last checkpoint.  Checks: finite bank rows in both pickles; the
+    checkpoints 4, 8 and 10; the resumed run's start at 8 with the params
+    and momentum of ``c2_model_iter8.pkl`` bitwise; a finite loss at every
+    step; each step's LR and every momentum rescale as ``lfb_tpu`` makes
+    them; a frame-mAP in [0, 1] and a detections CSV from the eval and the
+    test; the launch counters (the sweeps' forwards times their launches
+    per forward, plus the steps times 'stage''s per step); every parameter
+    and momentum buffer on the card.  Printed: each part's seconds, the ms
+    per step from disk after the first prefetch window (steps without a
+    checkpoint or eval), the host's waiting, the card's busy share, the
+    peak memory, beside phase 11's ms per step from memory.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so the plain
 versions the kernels are compared with compute in full f32.
@@ -152,6 +183,21 @@ SEED = 0
 B, BOXES_PER_CLIP = 16, 4
 EXTRACT_BATCHES, INFER_BATCHES = 2, 3
 TRAIN_B, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 5
+# Phase 11's steps at the released global batch, under each TPU.REMAT mode,
+# and Charades stage 2 (FREEZE_BACKBONE).
+REMAT_B, REMAT_MODES = 16, ('stage', '')
+# Bounds of the 'stage' steps against the '' steps, relative to each
+# tensor's largest value, several times the largest gaps read on an H100:
+# over phase 11's 7 steps in bf16, the losses (read up to 1.8e-4), the
+# updated params (5.4e-4) and the momentum (3.2e-2, a small bias's
+# buffer); after one f32 step of one clip, the params (8.1e-8) and the
+# momentum (3.2e-6).  The two modes differ only by the order of the atomic
+# f32 sums in the backward (two f32 runs under '' differ as much), which
+# bf16 and the ReLU gates amplify step by step.  A region recomputed
+# wrongly, or a gradient lost in one, moves a tensor by its whole scale.
+REMAT_BF16_BOUNDS = (1e-3, 5e-3, 2e-1)
+REMAT_F32_BOUNDS = (1e-6, 3e-5)
+CHARADES_TRAIN_WARMUP, CHARADES_TRAIN_STEPS = 1, 3
 AVA_VIDEOS = 235
 CHARADES_VIDEOS = 1814                  # TEST.DATASET_SIZE, the val split
 CHARADES_FRAMES = (15 * 24, 45 * 24)    # video lengths, 30 s on average
@@ -228,7 +274,21 @@ PER_FORWARD = {'A': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 5,
                'train': {'stem_conv': 1, 'stem_conv_dw': 1,
                          'roi_align_maxpool': 1, 'roi_align_maxpool_bwd': 1,
                          'attention': 8, 'attention_bwd': 8,
-                         'fused_bottleneck': 0}}
+                         'fused_bottleneck': 0},
+               # TPU.REMAT 'stage' runs res3 and res4 again in the backward:
+               # their 5 non-local blocks' attention forwards (the stem is
+               # outside the stages, the FBO outside the backbone).
+               'train stage': {'stem_conv': 1, 'stem_conv_dw': 1,
+                               'roi_align_maxpool': 1,
+                               'roi_align_maxpool_bwd': 1, 'attention': 13,
+                               'attention_bwd': 8, 'fused_bottleneck': 0},
+               # Charades stage 2 (MODEL.FREEZE_BACKBONE): the backbone
+               # trains nothing, so 'stage' recomputes nothing; the 2 FBO
+               # layers take the only attention backward.
+               'Charades train': {'stem_conv': 1, 'stem_conv_dw': 0,
+                                  'roi_align_maxpool': 0,
+                                  'roi_align_maxpool_bwd': 0, 'attention': 7,
+                                  'attention_bwd': 2, 'fused_bottleneck': 0}}
 # R101's identity blocks at crop 256, B = 16: (label, x shape, Ci, kT,
 # dilation, launches per flagship forward, per Charades forward).  res5 is
 # dilated (d 2) in the flagship and not in Charades.
@@ -590,18 +650,20 @@ def check_kernels(iters=TIMING_ITERS):
         2 * out_elems * 735, nbytes(x, w) + 2 * out_elems, 'bfloat16')])
     log_stem_rate(r['ms'], out_elems, 5)
     del x, x_cl
-    # The train step's shape (B = 8, crop 224), logged only.
-    x = torch.randint(0, 256, (TRAIN_B, 32, 224, 224, 3), generator=g,
-                      device=dev)
-    x = ((x.float() / 255 - 0.45) / 0.225).to(torch.bfloat16)
-    x_cl = x.permute(0, 4, 1, 2, 3)
-    r = compare(
-        'stem_conv x{} bf16 (train shape)'.format(tuple(x.shape)),
-        lambda: cuda_stem.stem_conv(x, w, temporal_pad=2),
-        lambda: cuda_stem.stem_conv_plain(x, w, 2), 1e-2, iters,
-        lambda: F.conv3d(x_cl, w_cl, None, (1, 2, 2), (2, 3, 3)))
-    log_stem_rate(r['ms'], TRAIN_B * 32 * 112 * 112 * 64, 5)
-    del x, x_cl
+    # The train steps' shapes (crop 224; B = 16 in phases 11 and 13, B = 8
+    # in phase 11), checked and logged.
+    for n_clips in (REMAT_B, TRAIN_B):
+        x = torch.randint(0, 256, (n_clips, 32, 224, 224, 3), generator=g,
+                          device=dev)
+        x = ((x.float() / 255 - 0.45) / 0.225).to(torch.bfloat16)
+        x_cl = x.permute(0, 4, 1, 2, 3)
+        r = compare(
+            'stem_conv x{} bf16 (train shape)'.format(tuple(x.shape)),
+            lambda: cuda_stem.stem_conv(x, w, temporal_pad=2),
+            lambda: cuda_stem.stem_conv_plain(x, w, 2), 1e-2, iters,
+            lambda: F.conv3d(x_cl, w_cl, None, (1, 2, 2), (2, 3, 3)))
+        log_stem_rate(r['ms'], n_clips * 32 * 112 * 112 * 64, 5)
+        del x, x_cl
 
     fmap = torch.relu(torch.randn((B, 16, 16, 2048), generator=g, device=dev))
     rois_np = rand_rois(rng, B, BOXES_PER_CLIP, 256)
@@ -1090,7 +1152,8 @@ def main_path(cfg):
 def charades_path():
     """Phase 5: the Charades main path with the fused bottleneck: frame-level
     bank extraction, the val-scale frame bank on the card, FBO inference
-    with windows gathered from it."""
+    with windows gathered from it.  Returns the launches and the bank (for
+    the Charades train step of phase 11)."""
     import torch
     from lfb_tpu_torch.bank.device_bank import build_device_bank
     from lfb_tpu_torch.bank.lfb import extract_frame_bank
@@ -1146,7 +1209,7 @@ def charades_path():
         'flagship phases (their bank and params)'.format(
             2 * B / ((ms_a + ms_b) / 1e3),
             torch.cuda.max_memory_allocated() / 2 ** 30, held / 2 ** 30))
-    return {k: launches_a[k] + launches_b[k] for k in launches_a}
+    return {k: launches_a[k] + launches_b[k] for k in launches_a}, bank
 
 
 def check_clip_outputs(label, outs, spec):
@@ -1503,9 +1566,58 @@ def busy_us(intervals, t0, t1):
 
 
 def check_backward_kernels(iters=TIMING_ITERS):
-    """Phase 9: each backward kernel vs its plain version at the flagship
-    train shapes (B = 8 clips x 4 boxes, T 32, crop 224), and the forward
-    attention kernel's row log-sum-exp vs ``torch.logsumexp``.
+    """Phase 9: each backward kernel vs its plain version at the train
+    steps' shapes (T 32, crop 224): at the released global batch, B = 16
+    clips x 4 boxes (phase 11's remat steps, phase 13's steps), whose
+    results the kernel line reports, and at phase 11's B = 8; the RoI pair
+    also on the dataset's padded rows at B = 16 (phase 13), and the
+    attention backward at Charades stage 2's FBO-NL shape (phase 11).  The
+    tolerances are those of :func:`check_backward_at`."""
+    import torch
+    from lfb_tpu_torch.ops import cuda_attention, cuda_roi_align
+    results = check_backward_at(REMAT_B, iters)
+    check_backward_at(TRAIN_B, iters)
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    rng = np.random.default_rng(SEED + 18)
+    fmap = torch.relu(torch.randn((REMAT_B, 14, 14, 2048), generator=g,
+                                  device=dev))
+    rois = torch.from_numpy(roi_layout(rng, REMAT_B, MAX_BOXES_PER_CLIP,
+                                       224)).to(dev)
+    dout = torch.randn((rois.shape[0], 2048), generator=g, device=dev)
+    for label, kernel_fn, plain_fn in (
+            ('roi_align_maxpool',
+             lambda: cuda_roi_align.roi_align_maxpool(fmap, rois),
+             lambda: cuda_roi_align.roi_align_maxpool_plain(fmap, rois)),
+            ('roi_align_maxpool_bwd',
+             lambda: cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout),
+             lambda: cuda_roi_align.roi_align_maxpool_bwd_plain(fmap, rois,
+                                                                dout))):
+        compare('{} fmap{} rois{} f32, the dataset layout (phase 13)'.format(
+            label, tuple(fmap.shape), tuple(rois.shape)), kernel_fn,
+            plain_fn, 1e-5, iters)
+    del fmap, dout
+    # Charades stage 2: the FBO-NL's window of 20 rows, f32.
+    q, do = (torch.randn((REMAT_B, 1, 512), generator=g, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn((REMAT_B, 20, 512), generator=g, device=dev)
+            for _ in range(2))
+    out, lse = cuda_attention.fused_attention_lse(q, k, v, scale=512 ** -0.5)
+    delta = (do * out).sum(-1)
+    compare('attention_bwd Charades FBO-NL q{} k{} float32'.format(
+        tuple(q.shape), tuple(k.shape)),
+        lambda: cuda_attention.fused_attention_bwd(q, k, v, do, lse, delta,
+                                                   scale=512 ** -0.5),
+        lambda: cuda_attention.attention_bwd_plain(q, k, v, do, lse, delta,
+                                                   512 ** -0.5), 1e-5, iters)
+    return results
+
+
+def check_backward_at(n_clips, iters):
+    """Each backward kernel vs its plain version at a train step's shapes
+    for ``n_clips`` clips x 4 boxes, and the forward attention kernel's row
+    log-sum-exp vs ``torch.logsumexp``; returns the results, the attention
+    rows summed over the 8 calls of a train step.
 
     Bounds, relative to max |plain| of each output: attention 1e-5 in f32
     and 1e-2 in bf16 (both sides form f32 gradients from the same inputs, in
@@ -1518,13 +1630,13 @@ def check_backward_kernels(iters=TIMING_ITERS):
     dev = torch.device('cuda')
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     rng = np.random.default_rng(SEED + 4)
-    n = TRAIN_B * BOXES_PER_CLIP
+    n = n_clips * BOXES_PER_CLIP
     results = {}
 
-    x = torch.randint(0, 256, (TRAIN_B, 32, 224, 224, 3), generator=g,
+    x = torch.randint(0, 256, (n_clips, 32, 224, 224, 3), generator=g,
                       device=dev)
     x = ((x.float() / 255 - 0.45) / 0.225).to(torch.bfloat16)
-    dy = torch.randn((TRAIN_B, 32, 112, 112, 64), generator=g,
+    dy = torch.randn((n_clips, 32, 112, 112, 64), generator=g,
                      device=dev).to(torch.bfloat16)
     x_cl, dy_cl = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
     r = compare(
@@ -1540,9 +1652,9 @@ def check_backward_kernels(iters=TIMING_ITERS):
         2 * dy.numel() * 735, nbytes(x, dy) + 64 * 735 * 4, 'bfloat16')])
     del x, dy, x_cl, dy_cl
 
-    fmap = torch.relu(torch.randn((TRAIN_B, 14, 14, 2048), generator=g,
+    fmap = torch.relu(torch.randn((n_clips, 14, 14, 2048), generator=g,
                                   device=dev))
-    rois_np = rand_rois(rng, TRAIN_B, BOXES_PER_CLIP, 224)
+    rois_np = rand_rois(rng, n_clips, BOXES_PER_CLIP, 224)
     rois = torch.from_numpy(rois_np).to(dev)
     dout = torch.randn((n, 2048), generator=g, device=dev)
     # The forward at the train step's shape, logged only.
@@ -1569,8 +1681,8 @@ def check_backward_kernels(iters=TIMING_ITERS):
     del fmap
 
     # (label, B, Nq, Nk, C, dtype, calls per train step)
-    regimes = [('res3 NL', 32, 3136, 784, 256, torch.bfloat16, 2),
-               ('res4 NL', 8, 3136, 784, 512, torch.bfloat16, 3),
+    regimes = [('res3 NL', 4 * n_clips, 3136, 784, 256, torch.bfloat16, 2),
+               ('res4 NL', n_clips, 3136, 784, 512, torch.bfloat16, 3),
                ('FBO-NL', n, 1, 300, 512, torch.float32, 3)]
     total = {'err': 0.0, 'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0,
              'library_ms': 0.0}
@@ -1613,9 +1725,9 @@ def check_backward_kernels(iters=TIMING_ITERS):
                               q.numel() + k.numel() + v.numel()),
                           str(dtype).split('.')[-1])
         parts.append((calls * ms, by))
-    log('attention_bwd, the 8 calls of one train step: kernel {:.3f} ms '
+    log('attention_bwd, the 8 calls of one train step at B = {}: kernel {:.3f} ms '
         '(device {:.3f} ms), plain {:.3f} ms, SDPA backward {:.3f} ms'.format(
-            total['ms'], total['device_ms'], total['plain_ms'],
+            n_clips, total['ms'], total['device_ms'], total['plain_ms'],
             total['library_ms']))
     results['attention_bwd'] = add_bound(dict(
         total, tolerance='1e-5 f32, 1e-2 bf16',
@@ -1694,27 +1806,21 @@ def train_reference_check(cfg):
         raise AssertionError('train reference check failed')
 
 
-def train_phase(cfg, bank):
-    """Phase 11: the flagship train step at B = 8 clips x 4 boxes with the
-    AVA-scale device bank; returns the launch counts of its steps."""
+def train_steps(label, spec, solver, bank, batches, params, per_step):
+    """``make_train_step`` over ``batches`` from ``params`` (updated in
+    place), the step's generator seeded ``SEED + i`` and its LR
+    ``get_lr_at_iter(solver, i)``: each step's launches must be
+    ``per_step`` and its loss finite, with a prob of the batch's rows.
+    Returns (losses, ms per step, the launches of all steps, the
+    optimizer state)."""
     import torch
-    from lfb_tpu_torch.models.spec import build_spec
     from lfb_tpu_torch.train import optimizer
     from lfb_tpu_torch.train.optimizer import get_lr_at_iter
     from lfb_tpu_torch.train.steps import make_train_step, split_params
     dev = torch.device('cuda')
-    spec = build_spec(cfg, 'train')
-    log('train spec: crop {}, T {}, dropout {} / FBO {}, {}'.format(
-        spec.crop_size, spec.video_length, spec.dropout_rate,
-        spec.fbo.dropout_rate, spec.compute_dtype))
-    params = perturbed_params(spec, dev)
     trainable, frozen = split_params(spec, params)
     state = optimizer.init_state(params, set(frozen))
-    step = make_train_step(spec, cfg.SOLVER, bank=bank)
-    rng = np.random.default_rng(SEED + 6)
-    batches = [make_batch(spec, rng, dev, n_clips=TRAIN_B, with_labels=True)
-               for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
-    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(spec, solver, bank=bank)
     reset_launches()
     stamps, losses = [], []
     for i, batch in enumerate(timed(batches, stamps)):
@@ -1722,38 +1828,202 @@ def train_phase(cfg, bank):
         trainable, frozen, state, aux = step(
             trainable, frozen, state, batch,
             torch.Generator(device=dev).manual_seed(SEED + i),
-            get_lr_at_iter(cfg.SOLVER, i))
+            get_lr_at_iter(solver, i))
         after = read_launches()
-        per_step = {k: after[k] - before[k] for k in after}
-        if per_step != PER_FORWARD['train']:
-            raise AssertionError('train step {}: launches {} != {}'.format(
-                i, per_step, PER_FORWARD['train']))
+        got = {k: after[k] - before[k] for k in after}
+        if got != per_step:
+            raise AssertionError('{} step {}: launches {} != {}'.format(
+                label, i, got, per_step))
         losses.append(aux['loss'].item())
-        prob = aux['prob']
-        if not np.isfinite(losses[-1]) or tuple(prob.shape) != (
-                TRAIN_B * BOXES_PER_CLIP, spec.num_classes):
-            raise AssertionError('train step {}: loss {} prob {}'.format(
-                i, losses[-1], tuple(prob.shape)))
-        for name in ('conv1_w', 'pred_w', 'lfb_nl2_out_w'):
-            if not state.momentum[name].any():
-                raise AssertionError('train step {}: zero momentum for '
-                                     '{}'.format(i, name))
-    launches = read_launches()
+        rows = len(batch['labels'])
+        if not np.isfinite(losses[-1]) or tuple(aux['prob'].shape) != (
+                rows, spec.num_classes):
+            raise AssertionError('{} step {}: loss {} prob {}'.format(
+                label, i, losses[-1], tuple(aux['prob'].shape)))
     ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    steady = statistics.mean(ms[TRAIN_WARMUP:])
-    log('train: launches per step {}; losses {}'.format(
-        PER_FORWARD['train'], ['{:.5f}'.format(x) for x in losses]))
-    log('train: ms per step {}; {:.1f} ms per step over the {} timed steps, '
-        '{:.2f} clips/s; peak device memory {:.2f} GiB'.format(
-            ['{:.1f}'.format(m) for m in ms], steady, TRAIN_STEPS,
-            TRAIN_B / (steady / 1e3),
-            torch.cuda.max_memory_allocated() / 2 ** 30))
-    return launches
+    return losses, ms, read_launches(), state
+
+
+def log_steps(label, ms, warmup, clips, losses):
+    """Log a train run's ms per step over the steps after ``warmup``, its
+    clips/s and the peak device memory since the last reset; returns (ms
+    per step, peak GiB)."""
+    import torch
+    steady = statistics.mean(ms[warmup:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log('{}: losses {}; ms per step {}; {:.1f} ms per step over the {} timed '
+        'steps, {:.2f} clips/s; peak device memory {:.2f} GiB ({})'.format(
+            label, ['{:.5f}'.format(x) for x in losses],
+            ['{:.1f}'.format(m) for m in ms], steady, len(ms) - warmup,
+            clips / (steady / 1e3), peak, card_line()))
+    return steady, peak
+
+
+def train_phase(cfg, bank, charades_bank):
+    """Phase 11: the flagship train step at B = 8 clips x 4 boxes with the
+    AVA-scale device bank (``TPU.REMAT ''``); then at B = 16 under
+    ``TPU.REMAT`` 'stage' and '' from the same params, batches and
+    generators (and one f32 clip under both); then Charades stage 2
+    (``MODEL.FREEZE_BACKBONE``) at B = 16 under 'stage' with windows from
+    ``charades_bank``.  Returns the launch counts of the steps and the ms
+    per step at B = 16 under 'stage'."""
+    import torch
+    from lfb_tpu_torch.config import charades_cfg, flagship_cfg
+    from lfb_tpu_torch.models.spec import build_spec
+    dev = torch.device('cuda')
+    spec = build_spec(cfg, 'train')
+    log('train spec: crop {}, T {}, dropout {} / FBO {}, {}'.format(
+        spec.crop_size, spec.video_length, spec.dropout_rate,
+        spec.fbo.dropout_rate, spec.compute_dtype))
+    rng = np.random.default_rng(SEED + 6)
+    batches = [make_batch(spec, rng, dev, n_clips=TRAIN_B, with_labels=True)
+               for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, launches, state = train_steps(
+        'train', spec, cfg.SOLVER, bank, batches,
+        perturbed_params(spec, dev), PER_FORWARD['train'])
+    for name in ('conv1_w', 'pred_w', 'lfb_nl2_out_w'):
+        if not state.momentum[name].any():
+            raise AssertionError('train: zero momentum for ' + name)
+    log('train: launches per step {}'.format(PER_FORWARD['train']))
+    log_steps('train at B = {}'.format(TRAIN_B), ms, TRAIN_WARMUP,
+              TRAIN_B, losses)
+    del batches, state
+    all_launches = [launches]
+
+    # The released global batch under each remat mode.
+    rng = np.random.default_rng(SEED + 15)
+    batches = [make_batch(spec, rng, dev, n_clips=REMAT_B, with_labels=True)
+               for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    runs = {}
+    for mode in REMAT_MODES:
+        spec_m = build_spec(flagship_cfg({**CFG_OVERRIDES,
+                                          'TPU.REMAT': mode}), 'train')
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        per_step = PER_FORWARD['train stage' if mode else 'train']
+        params = perturbed_params(spec_m, dev)
+        losses, ms, launches, state = train_steps(
+            'train, TPU.REMAT {!r}'.format(mode), spec_m, cfg.SOLVER, bank,
+            batches, params, per_step)
+        log('train, TPU.REMAT {!r}: launches per step {}'.format(mode,
+                                                                per_step))
+        runs[mode] = log_steps('train at B = {}, TPU.REMAT {!r}'.format(
+            REMAT_B, mode), ms, TRAIN_WARMUP, REMAT_B, losses) + (
+            losses, {k: params[k] for k in state.momentum}, state.momentum)
+        all_launches.append(launches)
+        del params, state
+    del batches
+    (stage_ms, stage_peak, *stage), (ms0, peak0, *plain) = (
+        runs['stage'], runs[''])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(stage[0], plain[0]))
+    params_rel, momentum_rel = (worst_leaf(a, b)
+                                for a, b in zip(stage[1:], plain[1:]))
+    f32 = remat_f32_check(cfg, bank)
+    log("train remat at B = {}: 'stage' {:.1f} ms per step, peak {:.2f} GiB; "
+        "'' {:.1f} ms, peak {:.2f} GiB ({}); 'stage' vs '' over the {} steps "
+        'in bf16: the losses rel {:.3e} (bound {:.0e}), the updated params '
+        'worst rel {:.3e} ({}; bound {:.0e}), the momentum worst rel {:.3e} '
+        '({}; bound {:.0e}); one f32 step of one clip, \'stage\' vs \'\': '
+        'the params worst rel {:.3e} ({}; bound {:.0e}), the momentum {:.3e} '
+        "({}; bound {:.0e}); '' vs '' again: the params {:.3e}, the momentum "
+        '{:.3e}'.format(
+            REMAT_B, stage_ms, stage_peak, ms0, peak0, card_line(),
+            TRAIN_WARMUP + TRAIN_STEPS, loss_rel, REMAT_BF16_BOUNDS[0],
+            *params_rel, REMAT_BF16_BOUNDS[1], *momentum_rel,
+            REMAT_BF16_BOUNDS[2], *f32[0], REMAT_F32_BOUNDS[0], *f32[1],
+            REMAT_F32_BOUNDS[1], f32[2][0], f32[3][0]))
+    if not (all(x <= bound for x, bound in zip(
+            (loss_rel, params_rel[0], momentum_rel[0], f32[0][0], f32[1][0]),
+            REMAT_BF16_BOUNDS + REMAT_F32_BOUNDS)) and stage_peak < peak0):
+        raise AssertionError('train remat: the modes disagree or the peaks')
+
+    # Charades stage 2: only the head trains.
+    cfg_c = charades_cfg({**CFG_OVERRIDES, 'MODEL.FREEZE_BACKBONE': True,
+                          'TPU.REMAT': 'stage'})
+    spec_c = build_spec(cfg_c, 'train')
+    rng = np.random.default_rng(SEED + 16)
+    batches = []
+    for _ in range(CHARADES_TRAIN_WARMUP + CHARADES_TRAIN_STEPS):
+        batch = make_clip_batch(spec_c, rng, dev, n_clips=REMAT_B)
+        batch['labels'] = torch.from_numpy((rng.random(
+            (REMAT_B, spec_c.num_classes)) < 0.05).astype(np.float32)).to(dev)
+        batches.append(batch)
+    params = perturbed_params(spec_c, dev)
+    backbone = params['res4_5_branch2b_w'].clone()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, launches, state = train_steps(
+        'Charades train', spec_c, cfg_c.SOLVER, charades_bank, batches,
+        params, PER_FORWARD['Charades train'])
+    heads = ('pred_', 'lfb_nl', 'lfb_1x1')
+    if not (state.momentum and all(
+            k.startswith(heads) or '_fbonl_reduc' in k
+            for k in state.momentum)
+            and torch.equal(params['res4_5_branch2b_w'], backbone)
+            and state.momentum['pred_w'].any()):
+        raise AssertionError('Charades train: momentum on {} names, the '
+                             'backbone moved or the head did not'.format(
+                                 len(state.momentum)))
+    log('Charades train (FREEZE_BACKBONE, TPU.REMAT stage): launches per step '
+        '{}; momentum on the {} head tensors only, the backbone '
+        'unchanged'.format(PER_FORWARD['Charades train'], len(state.momentum)))
+    log_steps('Charades train at B = {}, crop {}'.format(
+        REMAT_B, spec_c.crop_size), ms, CHARADES_TRAIN_WARMUP, REMAT_B,
+        losses)
+    all_launches.append(launches)
+    return ({k: sum(n[k] for n in all_launches) for k in launches},
+            stage_ms)
+
+
+def remat_f32_check(cfg, bank):
+    """One step of one f32 clip x 4 boxes (dropout 0) under 'stage', under
+    '' and under '' again, from the same params and batch; returns
+    :func:`worst_leaf` of the updated trainable params and of the momentum,
+    'stage' against '', then '' against ''."""
+    import torch
+    from lfb_tpu_torch.config import flagship_cfg
+    from lfb_tpu_torch.models.spec import build_spec
+    dev = torch.device('cuda')
+    runs = []
+    for mode in REMAT_MODES + ('',):
+        spec = build_spec(flagship_cfg({
+            **CFG_OVERRIDES, 'TPU.COMPUTE_DTYPE': 'float32',
+            'TRAIN.DROPOUT_RATE': 0.0, 'FBO_NL.DROPOUT_RATE': 0.0,
+            'TPU.REMAT': mode}), 'train')
+        batch = make_batch(spec, np.random.default_rng(SEED + 5), dev,
+                           n_clips=1, with_labels=True)
+        per_step = PER_FORWARD['train stage' if mode else 'train']
+        params = perturbed_params(spec, dev)
+        state = train_steps(
+            'f32 train, TPU.REMAT {!r}'.format(mode), spec, cfg.SOLVER, bank,
+            [batch], params, per_step)[3]
+        runs.append(({k: params[k] for k in state.momentum}, state.momentum))
+    return (worst_leaf(runs[0][0], runs[1][0]),
+            worst_leaf(runs[0][1], runs[1][1]),
+            worst_leaf(runs[2][0], runs[1][0]),
+            worst_leaf(runs[2][1], runs[1][1]))
+
+
+def worst_leaf(got, ref):
+    """The largest difference of a tensor of ``got`` from that of ``ref``,
+    relative to the largest |value| of the ``ref`` tensor: (rel, name).  A
+    ``*_phi_b`` tensor is held to the scale of its ``*_phi_w`` tensor
+    (:func:`train_reference_check` says why)."""
+    worst = (0.0, '')
+    for name, want in ref.items():
+        scale = want.abs().max().item()
+        if name.endswith('_phi_b'):
+            scale = max(scale, ref[name[:-1] + 'w'].abs().max().item())
+        diff = (got[name].float() - want.float()).abs().max().item()
+        worst = max(worst, (diff / scale if scale else diff, name))
+    return worst
 
 
 def write_ava_split(root, rng):
     """Phase 12's AVA split, in the reference's file formats (frame lists,
-    GT and predicted-box CSVs, the labelmap, an empty exclusions file):
+    GT and predicted-box CSVs, the labelmap, an empty exclusions file), the
+    same videos and boxes in its train and val lists (phase 13 trains on
+    it):
     ``DISK_VIDEOS`` videos of ``DISK_FRAMES`` JPEG frames each, named
     ``<video>_%06d.jpg``, 640 x 360 (a camera pan over smooth colour
     gradients, with N(0, 2) noise, so a file is the size of a real frame's);
@@ -1810,7 +2080,9 @@ def write_ava_split(root, rng):
                                         replace=False):
                     gt.append('{},{},{},{}'.format(name, sec, box, label + 1))
     for fname, rows in (('ava_val_v2.1.csv', gt),
-                        ('ava_val_predicted_boxes.csv', pred)):
+                        ('ava_val_predicted_boxes.csv', pred),
+                        ('ava_train_v2.1.csv', gt),
+                        ('ava_train_predicted_boxes.csv', pred)):
         with open(os.path.join(ann, fname), 'w') as f:
             f.write('\n'.join(rows) + '\n')
     with open(os.path.join(
@@ -1886,37 +2158,36 @@ def check_disk_outputs(out, scores, metrics, batch_size):
     return bank
 
 
-def log_feed(feed):
+def log_feed(feed, phase=12):
     """Log a ``DeviceFeed`` summary: the whole sweep, the batches after the
     first, and those after the first prefetch window (the steady state)."""
     if feed['card_ms'] is None or feed['steady'] is None:
-        raise AssertionError('phase 12: a sweep ran off the card or within '
-                             'one prefetch window: {}'.format(feed))
-    log('phase 12 from disk, {label}: {batches} batches, the whole sweep '
+        raise AssertionError('phase {}: a sweep ran off the card or within '
+                             'one prefetch window: {}'.format(phase, feed))
+    log('phase {} from disk, {label}: {batches} batches, the whole sweep '
         '{sweep_s:.2f} s, {sweep_clips_per_s:.1f} clips/s; the first batch '
-        '{first_ms:.1f} ms'.format(**feed))
+        '{first_ms:.1f} ms'.format(phase, **feed))
     for name, means in (('after the first', feed),
                         ('steady (after the first prefetch window)',
                          feed['steady'])):
-        log('phase 12 from disk, {}, {}: {batches} batches, {wall_ms:.1f} ms '
+        log('phase {} from disk, {}, {}: {batches} batches, {wall_ms:.1f} ms '
             'per batch, {clips_per_s:.1f} clips/s; host per batch: decode + '
             "transforms {build_ms:.1f} ms (on the loader's threads), waiting "
             'for the batch {wait_ms:.1f} ms, to_device {to_device_ms:.1f} ms; '
             'the card {card_ms:.1f} ms per batch (CUDA events around each '
             'step), busy share {card_busy:.3f}'.format(
-                feed['label'], name, **means))
+                phase, feed['label'], name, **means))
 
 
-def disk_path(roi_dense):
+def disk_path(root, roi_dense):
     """Phase 12: the flagship from JPEG frames on disk through the entry
     points a user runs: ``tools.test_net.main`` (the bank sweep, FBO
     inference over the device bank, the detections CSV and the frame-mAP),
     then ``tools.lfb_loader.main`` reading the bank back; then the first
     ``MEMORY_BATCHES`` batches of the same two sweeps held in memory on the
     card, and the RoI forward on one of those batches' rows, logged beside
-    ``roi_dense`` (phase 2's result at 4 boxes a clip).  Returns the launch
-    counts."""
-    import tempfile
+    ``roi_dense`` (phase 2's result at 4 boxes a clip).  The split and the
+    weights go into ``root``.  Returns the launch counts."""
     import torch
     from lfb_tpu_torch.bank.lfb import extract_ava_bank
     from lfb_tpu_torch.core.config import clone, load_config
@@ -1929,104 +2200,458 @@ def disk_path(roi_dense):
     from lfb_tpu_torch.train.steps import make_eval_step
     dev = torch.device('cuda')
     rng = np.random.default_rng(SEED + 12)
-    os.makedirs('build', exist_ok=True)
-    with tempfile.TemporaryDirectory(dir='build') as root:
-        opts, scores, jpeg_bytes, write_s = write_ava_split(root, rng)
-        n_bank = sum(s >= 0.9 for ss in scores.values() for s in ss)
-        n_test = sum(s >= 0.85 for ss in scores.values() for s in ss)
-        log('phase 12 split: {} videos x {} JPEG frames ({} x {}), mean {:.1f} '
-            'KB a file, written in {:.1f} s; {} keyframes, {} predicted boxes, '
-            '{} at or above 0.9 (the bank), {} at or above 0.85 (the '
-            'test)'.format(DISK_VIDEOS, DISK_FRAMES, DISK_SIZE[1],
-                           DISK_SIZE[0], jpeg_bytes / 1e3, write_s,
-                           len(scores), sum(map(len, scores.values())),
-                           n_bank, n_test))
-        out = os.path.join(root, 'out')
-        opts += ['NUM_GPUS', '1', 'TPU.REMAT', "''", 'TPU.DEVICE_BANK', 'True',
-                 'CHECKPOINT.DIR', out, 'LFB.WRITE_LFB', 'True']
-        cfg = load_config(AVA_YAML, opts)
-        specs = {'LFB.MODEL_PARAMS_FILE': build_spec(cfg, 'val',
-                                                     lfb_infer_only=True),
-                 'TEST.PARAMS_FILE': build_spec(cfg, 'val')}
-        for key, spec in specs.items():
-            path = os.path.join(root, key.split('.')[0].lower() + '.pkl')
-            checkpoints.save_params(path, perturbed_params(spec, dev),
-                                    model_iter=0, lr=0.0)
-            opts += [key, path]
-        log('phase 12 host: os.cpu_count() {}, DATALOADER.NUM_WORKERS {}, '
-            'PREFETCH_BATCHES {}, TEST.BATCH_SIZE {}, '
-            'TPU.MAX_BOXES_PER_CLIP {}'.format(
-                os.cpu_count(), cfg.DATALOADER.NUM_WORKERS,
-                cfg.DATALOADER.PREFETCH_BATCHES, cfg.TEST.BATCH_SIZE,
-                cfg.TPU.MAX_BOXES_PER_CLIP))
+    opts, scores, jpeg_bytes, write_s = write_ava_split(root, rng)
+    n_bank = sum(s >= 0.9 for ss in scores.values() for s in ss)
+    n_test = sum(s >= 0.85 for ss in scores.values() for s in ss)
+    log('phase 12 split: {} videos x {} JPEG frames ({} x {}), mean {:.1f} '
+        'KB a file, written in {:.1f} s; {} keyframes, {} predicted boxes, '
+        '{} at or above 0.9 (the bank), {} at or above 0.85 (the '
+        'test)'.format(DISK_VIDEOS, DISK_FRAMES, DISK_SIZE[1],
+                       DISK_SIZE[0], jpeg_bytes / 1e3, write_s,
+                       len(scores), sum(map(len, scores.values())),
+                       n_bank, n_test))
+    out = os.path.join(root, 'out')
+    opts += ['NUM_GPUS', '1', 'TPU.REMAT', "''", 'TPU.DEVICE_BANK', 'True',
+             'CHECKPOINT.DIR', out, 'LFB.WRITE_LFB', 'True']
+    cfg = load_config(AVA_YAML, opts)
+    specs = {'LFB.MODEL_PARAMS_FILE': build_spec(cfg, 'val',
+                                                 lfb_infer_only=True),
+             'TEST.PARAMS_FILE': build_spec(cfg, 'val')}
+    for key, spec in specs.items():
+        path = os.path.join(root, key.split('.')[0].lower() + '.pkl')
+        checkpoints.save_params(path, perturbed_params(spec, dev),
+                                model_iter=0, lr=0.0)
+        opts += [key, path]
+    log('phase 12 host: os.cpu_count() {}, DATALOADER.NUM_WORKERS {}, '
+        'PREFETCH_BATCHES {}, TEST.BATCH_SIZE {}, '
+        'TPU.MAX_BOXES_PER_CLIP {}'.format(
+            os.cpu_count(), cfg.DATALOADER.NUM_WORKERS,
+            cfg.DATALOADER.PREFETCH_BATCHES, cfg.TEST.BATCH_SIZE,
+            cfg.TPU.MAX_BOXES_PER_CLIP))
 
-        reset_launches()
-        data_loader.SWEEPS.clear()
-        t0 = time.perf_counter()
-        metrics = test_net.main(['--config_file', AVA_YAML] + opts)
-        t1 = time.perf_counter()
-        launches = read_launches()
-        feeds = list(data_loader.SWEEPS)
-        if [f['label'] for f in feeds] != ['LFB sweep (val)',
-                                           'test sweep (shift 1)']:
-            raise AssertionError('phase 12: sweeps {}'.format(feeds))
-        for feed in feeds:
-            log_feed(feed)
-        want = {k: feeds[0]['batches'] * PER_FORWARD['A'][k]
-                + feeds[1]['batches'] * PER_FORWARD['B'][k]
-                for k in PER_FORWARD['A']}
-        log('phase 12 test_net.main: {:.1f} s; launches {} (want {}); '
-            'frame-mAP {}'.format(t1 - t0, launches, want, metrics))
-        if launches != want:
-            raise AssertionError('phase 12: kernel launch counts {} != '
-                                 '{}'.format(launches, want))
-        bank = check_disk_outputs(out, scores, metrics, cfg.TEST.BATCH_SIZE)
-        loaded = lfb_loader.main(['--config_file', AVA_YAML, '--splits', 'val']
-                                 + opts + ['LFB.LOAD_LFB', 'True',
-                                           'LFB.LOAD_LFB_PATH', out])['val']
-        if not same_bank(loaded, bank):
-            raise AssertionError('phase 12: lfb_loader read back another bank')
-        log('phase 12: lfb_loader read the bank back bitwise')
+    reset_launches()
+    data_loader.SWEEPS.clear()
+    t0 = time.perf_counter()
+    metrics = test_net.main(['--config_file', AVA_YAML] + opts)
+    t1 = time.perf_counter()
+    launches = read_launches()
+    feeds = list(data_loader.SWEEPS)
+    if [f['label'] for f in feeds] != ['LFB sweep (val)',
+                                       'test sweep (shift 1)']:
+        raise AssertionError('phase 12: sweeps {}'.format(feeds))
+    for feed in feeds:
+        log_feed(feed)
+    want = {k: feeds[0]['batches'] * PER_FORWARD['A'][k]
+            + feeds[1]['batches'] * PER_FORWARD['B'][k]
+            for k in PER_FORWARD['A']}
+    log('phase 12 test_net.main: {:.1f} s; launches {} (want {}); '
+        'frame-mAP {}'.format(t1 - t0, launches, want, metrics))
+    if launches != want:
+        raise AssertionError('phase 12: kernel launch counts {} != '
+                             '{}'.format(launches, want))
+    bank = check_disk_outputs(out, scores, metrics, cfg.TEST.BATCH_SIZE)
+    loaded = lfb_loader.main(['--config_file', AVA_YAML, '--splits', 'val']
+                             + opts + ['LFB.LOAD_LFB', 'True',
+                                       'LFB.LOAD_LFB_PATH', out])['val']
+    if not same_bank(loaded, bank):
+        raise AssertionError('phase 12: lfb_loader read back another bank')
+    log('phase 12: lfb_loader read the bank back bitwise')
 
-        # The first batches of the same sweeps, held on the card.
-        gen = torch.Generator(device=dev).manual_seed(cfg.RNG_SEED)
-        spec_a, spec_b = specs['LFB.MODEL_PARAMS_FILE'], specs['TEST.PARAMS_FILE']
-        params = {key: checkpoints.load_params_into(
-            opts[opts.index(key) + 1], init_params(spec, gen), device=dev)[0]
-            for key, spec in specs.items()}
-        cfg_t = clone(cfg, {'AVA.FULL_EVAL': True,
-                            'AVA.DETECTION_SCORE_THRESH': 0.85})
-        sweeps = [get_input_db(cfg, 'val', lfb_infer_only=True, shift=1,
-                               device=dev),
-                  get_input_db(cfg_t, 'val', shift=1, lfb=bank, device=dev)]
-        host = []
-        for db in sweeps:
-            loader = DataLoader(db, cfg.TEST.BATCH_SIZE,
-                                num_workers=cfg.DATALOADER.NUM_WORKERS,
-                                prefetch=cfg.DATALOADER.PREFETCH_BATCHES,
-                                seed=cfg.RNG_SEED)
-            host.append(list(loader.batches(MEMORY_BATCHES)))
-            loader.shutdown()
-        ms_a, _, la = run_phase(
-            '12 from memory, the bank sweep',
-            lambda bs: extract_ava_bank(spec_a, params['LFB.MODEL_PARAMS_FILE'],
-                                        bs),
-            [to_device(b, dev) for b in host[0]], PER_FORWARD['A'])
-        step = make_eval_step(spec_b, bank=sweeps[1].lfb, bank_seed=SEED)
-        ms_b, _, lb = run_phase(
-            '12 from memory, the test sweep',
-            lambda bs: [step(params['TEST.PARAMS_FILE'], b) for b in bs],
-            [to_device(b, dev) for b in host[1]], PER_FORWARD['B'])
-        log('phase 12 ms per batch from disk (after the first; steady) '
-            'against from memory (after the first): bank sweep {:.1f}; '
-            '{:.1f} vs {:.1f}, test sweep {:.1f}; {:.1f} vs {:.1f}'.format(
-                feeds[0]['wall_ms'], feeds[0]['steady']['wall_ms'], ms_a,
-                feeds[1]['wall_ms'], feeds[1]['steady']['wall_ms'], ms_b))
-        # The RoI forward on the rows of the first test batch.
-        fmap = torch.relu(torch.randn((B, 16, 16, 2048), device=dev))
-        check_roi_layout('a test batch of phase 12', fmap,
-                         host[1][0]['proposals'], roi_dense, TIMING_ITERS)
+    # The first batches of the same sweeps, held on the card.
+    gen = torch.Generator(device=dev).manual_seed(cfg.RNG_SEED)
+    spec_a, spec_b = specs['LFB.MODEL_PARAMS_FILE'], specs['TEST.PARAMS_FILE']
+    params = {key: checkpoints.load_params_into(
+        opts[opts.index(key) + 1], init_params(spec, gen), device=dev)[0]
+        for key, spec in specs.items()}
+    cfg_t = clone(cfg, {'AVA.FULL_EVAL': True,
+                        'AVA.DETECTION_SCORE_THRESH': 0.85})
+    sweeps = [get_input_db(cfg, 'val', lfb_infer_only=True, shift=1,
+                           device=dev),
+              get_input_db(cfg_t, 'val', shift=1, lfb=bank, device=dev)]
+    host = []
+    for db in sweeps:
+        loader = DataLoader(db, cfg.TEST.BATCH_SIZE,
+                            num_workers=cfg.DATALOADER.NUM_WORKERS,
+                            prefetch=cfg.DATALOADER.PREFETCH_BATCHES,
+                            seed=cfg.RNG_SEED)
+        host.append(list(loader.batches(MEMORY_BATCHES)))
+        loader.shutdown()
+    ms_a, _, la = run_phase(
+        '12 from memory, the bank sweep',
+        lambda bs: extract_ava_bank(spec_a, params['LFB.MODEL_PARAMS_FILE'],
+                                    bs),
+        [to_device(b, dev) for b in host[0]], PER_FORWARD['A'])
+    step = make_eval_step(spec_b, bank=sweeps[1].lfb, bank_seed=SEED)
+    ms_b, _, lb = run_phase(
+        '12 from memory, the test sweep',
+        lambda bs: [step(params['TEST.PARAMS_FILE'], b) for b in bs],
+        [to_device(b, dev) for b in host[1]], PER_FORWARD['B'])
+    log('phase 12 ms per batch from disk (after the first; steady) '
+        'against from memory (after the first): bank sweep {:.1f}; '
+        '{:.1f} vs {:.1f}, test sweep {:.1f}; {:.1f} vs {:.1f}'.format(
+            feeds[0]['wall_ms'], feeds[0]['steady']['wall_ms'], ms_a,
+            feeds[1]['wall_ms'], feeds[1]['steady']['wall_ms'], ms_b))
+    # The RoI forward on the rows of the first test batch.
+    fmap = torch.relu(torch.randn((B, 16, 16, 2048), device=dev))
+    check_roi_layout('a test batch of phase 12', fmap,
+                     host[1][0]['proposals'], roi_dense, TIMING_ITERS)
     return {k: launches[k] + la[k] + lb[k] for k in launches}
+
+
+def k400_pickle(path, dev):
+    """A K400-style pretrained R101 pickle, as phase 8 makes the R50 one:
+    the port's names of the BN-mode R101 (``_bn_rm`` / ``_bn_riv``),
+    seeded perturbed weights, a 400-class classifier, a 2-D stem kernel and
+    ``*_momentum`` blobs, without the FBO's blobs."""
+    from lfb_tpu_torch.config import flagship_cfg
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.train import checkpoints
+    bn_spec = build_spec(flagship_cfg({
+        **CFG_OVERRIDES, 'MODEL.USE_AFFINE': False, 'NONLOCAL.USE_BN': True,
+        'NONLOCAL.USE_AFFINE': False, 'MODEL.NUM_CLASSES': 400,
+        'LFB.ENABLED': False}), 'test')
+    rng = np.random.default_rng(SEED + 17)
+    blobs = {k: v.cpu().numpy() for k, v in perturbed_params(bn_spec,
+                                                              dev).items()}
+    for name in blobs:
+        if name.endswith('_bn_riv'):
+            blobs[name] = 1 + 0.1 * np.abs(rng.standard_normal(
+                blobs[name].shape, np.float32))
+    blobs['conv1_w'] = np.ascontiguousarray(blobs['conv1_w'][:, :, 0])
+    for name in ('conv1_w', 'res2_0_branch2a_w', 'pred_w'):
+        blobs[name + '_momentum'] = np.ones_like(blobs[name])
+    checkpoints.write_pkl(path, {'blobs': blobs})
+    return len(blobs)
+
+
+def expected_lrs(solver, start, stop, current_lr):
+    """The LR of each iteration and the momentum rescales, (iteration, new
+    LR / old LR), that ``lfb_tpu``'s trainer makes from ``current_lr``
+    (``lfb_tpu/train/trainer.py:179-196``)."""
+    from lfb_tpu_torch.train.optimizer import get_lr_at_iter
+    lrs, scales = {}, []
+    for it in range(start, stop):
+        new = get_lr_at_iter(solver, it)
+        if new != current_lr and current_lr > 0:
+            ratio = max(new / max(current_lr, 1e-10),
+                        current_lr / max(new, 1e-10))
+            if (solver.SCALE_MOMENTUM and current_lr > 1e-7
+                    and ratio > solver.SCALE_MOMENTUM_THRESHOLD):
+                scales.append((it, new / current_lr))
+        current_lr = lrs[it] = new
+    return lrs, scales
+
+
+def recording_trainer():
+    """The port's ``Trainer``, keeping what its run did for phase 13's
+    checks: the state it starts from (``start``: start_iter, LR, params and
+    momentum, copied to the host), the LR of every iteration (``lrs``),
+    every momentum rescale (``momentum_scales``: (iteration, new LR / old
+    LR)), every drained loss (``losses``), every eval's metrics (``evals``)
+    and the train sweep's :class:`DeviceFeed` (``feeds``).  ``made`` lists
+    the trainers built while it stands in for ``train_net.Trainer``."""
+    from unittest import mock
+    from lfb_tpu_torch.data import loader as data_loader
+    from lfb_tpu_torch.train import optimizer
+    from lfb_tpu_torch.train import trainer as trainer_mod
+
+    class RecordingTrainer(trainer_mod.Trainer):
+        made = []
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.start = (self.start_iter, self.current_lr,
+                          {k: v.cpu() for k, v in self.params().items()},
+                          {k: v.cpu() for k, v in
+                           self.mstate.momentum.items()})
+            self.lrs, self.momentum_scales, self.losses, self.evals = (
+                {}, [], {}, {})
+            self.feeds = []
+            update_train = self.train_meter.update_train
+
+            def record_loss(loss, *rest):
+                # The drain feeds the meter the losses in iteration order.
+                self.losses[self.start_iter + len(self.losses)] = loss
+                update_train(loss, *rest)
+
+            self.train_meter.update_train = record_loss
+            RecordingTrainer.made.append(self)
+
+        def _update_lr(self, cur_iter):
+            correct = optimizer.correct_momentum
+
+            def record_scale(state, scale):
+                self.momentum_scales.append((cur_iter, scale))
+                return correct(state, scale)
+
+            with mock.patch.object(optimizer, 'correct_momentum',
+                                   record_scale):
+                self.lrs[cur_iter] = super()._update_lr(cur_iter)
+            return self.lrs[cur_iter]
+
+        def evaluate(self, name='latest'):
+            self.evals[name] = super().evaluate(name)
+            return self.evals[name]
+
+        def train(self):
+            feeds = self.feeds
+
+            class KeptFeed(data_loader.DeviceFeed):
+                def __init__(self, *args, **kwargs):
+                    super().__init__(*args, **kwargs)
+                    feeds.append(self)
+
+            with mock.patch.object(trainer_mod, 'DeviceFeed', KeptFeed):
+                return super().train()
+
+    return RecordingTrainer
+
+
+def check_train_run(label, trainer, solver, start, stop, first_lr):
+    """A ``train_net`` run's trainer: its LRs and momentum rescales as
+    ``lfb_tpu``'s, a finite loss drained for every step, every parameter
+    and momentum buffer on the card."""
+    lrs, scales = expected_lrs(solver, start, stop, first_lr)
+    if trainer.lrs != lrs or trainer.momentum_scales != scales:
+        raise AssertionError('{}: LRs {} rescales {}, expected {} {}'.format(
+            label, trainer.lrs, trainer.momentum_scales, lrs, scales))
+    if sorted(trainer.losses) != list(range(start, stop)) or not all(
+            np.isfinite(v) for v in trainer.losses.values()):
+        raise AssertionError('{}: losses {}'.format(label, trainer.losses))
+    if not all(v.device.type == trainer.device.type for v in
+               list(trainer.params().values())
+               + list(trainer.mstate.momentum.values())):
+        raise AssertionError('{}: a tensor off {}'.format(label,
+                                                          trainer.device))
+    log('{}: LRs {} and momentum rescales {} as lfb_tpu takes them; losses '
+        '{}'.format(label, {k: '{:.6g}'.format(v) for k, v in lrs.items()},
+                    [(i, '{:.6g}'.format(r)) for i, r in scales],
+                    {k: '{:.5f}'.format(v)
+                     for k, v in trainer.losses.items()}))
+
+
+def check_bank_pickles(out):
+    """Both splits' bank pickles hold finite 2048-d rows; returns the row
+    counts."""
+    import pickle
+    rows = {}
+    for split in ('train', 'val'):
+        with open(os.path.join(out, split + '_lfb.pkl'), 'rb') as f:
+            bank = pickle.load(f)
+        feats = [x for secs in bank.values() for fs in secs.values()
+                 for x in fs]
+        if not feats or not all(x.shape == (2048,) and np.isfinite(x).all()
+                                for x in feats):
+            raise AssertionError('phase 13: bad {} bank'.format(split))
+        rows[split] = len(feats)
+    return rows
+
+
+def steady_window(label, rows, picks, memory_ms):
+    """Log the train sweep's ``rows`` at ``picks`` (0-based iterations):
+    wall ms per step, clips/s, the wait for the batch, the loader's build,
+    to_device, the card's ms and its busy share; returns their means."""
+    rows = [rows[i] for i in picks]
+    m = {k: statistics.mean(r[k] for r in rows)
+         for k in ('wall_ms', 'wait_ms', 'build_ms', 'to_device_ms',
+                   'card_ms')}
+    log('phase 13 from disk, steps {}-{} ({}): {:.1f} ms per step ({:.1f} '
+        'clips/s), waiting for the batch {:.1f} ms, decode + transforms {:.1f} '
+        "ms a batch on the loader's threads, to_device {:.1f} ms, the card "
+        '{:.1f} ms per step, busy share {:.3f}; from memory (phase 11, B = {}, '
+        'TPU.REMAT stage) {:.1f} ms per step ({})'.format(
+            picks[0] + 1, picks[-1] + 1, label, m['wall_ms'],
+            REMAT_B / (m['wall_ms'] / 1e3), m['wait_ms'], m['build_ms'],
+            m['to_device_ms'], m['card_ms'], m['card_ms'] / m['wall_ms'],
+            REMAT_B, memory_ms, card_line()))
+    return m
+
+
+def train_from_disk(root, memory_ms):
+    """Phase 13: stage-2 training of the flagship from the JPEG frames of
+    phase 12's split in ``root``, through ``tools.train_net.main`` with the
+    released YAML, ``TPU.REMAT`` at its 'stage', B = 16: the two bank
+    sweeps (phase 12's baseline pickle), 24 steps from a K400-style R101
+    pickle (``CONVERT_MODEL``, ``RESET_START_ITER``) with a warm-up and two
+    LR steps, checkpoints at 12 and 24, the train-time eval at 24; then the
+    same command with ``SOLVER.MAX_ITER 26`` resumes at 24 (the banks read
+    back from their pickles), takes a third LR step, checkpoints at 26 and
+    tests the last checkpoint.  ``memory_ms`` is phase 11's ms per step at
+    B = 16 under 'stage', logged beside the steps from disk.  Returns the
+    launch counts."""
+    import torch
+    from unittest import mock
+    from lfb_tpu_torch.core.config import load_config
+    from lfb_tpu_torch.data import loader as data_loader
+    from lfb_tpu_torch.tools import train_net
+    from lfb_tpu_torch.train import checkpoints
+    dev = torch.device('cuda')
+    out = os.path.join(root, 'train_out')
+    t0 = time.perf_counter()
+    k400 = os.path.join(root, 'r101_k400_pretrained.pkl')
+    n_blobs = k400_pickle(k400, dev)
+    period, steps, resume_to = 12, 24, 26
+    opts = ['DATADIR', os.path.join(root, 'frames'),
+            'AVA.FRAME_LIST_DIR', os.path.join(root, 'frame_lists'),
+            'AVA.ANNOTATION_DIR', os.path.join(root, 'annotations'),
+            'NUM_GPUS', '1', 'TPU.DEVICE_BANK', 'True',
+            'TRAIN.BATCH_SIZE', '16', 'TRAIN.CROP_SIZE', '224',
+            'TRAIN.DROPOUT_RATE', '0.3', 'TRAIN.PARAMS_FILE', k400,
+            'LFB.MODEL_PARAMS_FILE', os.path.join(root, 'lfb.pkl'),
+            'SOLVER.MAX_ITER', str(steps),
+            'CHECKPOINT.CHECKPOINT_PERIOD', str(period),
+            'TRAIN.EVAL_PERIOD', str(steps), 'LOG_PERIOD', '2',
+            'SOLVER.STEP_SIZES', '[14, 6, 5]',
+            'SOLVER.WARMUP.WARMUP_END_ITER', '3',
+            'TRAIN.TEST_AFTER_TRAIN', 'False', 'CHECKPOINT.DIR', out]
+    cfg = load_config(AVA_YAML, opts)
+    log('phase 13: {} ({} blobs) written in {:.1f} s; TPU.REMAT {!r}, '
+        'TRAIN.BATCH_SIZE {}, crop {}, dropout {}, CONVERT_MODEL {}, '
+        'RESET_START_ITER {}'.format(
+            os.path.basename(k400), n_blobs, time.perf_counter() - t0,
+            cfg.TPU.REMAT, cfg.TRAIN.BATCH_SIZE, cfg.TRAIN.CROP_SIZE,
+            cfg.TRAIN.DROPOUT_RATE, cfg.CHECKPOINT.CONVERT_MODEL,
+            cfg.TRAIN.RESET_START_ITER))
+    if cfg.TPU.REMAT != 'stage':
+        raise AssertionError('phase 13: TPU.REMAT {!r}'.format(cfg.TPU.REMAT))
+
+    recording = recording_trainer()
+    runs = {}
+    for name, extra in (('train', []),
+                        ('resumed', ['SOLVER.MAX_ITER', str(resume_to),
+                                     'TRAIN.TEST_AFTER_TRAIN', 'True',
+                                     'LFB.LOAD_LFB', 'True',
+                                     'LFB.LOAD_LFB_PATH', out])):
+        torch.cuda.reset_peak_memory_stats()
+        data_loader.SWEEPS.clear()
+        recording.made.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(train_net, 'Trainer', recording):
+            result = train_net.main(['--config_file', AVA_YAML] + opts
+                                    + extra)
+        seconds = time.perf_counter() - t0
+        (trainer,) = recording.made
+        runs[name] = (trainer, result, read_launches(),
+                      list(data_loader.SWEEPS), seconds,
+                      torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    trainer, (last, _), launches, feeds, seconds, peak = runs['train']
+    if trainer.start[0] != 0 or trainer.device.type != 'cuda':
+        raise AssertionError('phase 13: start_iter {}, device {}'.format(
+            trainer.start[0], trainer.device))
+    check_train_run('phase 13, iterations 0-{}'.format(steps - 1), trainer,
+                    cfg.SOLVER, 0, steps, trainer.start[1])
+    bank_rows = check_bank_pickles(out)
+    labels = [f['label'] for f in feeds]
+    eval_label = 'eval sweep (iter{})'.format(steps)
+    if labels != ['LFB sweep (val)', 'LFB sweep (train)', eval_label,
+                  'train sweep']:
+        raise AssertionError('phase 13: sweeps {}'.format(labels))
+    by = dict(zip(labels, feeds))
+    want = {k: (by['LFB sweep (val)']['batches']
+                + by['LFB sweep (train)']['batches']) * PER_FORWARD['A'][k]
+            + by[eval_label]['batches'] * PER_FORWARD['B'][k]
+            + steps * PER_FORWARD['train stage'][k] for k in PER_FORWARD['A']}
+    if launches != want:
+        raise AssertionError('phase 13: launches {} != {}'.format(launches,
+                                                                  want))
+    eval_map = trainer.evals['iter{}'.format(steps)]['full_map']
+    if not (np.isfinite(eval_map) and 0 <= eval_map <= 1
+            and os.path.isfile(os.path.join(
+                out, 'detections_iter{}.csv'.format(steps)))):
+        raise AssertionError('phase 13: train-time eval {}'.format(
+            trainer.evals))
+    if last != os.path.join(os.path.abspath(out), 'checkpoints',
+                            'c2_model_iter{}.pkl'.format(steps)):
+        raise AssertionError('phase 13: last checkpoint {}'.format(last))
+    for feed in feeds[:2]:
+        log_feed(feed, phase=13)
+    # The train sweep's steps without a checkpoint or the eval inside: all
+    # those between the first step (which waits for the first batch) and
+    # the checkpoint at 12, those among them after the first prefetch
+    # window (the batches the loader began once training ran), and those
+    # after the checkpoint.  The loader builds its window's batches side by
+    # side, so they arrive in waves: a window of a few steps can fall inside
+    # one wave and miss the wait before the next.
+    window = cfg.DATALOADER.PREFETCH_BATCHES
+    (feed,) = [f for f in trainer.feeds if f.label == 'train sweep']
+    rows = feed.rows
+    log('phase 13 from disk, the {} train steps: the train sweep {:.2f} s '
+        '(checkpoints at {} and {} and the eval at {} included); per step, '
+        'wall ms {}, waiting for the batch ms {}, the card ms {}'.format(
+            steps, by['train sweep']['sweep_s'], period, steps, steps,
+            ['{:.0f}'.format(r['wall_ms']) for r in rows],
+            ['{:.0f}'.format(r['wait_ms']) for r in rows],
+            ['{:.0f}'.format(r['card_ms']) for r in rows]))
+    steady_window('after the first step', rows, list(range(1, period - 1)),
+                  memory_ms)
+    steady_window('after the first prefetch window', rows,
+                  list(range(window, period - 1)), memory_ms)
+    steady_window('after the checkpoint at {}'.format(period), rows,
+                  list(range(period, steps - 1)), memory_ms)
+    log('phase 13 train_net.main: {:.1f} s: the val bank sweep {:.2f} s, the '
+        'train bank sweep {:.2f} s ({} / {} bank rows), {} steps {:.2f} s, the '
+        'eval {:.2f} s ({} batches, frame-mAP {:.4f}); launches {}; peak '
+        'device memory {:.2f} GiB'.format(
+            seconds, by['LFB sweep (val)']['sweep_s'],
+            by['LFB sweep (train)']['sweep_s'], bank_rows['val'],
+            bank_rows['train'], steps, by['train sweep']['sweep_s'],
+            by[eval_label]['sweep_s'], by[eval_label]['batches'], eval_map,
+            launches, peak))
+    first_launches = launches
+
+    trainer, (last, test_metrics), launches, feeds, seconds, peak = \
+        runs['resumed']
+    saved = checkpoints.read_pkl(os.path.join(
+        out, 'checkpoints', 'c2_model_iter{}.pkl'.format(steps)))['blobs']
+    start_iter, start_lr, params, momentum = trainer.start
+    if not (start_iter == steps and start_lr == float(saved['lr'])
+            and sorted(momentum) == sorted(trainer.trainable)
+            and all(np.array_equal(v.numpy(), saved[k])
+                    for k, v in params.items())
+            and all(np.array_equal(v.numpy(), saved[k + '_momentum'])
+                    for k, v in momentum.items())):
+        raise AssertionError('phase 13 resumed: start_iter {}, LR {}, or '
+                             'params and momentum not those of the '
+                             'checkpoint'.format(start_iter, start_lr))
+    check_train_run('phase 13 resumed, iterations {}-{}'.format(
+        steps, resume_to - 1), trainer, cfg.SOLVER, steps, resume_to,
+        start_lr)
+    names = sorted(f for f in os.listdir(os.path.join(out, 'checkpoints')))
+    want_names = sorted('c2_model_iter{}.pkl'.format(i)
+                        for i in (period, steps, resume_to))
+    if names != want_names or last != os.path.join(
+            os.path.abspath(out), 'checkpoints',
+            'c2_model_iter{}.pkl'.format(resume_to)):
+        raise AssertionError('phase 13: checkpoints {}, last {}'.format(
+            names, last))
+    test_map = test_metrics['full_map']
+    csvs = [f for f in os.listdir(out) if f.startswith('detections_final_')]
+    if not (np.isfinite(test_map) and 0 <= test_map <= 1 and len(csvs) == 1):
+        raise AssertionError('phase 13: test {}, {}'.format(test_metrics,
+                                                            csvs))
+    labels = [f['label'] for f in feeds]
+    if labels != ['train sweep', 'test sweep (shift 1)']:
+        raise AssertionError('phase 13 resumed: sweeps {}'.format(labels))
+    by = dict(zip(labels, feeds))
+    want = {k: by['test sweep (shift 1)']['batches'] * PER_FORWARD['B'][k]
+            + (resume_to - steps) * PER_FORWARD['train stage'][k]
+            for k in PER_FORWARD['A']}
+    if launches != want:
+        raise AssertionError('phase 13 resumed: launches {} != {}'.format(
+            launches, want))
+    log('phase 13 resumed at {} from c2_model_iter{}.pkl (params and momentum '
+        'bitwise): train_net.main {:.1f} s: {} steps {:.2f} s (a checkpoint '
+        'at {} included), the test of {} {:.2f} s ({} batches, frame-mAP '
+        '{:.4f}, {}); checkpoints {}; launches {}; peak device memory {:.2f} '
+        'GiB'.format(
+            steps, steps, seconds, resume_to - steps,
+            by['train sweep']['sweep_s'], resume_to, os.path.basename(last),
+            by['test sweep (shift 1)']['sweep_s'],
+            by['test sweep (shift 1)']['batches'], test_map, csvs[0], names,
+            launches, peak))
+    return {k: first_launches[k] + launches[k] for k in launches}
 
 
 def trace_window(label, run, count, out, stem):
@@ -2148,7 +2773,8 @@ def main():
     results = check_kernels()
     reference_check(cfg)
     launches, bank = main_path(cfg)
-    path_launches = [launches, charades_path()]
+    charades_launches, charades_bank = charades_path()
+    path_launches = [launches, charades_launches]
     videos = epic_videos(np.random.default_rng(SEED + 10))
     verb_launches, verb_state = epic_verb_path(videos)
     path_launches += [verb_launches, epic_noun_path(videos)]
@@ -2156,9 +2782,14 @@ def main():
     del verb_state
     results.update(check_backward_kernels())
     train_reference_check(cfg)
-    path_launches.append(train_phase(cfg, bank))
-    del bank
-    path_launches.append(disk_path(results['roi_align_maxpool']))
+    train_launches, stage_ms = train_phase(cfg, bank, charades_bank)
+    path_launches.append(train_launches)
+    del bank, charades_bank
+    import tempfile
+    os.makedirs('build', exist_ok=True)
+    with tempfile.TemporaryDirectory(dir='build') as root:
+        path_launches.append(disk_path(root, results['roi_align_maxpool']))
+        path_launches.append(train_from_disk(root, stage_ms))
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]

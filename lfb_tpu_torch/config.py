@@ -20,9 +20,10 @@
 
 The flagship and Charades configs are built from dicts, the two EPIC ones
 from their YAML files; ``tests/test_torch_config.py`` holds the first two
-to their YAML files too.  ``TPU.REMAT`` is off: rematerialization is not
-ported, and the flagship step at B = 8 fits one card without it (as
-``bench.py`` runs it).  ``TPU.PALLAS_BOTTLENECK`` stays at its default
+to their YAML files too.  ``TPU.REMAT`` is off in these helpers (the
+YAMLs' 'stage' recomputes each res-stage in the backward): the flagship step
+at B = 8 fits one card without it (as ``bench.py`` runs it), and
+``tools.train_net``, which reads the YAML, takes 'stage'.  ``TPU.PALLAS_BOTTLENECK`` stays at its default
 (off); callers set it.
 """
 

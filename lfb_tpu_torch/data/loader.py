@@ -169,32 +169,39 @@ class DeviceFeed:
     """A sweep's batches as (numpy batch, the same batch on ``device``)
     pairs, timed.
 
-    Per batch it records the loader's build on its thread (decode and
-    transforms), the seconds the sweep waited for the batch, those of
-    :func:`to_device`, and the wall time from the end of one batch's work to
-    the end of the next's.  On a CUDA device it also records a CUDA event
-    after the batch's copies are enqueued and one when the consumer asks for
-    the next batch: the card's time between them is its time for the step
-    (launch gaps included).  At the end of the sweep, ``summary`` holds the
-    means over the batches after the first, the whole sweep's seconds and
-    clips/s, first batch included, and under ``steady`` the means over the
-    batches after the first prefetch window (None when the sweep is no
-    longer than the window): those the loader began only once the sweep had
-    taken a batch, so their wait is the loader's rate against the card's.
-    It is logged and appended to :data:`SWEEPS`."""
+    ``num_batches`` and ``start_batch`` pick the batches as
+    :meth:`DataLoader.batches` does.  A batch's :func:`to_device` is
+    enqueued while the card runs the step before it.  Per batch it records
+    the loader's build on its thread (decode and transforms), the seconds
+    the sweep waited for the batch, those of :func:`to_device`, and the
+    wall time from the end of one batch's work to the end of the next's.
+    On a CUDA device it also records a CUDA event after the batch's copies
+    are enqueued and one when the consumer asks for the next batch: the
+    card's time between them is its time for the step (launch gaps
+    included).  The rows are kept in ``rows``.  At the end of the sweep,
+    ``summary`` holds the means over the batches after the first, the whole
+    sweep's seconds and clips/s, first batch included, and under ``steady``
+    the means over the batches after the first prefetch window (None when
+    the sweep is no longer than the window): those the loader began only
+    once the sweep had taken a batch, so their wait is the loader's rate
+    against the card's.  It is logged and appended to :data:`SWEEPS`."""
 
-    def __init__(self, loader: DataLoader, device, label: str):
+    def __init__(self, loader: DataLoader, device, label: str, *,
+                 num_batches: Optional[int] = None, start_batch: int = 0):
         self.loader = loader
         self.device = torch.device(device)
         self.label = label
+        self.num_batches = num_batches
+        self.start_batch = start_batch
+        self.rows: List[dict] = []
         self.summary: Optional[dict] = None
 
     def __iter__(self) -> Iterator[Tuple[Dict[str, np.ndarray],
                                          Dict[str, torch.Tensor]]]:
         cuda = self.device.type == 'cuda'
-        rows, events = [], []
+        self.rows, events = [], []
         t_start = t_prev = time.perf_counter()
-        for batch in self.loader.batches():
+        for batch in self.loader.batches(self.num_batches, self.start_batch):
             t0 = time.perf_counter()
             dev = to_device(batch, self.device)
             to_device_s = time.perf_counter() - t0
@@ -207,16 +214,16 @@ class DeviceFeed:
                 end.record()
                 events.append((start, end))
             t_end = time.perf_counter()
-            rows.append({'build_ms': 1e3 * self.loader.build_s[-1],
-                         'wait_ms': 1e3 * self.loader.wait_s[-1],
-                         'to_device_ms': 1e3 * to_device_s,
-                         'wall_ms': 1e3 * (t_end - t_prev)})
+            self.rows.append({'build_ms': 1e3 * self.loader.build_s[-1],
+                              'wait_ms': 1e3 * self.loader.wait_s[-1],
+                              'to_device_ms': 1e3 * to_device_s,
+                              'wall_ms': 1e3 * (t_end - t_prev)})
             t_prev = t_end
         if cuda:
             torch.cuda.synchronize(self.device)
-            for row, (start, end) in zip(rows, events):
+            for row, (start, end) in zip(self.rows, events):
                 row['card_ms'] = start.elapsed_time(end)
-        self.summary = self._summarize(rows, t_prev - t_start)
+        self.summary = self._summarize(self.rows, t_prev - t_start)
         logger.info('%s: %s', self.label, ', '.join(
             '{} {}'.format(k, v) for k, v in self.summary.items()))
         SWEEPS.append(dict(self.summary, label=self.label))

@@ -1,2 +1,2 @@
-"""Evaluation: metrics, the AVA frame-mAP and multi-crop merging (port of
-``lfb_tpu/eval/``)."""
+"""Evaluation: metrics, the AVA frame-mAP, multi-crop merging and EPIC's
+action scores (port of ``lfb_tpu/eval/``)."""

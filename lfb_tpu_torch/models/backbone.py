@@ -14,6 +14,17 @@ parameter mapping ``p`` and reads its blobs by name.  Activations are NDHWC.
 refuses to train (``layers.apply_norm``).  With ``use_pallas_bottleneck``,
 inference runs each identity block as one fused kernel
 (``ops/cuda_bottleneck.py``).
+
+Rematerialization (``spec.remat``, ``lfb_tpu/models/backbone.py:143-192``):
+in training, 'stage' runs each res-stage, 'res2' res2 alone and 'block'
+each bottleneck block (not the non-local block after it) under
+``torch.utils.checkpoint``, which keeps only the region's input and runs
+the region again in the backward.  The stem and pool1 stay outside.  The
+checkpoint is the non-reentrant one: the regions read their parameters
+from ``p``, not from their inputs, and only that form carries gradients to
+such tensors.  Nothing in the backbone draws random numbers (the bank
+windows and the dropout masks are drawn outside it), so the recompute needs
+no RNG state.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ from typing import Mapping
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from lfb_tpu_torch.models.layers import (Params, apply_norm, init_conv,
                                          init_norm)
@@ -241,9 +253,31 @@ class Backbone(nn.Module):
         h = apply_norm(p, 'res_conv1_bn', h, use_affine=spec.use_affine,
                        epsilon=spec.bn_epsilon, train=train)
         h = max_pool_3d(F.relu(h), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        # lfb_tpu also turns remat off in true-BN training, which the port
+        # refuses (``layers.apply_norm``).
+        remat = spec.remat if train else ''
         for stage_i, stage in enumerate(self.stages):
             if stage_i == 1:
                 h = max_pool_3d(h, (2, 1, 1), (2, 1, 1))   # pool2: T/2
-            for layer in stage:
-                h = layer(p, h, train)
+            if remat == 'stage' or (remat == 'res2' and stage_i == 0):
+                h = _recomputed(self._stage, p, stage, h, train, False)
+            else:
+                h = self._stage(p, stage, h, train, remat == 'block')
         return h.detach() if spec.freeze_backbone else h
+
+    @staticmethod
+    def _stage(p: P, stage: nn.ModuleList, h: torch.Tensor, train: bool,
+               remat_block: bool) -> torch.Tensor:
+        for layer in stage:
+            if remat_block and isinstance(layer, Bottleneck):
+                h = _recomputed(layer, p, h, train)
+            else:
+                h = layer(p, h, train)
+        return h
+
+
+def _recomputed(fn, *args):
+    """``fn(*args)``, run again in the backward instead of keeping what its
+    backward needs."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)

@@ -6,14 +6,15 @@ architecture tables follow reference ``lib/models/resnet_video.py:33-130``:
 ``use_temp_convs`` entries give the temporal kernel radius of each block's
 first 1x1 conv (0 -> kT=1, 1 -> kT=3, 2 -> kT=5).
 
-The TPU-only fields (the Pallas switches, shard_map axis, remat) are gone:
-on the port a CUDA tensor always goes through the hand-written kernels and a
-CPU tensor through their plain PyTorch versions.  One switch stays,
+The TPU-only fields (the Pallas switches, shard_map axis) are gone: on the
+port a CUDA tensor always goes through the hand-written kernels and a CPU
+tensor through their plain PyTorch versions.  One switch stays,
 ``use_pallas_bottleneck`` (``TPU.PALLAS_BOTTLENECK``): it picks the fused
 identity bottleneck, a different program for the same block rather than a
-kernel of an op that always runs.  :func:`build_spec` raises
-``NotImplementedError``, naming the key, for what the port does not run
-yet.
+kernel of an op that always runs.  ``remat`` (``TPU.REMAT``) picks what a
+training forward recomputes in the backward (``torch.utils.checkpoint``).
+:func:`build_spec` raises ``NotImplementedError``, naming the key, for what
+the port does not run yet.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ BLOCK_COUNTS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
 # Feature dims of res2..res5 outputs (bottleneck x4 expansion).
 STAGE_DIMS = (256, 512, 1024, 2048)
+
+# TPU.REMAT's values (``lfb_tpu/core/config.py``).
+REMAT_MODES = ('', 'stage', 'res2', 'block')
 
 
 def arc_tables(arc_choice: int, depth: int):
@@ -123,6 +127,9 @@ class ModelSpec:
     # Inference runs each identity block as one fused kernel
     # (``ops/cuda_bottleneck.py``); training keeps the unfused path.
     use_pallas_bottleneck: bool = False
+    # Rematerialization in training: '' (none), 'stage' (each res-stage),
+    # 'res2' (res2 only) or 'block' (each bottleneck block).
+    remat: str = 'stage'
     # Per-channel normalization constants in the MODEL's channel order
     # (RGB unless USE_BGR), applied on device when 'data' arrives uint8.
     data_mean: Tuple[float, ...] = (0.45, 0.45, 0.45)
@@ -176,10 +183,9 @@ def build_spec(cfg, split: str, lfb_infer_only: bool = False) -> ModelSpec:
             raise NotImplementedError(
                 'NONLOCAL.USE_BN True with NONLOCAL.USE_AFFINE False: training '
                 'non-local blocks with true BN is not ported to lfb_tpu_torch')
-        if cfg.TPU.REMAT:
-            raise NotImplementedError(
-                "TPU.REMAT {!r}: rematerialization is not ported to "
-                "lfb_tpu_torch (set it to '')".format(cfg.TPU.REMAT))
+    if cfg.TPU.REMAT not in REMAT_MODES:
+        raise ValueError('TPU.REMAT {!r}: not one of {}'.format(
+            cfg.TPU.REMAT, REMAT_MODES))
     video_length = (cfg.TRAIN.VIDEO_LENGTH if split == 'train'
                     else cfg.TEST.VIDEO_LENGTH)
 
@@ -247,6 +253,7 @@ def build_spec(cfg, split: str, lfb_infer_only: bool = False) -> ModelSpec:
         roi_spatial_scale=1.0 / cfg.ROI.SCALE_FACTOR,
         compute_dtype=cfg.TPU.COMPUTE_DTYPE,
         use_pallas_bottleneck=bool(cfg.TPU.PALLAS_BOTTLENECK),
+        remat=cfg.TPU.REMAT,
         # cfg.DATA_MEAN/STD are BGR-ordered (reference convention); flip to
         # the model's channel order when the loader emits RGB.
         data_mean=tuple(cfg.DATA_MEAN if cfg.MODEL.USE_BGR

@@ -226,20 +226,18 @@ def assert_same_spec(spec, jspec):
 @pytest.mark.parametrize('phase', sorted(PHASES))
 @pytest.mark.parametrize('name', CONFIGS)
 def test_build_spec_matches_lfb_tpu(name, phase):
-    """Every field of the port's spec; training with ``TPU.REMAT ''``
-    (the YAMLs keep lfb_tpu's default 'stage', which the port refuses)."""
+    """Every field of the port's spec, ``remat`` included (the YAMLs keep
+    lfb_tpu's default 'stage')."""
     split, kwargs = PHASES[phase]
-    opts = ['TPU.REMAT', "''"] if phase == 'train' else []
-    cfg = port_config.load_config(config_path(name), opts)
-    jcfg = jax_config.load_config(config_path(name), opts)
-    assert_same_spec(build_spec(cfg, split, **kwargs),
-                     jax_models.build_spec(jcfg, split, **kwargs))
-    if phase == 'train':
-        with pytest.raises(NotImplementedError, match='TPU.REMAT'):
-            build_spec(port_config.load_config(config_path(name)), 'train')
+    cfg = port_config.load_config(config_path(name))
+    jcfg = jax_config.load_config(config_path(name))
+    spec = build_spec(cfg, split, **kwargs)
+    assert_same_spec(spec, jax_models.build_spec(jcfg, split, **kwargs))
+    assert spec.remat == 'stage'
 
 
-# Every key the port reads (models/spec.py, train/, bank/) but TPU.REMAT.
+# Every key the port reads (models/spec.py, train/, bank/) but TPU.REMAT,
+# which the port's config helpers turn off (config.PORT_SETTINGS).
 PORT_READS = {
     'DATASET': (), 'DATA_MEAN': (), 'DATA_STD': (),
     'TRAIN': ('VIDEO_LENGTH', 'CROP_SIZE', 'DROPOUT_RATE'),
@@ -290,7 +288,8 @@ def test_port_configs_are_their_yamls(name):
             b = released[section] if key is None else released[section][key]
             assert a == b and type(a) is type(b), (section, key)
     assert mine.TPU.REMAT == '' and released.TPU.REMAT == 'stage'
-    assert_same_spec(build_spec(mine, 'test'), build_spec(released, 'test'))
+    assert_same_spec(build_spec(mine, 'test'), dataclasses.replace(
+        build_spec(released, 'test'), remat=''))
     if name.startswith('epic'):
         # Nothing but the port's settings and the caller's overrides.
         assert flat(mine) == {**flat(released), 'TPU.REMAT': ''}

@@ -15,7 +15,10 @@
 * ``python -m lfb_tpu_torch.tools.test_net``'s ``main`` with ``--device
   cpu`` on a tiny AVA split on disk (bank sweep, test sweep, detections
   CSV, frame-mAP) loads ``cv2`` and none of ``jax``, ``yaml``, ``sklearn``
-  or ``lfb_tpu``.
+  or ``lfb_tpu``; so does ``tools.train_net``'s (bank sweeps, a train step
+  under ``TPU.REMAT 'stage'``, a checkpoint).
+* ``python -m lfb_tpu_torch.tools.train_net --help`` and
+  ``...tools.evaluate_actions --help`` load none of them, ``cv2`` included.
 """
 
 import json
@@ -127,17 +130,55 @@ def test_port_imports_no_jax_cv2_or_yaml():
     assert result['loaded'] == []
 
 
+HELP_SCRIPT = r'''
+import json, runpy, sys
+sys.argv = [sys.argv[1], '--help']
+try:
+    runpy.run_module(sys.argv[0], run_name='__main__')
+except SystemExit as e:
+    assert e.code == 0, e.code
+print(json.dumps(sorted(m for m in sys.modules
+                        if m in %r or m.startswith('lfb_tpu.'))))
+'''
+
+
+@pytest.mark.parametrize('tool', ['train_net', 'evaluate_actions'])
+def test_cli_help_loads_nothing_forbidden(tool):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, '-c', HELP_SCRIPT % (FORBIDDEN,),
+         'lfb_tpu_torch.tools.' + tool],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'usage:' in proc.stdout and '--config_file' in proc.stdout or \
+        '--verb_file' in proc.stdout
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 CLI_SCRIPT = r'''
 import json, sys
-from lfb_tpu_torch.tools import test_net
-metrics = test_net.main(sys.argv[1:])
-print(json.dumps({'full_map': metrics['full_map'],
-                  'loaded': sorted(m for m in sys.modules
-                                   if m in %r or m.startswith('lfb_tpu.'))}))
+from lfb_tpu_torch.tools import test_net, train_net
+if sys.argv[1] == 'train_net':
+    checkpoint, metrics = train_net.main(sys.argv[2:])
+    result = {'checkpoint': checkpoint, 'metrics': metrics}
+else:
+    result = {'full_map': test_net.main(sys.argv[2:])['full_map']}
+result['loaded'] = sorted(m for m in sys.modules
+                          if m in %r or m.startswith('lfb_tpu.'))
+print(json.dumps(result))
 '''
 
 
 def test_test_net_cli_loads_cv2_and_nothing_forbidden(tmp_path):
+    run_cli(tmp_path, 'test_net')
+
+
+def test_train_net_cli_loads_cv2_and_nothing_forbidden(tmp_path):
+    run_cli(tmp_path, 'train_net')
+
+
+def run_cli(tmp_path, tool):
+    """``tool``'s ``main`` in a fresh interpreter on a tiny AVA split."""
     pytest.importorskip('cv2')
     import torch
     from lfb_tpu_torch.core.config import load_config
@@ -165,14 +206,26 @@ def test_test_net_cli_loads_cv2_and_nothing_forbidden(tmp_path):
             build_spec(cfg, 'val', lfb_infer_only=infer),
             torch.Generator().manual_seed(0)), model_iter=0, lr=0.0)
         opts += [key, path]
+    if tool == 'train_net':
+        opts += ['TPU.REMAT', 'stage', 'TRAIN.BATCH_SIZE', '2',
+                 'TRAIN.PARAMS_FILE', '', 'SOLVER.MAX_ITER', '1',
+                 'TRAIN.TEST_AFTER_TRAIN', 'False',
+                 'AVA.FULL_EVAL_DURING_TRAINING', 'True']
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
-        [sys.executable, '-c', CLI_SCRIPT % (FORBIDDEN,), '--config_file',
-         yaml, '--device', 'cpu'] + opts,
+        [sys.executable, '-c', CLI_SCRIPT % (FORBIDDEN,), tool,
+         '--config_file', yaml, '--device', 'cpu'] + opts,
         cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result['loaded'] == ['cv2']
-    assert 0.0 <= result['full_map'] <= 1.0
-    assert (tmp_path / 'out' / 'detections_final_36_shift1_0.850.csv').is_file()
     assert (tmp_path / 'out' / 'val_lfb.pkl').is_file()
+    if tool == 'test_net':
+        assert 0.0 <= result['full_map'] <= 1.0
+        assert (tmp_path / 'out'
+                / 'detections_final_36_shift1_0.850.csv').is_file()
+    else:
+        assert (tmp_path / 'out' / 'train_lfb.pkl').is_file()
+        assert result['metrics'] is None
+        assert result['checkpoint'].endswith(os.path.join(
+            'out', 'checkpoints', 'c2_model_iter1.pkl'))

@@ -23,6 +23,7 @@ import dataclasses
 import os
 import re
 import tempfile
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -51,6 +52,7 @@ from lfb_tpu_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from lfb_tpu_torch.models import model as port_model  # noqa: E402
 from lfb_tpu_torch.models.spec import build_spec  # noqa: E402
 from lfb_tpu_torch.ops import cuda_bottleneck  # noqa: E402
+from lfb_tpu_torch.tools import train_net  # noqa: E402
 from lfb_tpu_torch.train import checkpoints  # noqa: E402
 from lfb_tpu_torch.train.steps import make_eval_step  # noqa: E402
 
@@ -138,7 +140,7 @@ def test_spec_matches_lfb_tpu():
 
 
 # Keys whose refusal is for training only: inference still builds.
-TRAIN_ONLY = ('MODEL.USE_AFFINE', 'NONLOCAL.USE_BN', 'TPU.REMAT')
+TRAIN_ONLY = ('MODEL.USE_AFFINE', 'NONLOCAL.USE_BN')
 
 
 @pytest.mark.parametrize('split', ['test', 'train'])
@@ -160,7 +162,6 @@ def test_build_spec_takes_the_fused_bottleneck(split):
      'TPU.DEVICE_BANK': True},
     {'MODEL.USE_AFFINE': False},                       # true-BN training
     {'NONLOCAL.USE_BN': True, 'NONLOCAL.USE_AFFINE': False},
-    {'TPU.REMAT': 'stage'},
 ])
 def test_build_spec_refuses_what_is_not_ported(overrides):
     cfg = flagship_cfg({**TINY, **overrides})
@@ -173,6 +174,18 @@ def test_build_spec_refuses_what_is_not_ported(overrides):
     with pytest.raises(NotImplementedError, match=re.escape(key)):
         build_spec(cfg, 'train')
     build_spec(flagship_cfg(TINY), 'train')
+
+
+@pytest.mark.parametrize('remat', ['', 'stage', 'res2', 'block'])
+def test_build_spec_takes_remat(remat):
+    """``TPU.REMAT`` is ported (``torch.utils.checkpoint``): every mode
+    builds for both splits, as lfb_tpu's; another value raises."""
+    for split in ('test', 'train'):
+        cfg = flagship_cfg({**TINY, 'TPU.REMAT': remat})
+        assert build_spec(cfg, split).remat == remat
+        assert jax_models.build_spec(cfg, split).remat == remat
+    with pytest.raises(ValueError, match='TPU.REMAT'):
+        build_spec(flagship_cfg({**TINY, 'TPU.REMAT': remat + 'x'}), 'train')
 
 
 @pytest.mark.parametrize('lfb_infer_only', [False, True])
@@ -298,7 +311,7 @@ def test_charades_cfg_is_the_released_config():
     for dotted in list(CHARADES_OVERRIDES) + [
             'CHARADES.FPS', 'TPU.BANK_MAX_PER_VIDEO', 'TPU.BANK_DTYPE',
             'TPU.PALLAS_BOTTLENECK']:
-        if dotted == 'TPU.REMAT':          # rematerialization is not ported
+        if dotted == 'TPU.REMAT':          # config.PORT_SETTINGS turns it off
             continue
         section, key = dotted.split('.') if '.' in dotted else (None, dotted)
         theirs = released[section][key] if section else released[key]
@@ -368,6 +381,7 @@ DEFAULT_DEVICE_CALLS = {
     'params_from_jax': lambda: params_from_jax(
         {'pred_b': np.zeros(3, np.float32)})['pred_b'],
     'load_params_into': lambda: load_into_default_device(),
+    'train_net.train': lambda: train_on_default_device(),
 }
 
 
@@ -378,6 +392,31 @@ def load_into_default_device():
                                 lr=0.1)
         return checkpoints.load_params_into(
             path, {'pred_b': torch.zeros(3)})[0]['pred_b']
+
+
+def train_on_default_device():
+    """One train step of a tiny model on a tiny AVA split on disk."""
+    from tests import synthetic
+    with tempfile.TemporaryDirectory() as d:
+        ov = synthetic.build_ava(d)
+        cfg = flagship_cfg({
+            **TINY, 'MODEL.DEPTH': 50, 'MODEL.VIDEO_ARC_CHOICE': 2,
+            'LFB.ENABLED': False, 'DATADIR': ov['DATADIR'],
+            'AVA.FRAME_LIST_DIR': ov['AVA']['FRAME_LIST_DIR'],
+            'AVA.ANNOTATION_DIR': ov['AVA']['ANNOTATION_DIR'],
+            'CHECKPOINT.DIR': d, 'SOLVER.MAX_ITER': 1,
+            'TRAIN.BATCH_SIZE': 2, 'TRAIN.TEST_AFTER_TRAIN': False,
+            'TPU.MAX_BOXES_PER_CLIP': 4})
+        made = []
+
+        class Kept(train_net.Trainer):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+
+        with mock.patch.object(train_net, 'Trainer', Kept):
+            train_net.train(cfg)
+        return made[0].trainable['pred_w']
 
 
 @pytest.mark.parametrize('entry', sorted(DEFAULT_DEVICE_CALLS))

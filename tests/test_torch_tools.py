@@ -95,10 +95,10 @@ def save_weights(yaml, opts, root, seed=0):
     return out
 
 
-def assert_same_rows(port, ref, printed):
+def assert_same_rows(port, ref, printed, tipped_share=0.01):
     """Line for line: every field but the score equal, the score within
-    1e-4; where the score is ``printed`` (``%.04f``), unequal in at most 1%
-    of the lines."""
+    1e-4; where the score is ``printed`` (``%.04f``), unequal in at most
+    ``tipped_share`` of the lines."""
     assert len(port) == len(ref) > 0
     tipped = 0
     for a, b in zip(port, ref):
@@ -108,10 +108,10 @@ def assert_same_rows(port, ref, printed):
             tipped += 1
             assert abs(float(fa[-1]) - float(fb[-1])) <= 1.001e-4, (a, b)
     if printed:
-        assert tipped <= len(port) // 100, tipped
+        assert tipped <= int(len(port) * tipped_share), tipped
 
 
-def assert_same_files(port_dir, ref_dir):
+def assert_same_files(port_dir, ref_dir, tipped_share=0.01):
     """The same CSV files; the detections CSVs print ``%.04f`` scores, the
     multi-crop merges full-precision sums of sigmoids of them."""
     names = sorted(f for f in os.listdir(ref_dir) if f.endswith('.csv'))
@@ -123,7 +123,8 @@ def assert_same_files(port_dir, ref_dir):
         with open(os.path.join(ref_dir, name)) as f:
             ref = f.readlines()
         assert_same_rows(port, ref, printed=name.startswith('detections')
-                         and 'combined' not in name)
+                         and 'combined' not in name,
+                         tipped_share=tipped_share)
     return names
 
 
