@@ -25,7 +25,8 @@ result):
    the same function where there is one (``F.conv3d`` for the stem,
    ``F.scaled_dot_product_attention`` for attention, under the first of its
    backends that takes the shape; beside the fused bottleneck, the same
-   block as the unfused bf16 path runs it), and the kernel's bound: the
+   block as the unfused bf16 path runs it), timed both ways (its device
+   time as the kernel's: ``library_device_ms``), and the kernel's bound: the
    larger of its operations over the card's peak for their type and its
    bytes over the memory rate.  Each kernel's device time is taken apart
    too (:func:`device_ms`: 20 calls back to back, enqueued while the card
@@ -98,7 +99,12 @@ result):
     (``MODEL.FREEZE_BACKBONE``, 'stage') at 16 clips with windows from phase
     5's frame bank: 1 warm-up and 3 timed steps, no stem weight gradient,
     the attention backward only for the 2 FBO layers, momentum only on the
-    head and the backbone unchanged.
+    head and the backbone unchanged.  Then EPIC verb stage 2
+    (``epic_verb_cfg``, R50, ``TPU.REMAT ''``, B = 16, crop 224, dropout
+    0.3) with windows from phase 6's bank: 1 warm-up and 3 timed steps, the
+    launches of each (attention 7 forward and 7 backward, the stem and its
+    weight gradient), a finite loss and momentum on conv1 and the
+    classifier.
 12. The flagship from JPEG frames on disk, through the entry points a user
     runs.  A synthetic AVA split in the reference's file formats goes into a
     temporary directory under ``build/`` (:func:`write_ava_split`: 16 videos
@@ -151,14 +157,31 @@ result):
     per step from disk after the first prefetch window (steps without a
     checkpoint or eval), the host's waiting, the card's busy share, the
     peak memory, beside phase 11's ms per step from memory.
+14. Data parallelism (``lfb_tpu_torch.parallel``) on the one card: (a)
+    phase 11's 'stage' steps at B = 16 again, from the same params, batches
+    and generators, through the data-parallel step in an NCCL group of one
+    rank, with phase 4's bank replicated and then row-sharded
+    (``TPU.BANK_SHARDED``), held to phase 11's within
+    ``REMAT_BF16_BOUNDS``, ms per step beside phase 11's; (b) two ranks
+    spawned on the card in a gloo group (NCCL refuses two ranks on one
+    card; gloo moves the collectives through the host, so its times are no
+    multi-GPU speed): the flagship 'stage' step (dropout off) at the global
+    B = 16, 8 clips a rank, on batches whose halves hold 32 and 16 valid
+    boxes, against one process at B = 16 (``REMAT_BF16_BOUNDS``), each
+    rank's launches per step those of one process; a row-sharded bank's
+    windows bitwise those of the whole table; then ``get_lfb`` over phase
+    12's split at world 2 against phase 12's bank (the same keys, rows
+    within ``DP_BANK_BOUND``).  ``tools.train_net`` on two ranks is
+    left to the CPU tests (``tests/test_torch_parallel_tools.py``): on
+    ``cuda`` the command lines take NCCL, one rank a card.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so the plain
 versions the kernels are compared with compute in full f32.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches on the main path, max_abs_err, ms, device_ms, plain_ms, bound_ms,
-bound_by, library_ms, null where no one PyTorch call computes the same
-function);
+bound_by, library_ms and library_device_ms, null where no one PyTorch
+call computes the same function);
 the last line is ``{"ok": true, "device": {...}}``.
 
 OpenCV is imported only by phase 12 (and by the port's data layer, at
@@ -172,6 +195,7 @@ operator tables to DIR (see :func:`profile`).
 
 import json
 import os
+import queue
 import statistics
 import subprocess
 import sys
@@ -198,6 +222,13 @@ REMAT_B, REMAT_MODES = 16, ('stage', '')
 REMAT_BF16_BOUNDS = (1e-3, 5e-3, 2e-1)
 REMAT_F32_BOUNDS = (1e-6, 3e-5)
 CHARADES_TRAIN_WARMUP, CHARADES_TRAIN_STEPS = 1, 3
+EPIC_TRAIN_WARMUP, EPIC_TRAIN_STEPS = 1, 3
+# Phase 14 (b): two ranks on the one card, 3 steps at the global B = 16.
+DP_WORLD, DP_STEPS = 2, 3
+# Rows of phase 14 (b)'s bank sweep at world 2 against phase 12's at world
+# 1, relative to the largest: bf16 through R101 at another batch (8 clips a
+# rank, not 16), where cuDNN may take other algorithms.
+DP_BANK_BOUND = 2e-3
 AVA_VIDEOS = 235
 CHARADES_VIDEOS = 1814                  # TEST.DATASET_SIZE, the val split
 CHARADES_FRAMES = (15 * 24, 45 * 24)    # video lengths, 30 s on average
@@ -288,7 +319,14 @@ PER_FORWARD = {'A': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 5,
                'Charades train': {'stem_conv': 1, 'stem_conv_dw': 0,
                                   'roi_align_maxpool': 0,
                                   'roi_align_maxpool_bwd': 0, 'attention': 7,
-                                  'attention_bwd': 2, 'fused_bottleneck': 0}}
+                                  'attention_bwd': 2, 'fused_bottleneck': 0},
+               # EPIC verb stage 2 (TPU.REMAT ''): R50's 5 non-local blocks
+               # and the 2 FBO layers, forward and backward.
+               'EPIC verb train': {'stem_conv': 1, 'stem_conv_dw': 1,
+                                   'roi_align_maxpool': 0,
+                                   'roi_align_maxpool_bwd': 0,
+                                   'attention': 7, 'attention_bwd': 7,
+                                   'fused_bottleneck': 0}}
 # R101's identity blocks at crop 256, B = 16: (label, x shape, Ci, kT,
 # dilation, launches per flagship forward, per Charades forward).  res5 is
 # dilated (d 2) in the flagship and not in Charades.
@@ -482,15 +520,18 @@ def compare(label, kernel_fn, plain_fn, bound, iters, library_fn=None,
             ts.append(cuda_ms(fn, 1))
     ms, plain_ms, *lib = [statistics.median(ts) for ts in times]
     dev_ms = device_ms(kernel_fn)
+    lib_dev = device_ms(library_fn) if library_fn else None
     log('{}: max_abs_err {:.3e}, rel {:.3e} (bound {:.0e}); kernel {:.4f} ms '
         '(device {:.4f} ms), plain {:.4f} ms{}'.format(
             label, err, rel, bound, ms, dev_ms, plain_ms,
-            ', {} {:.4f} ms'.format(library_label, lib[0]) if lib else ''))
+            ', {} {:.4f} ms (device {:.4f} ms)'.format(
+                library_label, lib[0], lib_dev) if lib else ''))
     if not rel <= bound:
         raise AssertionError('{}: error {:.3e} of max|ref|, above {:.0e}'.format(
             label, rel, bound))
     return {'err': err, 'ms': ms, 'device_ms': dev_ms, 'plain_ms': plain_ms,
-            'library_ms': lib[0] if lib else None}
+            'library_ms': lib[0] if lib else None,
+            'library_device_ms': lib_dev}
 
 
 # Published H100 SXM peaks, dense (NVIDIA's H100 datasheet): bf16 on
@@ -686,7 +727,7 @@ def check_kernels(iters=TIMING_ITERS):
                ('res4 NL', 16, 4096, 1024, 512, torch.bfloat16, 3),
                ('FBO-NL', 64, 1, 300, 512, torch.float32, 3)]
     total = {'err': 0.0, 'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0,
-             'library_ms': 0.0}
+             'library_ms': 0.0, 'library_device_ms': 0.0}
     parts, backends = [], []
     for label, b, nq, nk, c, dtype, calls in regimes:
         q, k, v = (torch.randn((b, n, c), generator=g, device=dev).to(dtype)
@@ -701,15 +742,17 @@ def check_kernels(iters=TIMING_ITERS):
             1e-2 if dtype == torch.bfloat16 else 1e-5, iters, lib_fwd)
         log('  SDPA backend for {}: {}'.format(label, backend))
         total['err'] = max(total['err'], r['err'])
-        for key in ('ms', 'device_ms', 'plain_ms', 'library_ms'):
+        for key in ('ms', 'device_ms', 'plain_ms', 'library_ms',
+                    'library_device_ms'):
             total[key] += calls * r[key]
         ms, by = least_ms(4 * b * nq * nk * c, 2 * nbytes(q) + nbytes(k, v),
                           str(dtype).split('.')[-1])
         parts.append((calls * ms, by))
     log('attention, the 8 calls of one phase-B forward: kernel {:.3f} ms '
-        '(device {:.3f} ms), plain {:.3f} ms, SDPA {:.3f} ms'.format(
+        '(device {:.3f} ms), plain {:.3f} ms, SDPA {:.3f} ms (device {:.3f} '
+        'ms); {}'.format(
             total['ms'], total['device_ms'], total['plain_ms'],
-            total['library_ms']))
+            total['library_ms'], total['library_device_ms'], card_line()))
     # The clip-level FBO-NL's decode shapes (Nq 1, f32) of the EPIC phases,
     # logged with their bound; the totals above stay the flagship's.
     for label, nk in (('EPIC verb FBO-NL', 40), ('EPIC noun FBO-NL', 120)):
@@ -1685,7 +1728,7 @@ def check_backward_at(n_clips, iters):
                ('res4 NL', n_clips, 3136, 784, 512, torch.bfloat16, 3),
                ('FBO-NL', n, 1, 300, 512, torch.float32, 3)]
     total = {'err': 0.0, 'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0,
-             'library_ms': 0.0}
+             'library_ms': 0.0, 'library_device_ms': 0.0}
     parts, backends = [], []
     for label, b, nq, nk, c, dtype, calls in regimes:
         q, k, v, do = (torch.randn((b, m, c), generator=g, device=dev).to(dtype)
@@ -1713,22 +1756,25 @@ def check_backward_at(n_clips, iters):
             1e-2 if dtype == torch.bfloat16 else 1e-5, iters, lib_fwd_bwd)
         # SDPA's backward alone: its forward + backward less its forward.
         lib_ms = r['library_ms'] - cuda_ms(lib_fwd, max(iters, 1))
-        log('  SDPA backend for {}: {}; its backward {:.4f} ms'.format(
-            label, backend, lib_ms))
+        lib_dev = r['library_device_ms'] - device_ms(lib_fwd)
+        log('  SDPA backend for {}: {}; its backward {:.4f} ms (device '
+            '{:.4f} ms)'.format(label, backend, lib_ms, lib_dev))
         total['err'] = max(total['err'], r['err'])
         total['ms'] += calls * r['ms']
         total['device_ms'] += calls * r['device_ms']
         total['plain_ms'] += calls * r['plain_ms']
         total['library_ms'] += calls * lib_ms
+        total['library_device_ms'] += calls * lib_dev
         ms, by = least_ms(10 * b * nq * nk * c,
                           nbytes(q, k, v, do, lse, delta) + 4 * (
                               q.numel() + k.numel() + v.numel()),
                           str(dtype).split('.')[-1])
         parts.append((calls * ms, by))
-    log('attention_bwd, the 8 calls of one train step at B = {}: kernel {:.3f} ms '
-        '(device {:.3f} ms), plain {:.3f} ms, SDPA backward {:.3f} ms'.format(
+    log('attention_bwd, the 8 calls of one train step at B = {}: kernel '
+        '{:.3f} ms (device {:.3f} ms), plain {:.3f} ms, SDPA backward {:.3f} '
+        'ms (device {:.3f} ms); {}'.format(
             n_clips, total['ms'], total['device_ms'], total['plain_ms'],
-            total['library_ms']))
+            total['library_ms'], total['library_device_ms'], card_line()))
     results['attention_bwd'] = add_bound(dict(
         total, tolerance='1e-5 f32, 1e-2 bf16',
         library='F.scaled_dot_product_attention backward ({})'.format(
@@ -1814,6 +1860,7 @@ def train_steps(label, spec, solver, bank, batches, params, per_step):
     Returns (losses, ms per step, the launches of all steps, the
     optimizer state)."""
     import torch
+    from lfb_tpu_torch.parallel import mesh
     from lfb_tpu_torch.train import optimizer
     from lfb_tpu_torch.train.optimizer import get_lr_at_iter
     from lfb_tpu_torch.train.steps import make_train_step, split_params
@@ -1835,7 +1882,7 @@ def train_steps(label, spec, solver, bank, batches, params, per_step):
             raise AssertionError('{} step {}: launches {} != {}'.format(
                 label, i, got, per_step))
         losses.append(aux['loss'].item())
-        rows = len(batch['labels'])
+        rows = len(batch['labels']) * mesh.world_size()   # prob is gathered
         if not np.isfinite(losses[-1]) or tuple(aux['prob'].shape) != (
                 rows, spec.num_classes):
             raise AssertionError('{} step {}: loss {} prob {}'.format(
@@ -1859,16 +1906,19 @@ def log_steps(label, ms, warmup, clips, losses):
     return steady, peak
 
 
-def train_phase(cfg, bank, charades_bank):
+def train_phase(cfg, bank, charades_bank, verb_bank, verb_lengths):
     """Phase 11: the flagship train step at B = 8 clips x 4 boxes with the
     AVA-scale device bank (``TPU.REMAT ''``); then at B = 16 under
     ``TPU.REMAT`` 'stage' and '' from the same params, batches and
     generators (and one f32 clip under both); then Charades stage 2
     (``MODEL.FREEZE_BACKBONE``) at B = 16 under 'stage' with windows from
-    ``charades_bank``.  Returns the launch counts of the steps and the ms
-    per step at B = 16 under 'stage'."""
+    ``charades_bank``; then EPIC verb stage 2 (``epic_verb_cfg``, R50, B =
+    16, crop 224) with windows from phase 6's ``verb_bank`` (video lengths
+    ``verb_lengths``).  Returns the launch counts of the steps, the ms per
+    step at B = 16 under 'stage', and that run (its batches, and its
+    losses, updated params and momentum) for phase 14."""
     import torch
-    from lfb_tpu_torch.config import charades_cfg, flagship_cfg
+    from lfb_tpu_torch.config import charades_cfg, epic_verb_cfg, flagship_cfg
     from lfb_tpu_torch.models.spec import build_spec
     dev = torch.device('cuda')
     spec = build_spec(cfg, 'train')
@@ -1913,6 +1963,7 @@ def train_phase(cfg, bank, charades_bank):
             losses, {k: params[k] for k in state.momentum}, state.momentum)
         all_launches.append(launches)
         del params, state
+    stage_run = (batches, runs['stage'][2:])
     del batches
     (stage_ms, stage_peak, *stage), (ms0, peak0, *plain) = (
         runs['stage'], runs[''])
@@ -1971,8 +2022,36 @@ def train_phase(cfg, bank, charades_bank):
         REMAT_B, spec_c.crop_size), ms, CHARADES_TRAIN_WARMUP, REMAT_B,
         losses)
     all_launches.append(launches)
+    del batches, params, state
+
+    # EPIC verb stage 2: the whole R50 trains.
+    cfg_v = epic_verb_cfg(CFG_OVERRIDES)
+    spec_v = build_spec(cfg_v, 'train')
+    rng = np.random.default_rng(SEED + 17)
+    batches = []
+    for _ in range(EPIC_TRAIN_WARMUP + EPIC_TRAIN_STEPS):
+        batch = make_clip_batch(spec_v, rng, dev, n_clips=REMAT_B,
+                                lengths=verb_lengths)
+        batch['labels'] = torch.from_numpy(rng.integers(
+            0, spec_v.num_classes, REMAT_B).astype(np.int32)).to(dev)
+        batches.append(batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, launches, state = train_steps(
+        'EPIC verb train', spec_v, cfg_v.SOLVER, verb_bank, batches,
+        perturbed_params(spec_v, dev), PER_FORWARD['EPIC verb train'])
+    if not all(state.momentum[k].any() for k in ('conv1_w', 'pred_w')):
+        raise AssertionError('EPIC verb train: zero momentum')
+    log('EPIC verb train (R50, crop {}, T {}, dropout {}, TPU.REMAT {!r}, '
+        '{} classes): launches per step {}'.format(
+            spec_v.crop_size, spec_v.video_length, spec_v.dropout_rate,
+            cfg_v.TPU.REMAT, spec_v.num_classes,
+            PER_FORWARD['EPIC verb train']))
+    log_steps('EPIC verb train at B = {}'.format(REMAT_B), ms,
+              EPIC_TRAIN_WARMUP, REMAT_B, losses)
+    all_launches.append(launches)
     return ({k: sum(n[k] for n in all_launches) for k in launches},
-            stage_ms)
+            stage_ms, stage_run)
 
 
 def remat_f32_check(cfg, bank):
@@ -2654,6 +2733,261 @@ def train_from_disk(root, memory_ms):
     return {k: first_launches[k] + launches[k] for k in launches}
 
 
+def data_parallel_phase(cfg, bank, stage_run, stage_ms, root):
+    """Phase 14: data parallelism (``lfb_tpu_torch.parallel``) on the one
+    card.  (a) Phase 11's 'stage' steps at B = 16 again, from the same
+    params, batches and generators, through the data-parallel step in an
+    NCCL group of one rank, with phase 4's bank replicated and then
+    row-sharded (``TPU.BANK_SHARDED``): the losses, updated params and
+    momentum against phase 11's within ``REMAT_BF16_BOUNDS``, the launches
+    per step 'stage''s, and the ms per step beside phase 11's (at world 1
+    the collectives are the identity: any gap is their own cost).  (b) Two
+    ranks spawned on the card over gloo (NCCL refuses two ranks on one
+    card): :func:`dp_rank`.  Returns the launch counts of (a)."""
+    import tempfile
+    import torch
+    from lfb_tpu_torch.bank.device_bank import shard_bank
+    from lfb_tpu_torch.config import flagship_cfg
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.parallel import mesh
+    dev = torch.device('cuda')
+    spec = build_spec(flagship_cfg({**CFG_OVERRIDES, 'TPU.REMAT': 'stage'}),
+                      'train')
+    batches, (ref_losses, ref_params, ref_momentum) = stage_run
+    all_launches = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir='build') as d:
+        mesh.init_distributed(dev, world=1, rank=0,
+                              init_method='file://' + os.path.join(d, 'store'))
+        try:
+            for label in ('replicated bank', 'TPU.BANK_SHARDED'):
+                if label == 'TPU.BANK_SHARDED':
+                    bank = shard_bank(bank)
+                params = perturbed_params(spec, dev)
+                losses, ms, launches, state = train_steps(
+                    'phase 14 (a), ' + label, spec, cfg.SOLVER, bank,
+                    batches, params, PER_FORWARD['train stage'])
+                all_launches.append(launches)
+                loss_rel = max(abs(a - b) / abs(b)
+                               for a, b in zip(losses, ref_losses))
+                params_rel = worst_leaf(
+                    {k: params[k] for k in state.momentum}, ref_params)
+                momentum_rel = worst_leaf(state.momentum, ref_momentum)
+                steady = statistics.mean(ms[TRAIN_WARMUP:])
+                log('phase 14 (a) NCCL, world 1, {}: ms per step {}; {:.1f} '
+                    'over the {} timed steps (phase 11, one process: {:.1f}); '
+                    'against phase 11 over the {} steps: the losses rel '
+                    '{:.3e} (bound {:.0e}), the params worst rel {:.3e} ({}; '
+                    'bound {:.0e}), the momentum {:.3e} ({}; bound {:.0e}); '
+                    '{}'.format(label, ['{:.1f}'.format(m) for m in ms],
+                                steady, len(ms) - TRAIN_WARMUP,
+                                stage_ms, len(ms), loss_rel,
+                                REMAT_BF16_BOUNDS[0], *params_rel,
+                                REMAT_BF16_BOUNDS[1], *momentum_rel,
+                                REMAT_BF16_BOUNDS[2], card_line()))
+                if not (loss_rel <= REMAT_BF16_BOUNDS[0]
+                        and params_rel[0] <= REMAT_BF16_BOUNDS[1]
+                        and momentum_rel[0] <= REMAT_BF16_BOUNDS[2]):
+                    raise AssertionError('phase 14 (a) {}: the data-parallel '
+                                         'step disagrees'.format(label))
+                del params, state
+            rows = bank.feats.shape[0]
+        finally:
+            torch.distributed.destroy_process_group()
+    log('phase 14 (a): {:.1f} s; the sharded bank holds {} rows on the one '
+        'rank'.format(time.perf_counter() - t0, rows))
+    del bank, batches, stage_run
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.get_context('spawn')
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(dir='build') as d:
+        procs = torch.multiprocessing.start_processes(
+            dp_rank, args=(os.path.join(d, 'store'), root, results),
+            nprocs=DP_WORLD, join=False, start_method='spawn')
+        out = {}
+        while len(out) < DP_WORLD:
+            try:
+                r, result = results.get(timeout=1.0)
+                out[r] = result
+            except queue.Empty:
+                if procs.join(timeout=0):
+                    break
+        while not procs.join():
+            pass
+    if len(out) != DP_WORLD:
+        raise AssertionError('phase 14 (b): results of ranks {}'.format(
+            sorted(out)))
+    log('phase 14 (b): {:.1f} s for the two ranks, start-up included'.format(
+        time.perf_counter() - t0))
+    return {k: sum(n[k] for n in all_launches) for k in all_launches[0]}
+
+
+def dp_batches(spec, dev):
+    """Phase 14 (b)'s global batches: B = 16 clips x 4 boxes with bank
+    windows in the batch and labels, where clips 8-15 (rank 1's) keep 2 of
+    their 4 boxes: the other rows are padding, as the dataset lays it out
+    (zeros, naming clip 0, ``box_mask`` 0), so the ranks hold 32 and 16
+    valid boxes and rank 1's padding rows name clip -8 once localised."""
+    rng = np.random.default_rng(SEED + 19)
+    n = REMAT_B * BOXES_PER_CLIP
+    rows = np.arange(n)
+    pad = (rows >= n // DP_WORLD) & (rows % BOXES_PER_CLIP >= 2)
+    batches = []
+    for _ in range(DP_STEPS):
+        batch = make_batch(spec, rng, dev, n_clips=REMAT_B, with_lfb=True,
+                           with_labels=True)
+        for key in ('proposals', 'labels', 'box_mask', 'lfb', 'metadata'):
+            batch[key][pad] = 0
+        batches.append(batch)
+    return batches
+
+
+def dp_sharded_windows(dev, rank):
+    """A small AVA bank (16 videos x 40 s, 1-7 rows a second, so K = 5
+    draws) built twice, one copy row-sharded over the group's ranks: this
+    rank's 32 windows of 60 s, gathered from both with the same generator.
+    Returns (bitwise equal, rows held by this rank, rows of the table)."""
+    import torch
+    from lfb_tpu_torch.bank.device_bank import AvaDeviceBank, shard_bank
+    rng = np.random.default_rng(SEED + 20)
+    host = {v: {sec: [rng.standard_normal(2048).astype(np.float32)
+                      for _ in range(int(rng.integers(1, 8)))]
+                for sec in range(902, 942)} for v in range(16)}
+    whole, sharded = (AvaDeviceBank.build(host, window_size=60, k=5,
+                                          device=dev) for _ in range(2))
+    rows = whole.feats.shape[0]
+    sharded = shard_bank(sharded)
+    video = torch.from_numpy(rng.integers(0, 16, 64)).to(dev)
+    sec = torch.from_numpy(rng.integers(905, 940, 64)).to(dev)
+    mine = slice(rank * 32, rank * 32 + 32)
+    a, b = (bank.gather(video[mine], sec[mine],
+                        torch.Generator(device=dev).manual_seed(SEED))
+            for bank in (whole, sharded))
+    return torch.equal(a, b), sharded.feats.shape[0], rows
+
+
+def dp_rank(rank, store, root, results):
+    """One of phase 14 (b)'s two ranks, both on ``cuda:0``, in a gloo group
+    (collectives through the host: these timings are no multi-GPU speed).
+    Rank 0 first runs the flagship 'stage' step (dropout off, host windows)
+    alone, before the group exists, on :func:`dp_batches`' global batches;
+    then both ranks run it on their halves (8 clips each): the losses,
+    updated params and momentum against the one process's within
+    ``REMAT_BF16_BOUNDS``, each rank's launches per step those of one
+    process ('stage').  Then a row-sharded bank's windows against the whole
+    table's, bitwise (:func:`dp_sharded_windows`: gloo's all-gather and
+    reduce-scatter on CUDA tensors).  Then ``get_lfb`` over phase 12's
+    split in ``root`` at world 2: the bank's keys and rows against phase
+    12's (``out/val_lfb.pkl``) within ``DP_BANK_BOUND``.  Rank r puts (r,
+    its numbers) on ``results``."""
+    import pickle
+    import tempfile
+    import torch
+    from lfb_tpu_torch.bank.lfb import get_lfb
+    from lfb_tpu_torch.config import flagship_cfg
+    from lfb_tpu_torch.core.config import load_config
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.parallel import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device('cuda', 0)
+    cfg = flagship_cfg({**CFG_OVERRIDES, 'TPU.REMAT': 'stage',
+                        'TRAIN.DROPOUT_RATE': 0.0,
+                        'FBO_NL.DROPOUT_RATE': 0.0})
+    spec = build_spec(cfg, 'train')
+    batches = dp_batches(spec, dev)
+    out = {}
+    if rank == 0:
+        params = perturbed_params(spec, dev)
+        losses, ms, _, state = train_steps(
+            'phase 14 (b), one process', spec, cfg.SOLVER, None, batches,
+            params, PER_FORWARD['train stage'])
+        ref = (losses, {k: params[k] for k in state.momentum},
+               state.momentum, statistics.mean(ms[1:]))
+        del params, state
+    torch.distributed.init_process_group('gloo', init_method='file://' + store,
+                                         world_size=DP_WORLD, rank=rank)
+    try:
+        params = perturbed_params(spec, dev)
+        losses, ms, _, state = train_steps(
+            'phase 14 (b), rank {}'.format(rank), spec, cfg.SOLVER, None,
+            [mesh.shard_batch(b, rank, DP_WORLD) for b in batches], params,
+            PER_FORWARD['train stage'])
+        if rank == 0:
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
+            params_rel = worst_leaf({k: params[k] for k in state.momentum},
+                                    ref[1])
+            momentum_rel = worst_leaf(state.momentum, ref[2])
+            log('phase 14 (b) gloo, 2 ranks on one card, 8 clips each: {:.1f} '
+                'ms per step after the first (gloo through the host; one '
+                'process at B = 16: {:.1f} ms); against one process over {} '
+                'steps: the losses rel {:.3e} (bound {:.0e}), the params '
+                'worst rel {:.3e} ({}; bound {:.0e}), the momentum {:.3e} '
+                '({}; bound {:.0e}); each rank\'s launches per step {}; '
+                '{}'.format(statistics.mean(ms[1:]), ref[3], DP_STEPS,
+                            loss_rel, REMAT_BF16_BOUNDS[0], *params_rel,
+                            REMAT_BF16_BOUNDS[1], *momentum_rel,
+                            REMAT_BF16_BOUNDS[2], PER_FORWARD['train stage'],
+                            card_line()))
+            if not (loss_rel <= REMAT_BF16_BOUNDS[0]
+                    and params_rel[0] <= REMAT_BF16_BOUNDS[1]
+                    and momentum_rel[0] <= REMAT_BF16_BOUNDS[2]):
+                raise AssertionError('phase 14 (b): two ranks disagree with '
+                                     'one process')
+            out['train'] = (loss_rel, params_rel[0], momentum_rel[0])
+        del params, state, batches
+        torch.cuda.empty_cache()
+        same, rows, whole = dp_sharded_windows(dev, rank)
+        if rank == 0:
+            log('phase 14 (b) TPU.BANK_SHARDED at world 2 (gloo on CUDA '
+                'tensors): {} of the {} rows a rank; the windows bitwise '
+                'those of the whole table: {}'.format(rows, whole, same))
+        if not same:
+            raise AssertionError('phase 14 (b): the sharded bank\'s windows '
+                                 'differ')
+
+        opts = ['DATADIR', os.path.join(root, 'frames'),
+                'AVA.FRAME_LIST_DIR', os.path.join(root, 'frame_lists'),
+                'AVA.ANNOTATION_DIR', os.path.join(root, 'annotations'),
+                'NUM_GPUS', str(DP_WORLD), 'TPU.REMAT', "''",
+                'LFB.MODEL_PARAMS_FILE', os.path.join(root, 'lfb.pkl'),
+                'LFB.WRITE_LFB', 'False']
+        with tempfile.TemporaryDirectory(dir='build') as d:
+            cfg = load_config(AVA_YAML, opts + ['CHECKPOINT.DIR', d])
+            t0 = time.perf_counter()
+            bank = get_lfb(cfg, cfg.LFB.MODEL_PARAMS_FILE, is_train=False,
+                           device=dev)
+            seconds = time.perf_counter() - t0
+        if rank == 0:
+            with open(os.path.join(root, 'out', 'val_lfb.pkl'), 'rb') as f:
+                ref_bank = pickle.load(f)
+            scale = max(np.abs(np.asarray(r)).max() for secs in
+                        ref_bank.values() for rs in secs.values() for r in rs)
+            same = bank.keys() == ref_bank.keys() and all(
+                bank[v].keys() == ref_bank[v].keys() and all(
+                    len(bank[v][t]) == len(ref_bank[v][t])
+                    for t in ref_bank[v]) for v in ref_bank)
+            err = max(np.abs(np.asarray(a) - np.asarray(b)).max()
+                      for v in ref_bank for t in ref_bank[v]
+                      for a, b in zip(bank[v][t], ref_bank[v][t])) / scale
+            n_rows = sum(len(r) for secs in bank.values()
+                         for r in secs.values())
+            log('phase 14 (b) get_lfb at world 2 (gloo, one card): {:.1f} s; '
+                '{} rows; the same keys and counts as phase 12\'s bank: {}; '
+                'rows worst rel {:.3e} (bound {:.0e})'.format(
+                    seconds, n_rows, same, err, DP_BANK_BOUND))
+            if not (same and err <= DP_BANK_BOUND):
+                raise AssertionError('phase 14 (b): the bank at world 2 '
+                                     'differs from phase 12\'s')
+            out['bank'] = err
+    finally:
+        torch.distributed.destroy_process_group()
+    results.put((rank, out))
+
+
 def trace_window(label, run, count, out, stem):
     """Run ``run(i)`` for i < ``count`` on the host clock, then the same
     under torch.profiler; write the Chrome trace and the operator table to
@@ -2779,17 +3113,22 @@ def main():
     verb_launches, verb_state = epic_verb_path(videos)
     path_launches += [verb_launches, epic_noun_path(videos)]
     checkpoint_phase(*verb_state)
+    verb_bank = verb_state[2]
     del verb_state
     results.update(check_backward_kernels())
     train_reference_check(cfg)
-    train_launches, stage_ms = train_phase(cfg, bank, charades_bank)
+    train_launches, stage_ms, stage_run = train_phase(
+        cfg, bank, charades_bank, verb_bank, videos[3])
     path_launches.append(train_launches)
-    del bank, charades_bank
+    del charades_bank, verb_bank
     import tempfile
     os.makedirs('build', exist_ok=True)
     with tempfile.TemporaryDirectory(dir='build') as root:
         path_launches.append(disk_path(root, results['roi_align_maxpool']))
         path_launches.append(train_from_disk(root, stage_ms))
+        path_launches.append(data_parallel_phase(cfg, bank, stage_run,
+                                                 stage_ms, root))
+    del bank, stage_run
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -2800,6 +3139,7 @@ def main():
                         'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                         'bound_by': r['bound_by'],
                         'library_ms': r['library_ms'],
+                        'library_device_ms': r.get('library_device_ms'),
                         'library': r.get('library'),
                         'tolerance': r['tolerance']})
     print(card_line())

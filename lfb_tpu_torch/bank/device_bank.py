@@ -16,7 +16,9 @@ windows on the device with index ops:
 
 Row ids, the seeded subsampling over a width cap and the window arithmetic
 are ``lfb_tpu``'s, so both packages gather the same rows from the same host
-bank.  The sharded bank and ``_BoundFeatsBank`` are not ported.
+bank.  :func:`shard_bank` row-shards a bank's feature table over the ranks
+of the process group (``TPU.BANK_SHARDED``).  ``_BoundFeatsBank`` (a jit
+workaround) is not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from lfb_tpu_torch.parallel import mesh
 
 logger = logging.getLogger(__name__)
 
@@ -312,6 +317,85 @@ class FrameDeviceBank:
                end: torch.Tensor) -> torch.Tensor:
         """(N, W, D) window features (see :meth:`choose_rows`)."""
         return self.feats[self.choose_rows(video_idx, begin, end)]
+
+
+def sharded_rows_lookup(feats_local: torch.Tensor,
+                        rows: torch.Tensor) -> torch.Tensor:
+    """Rows of a table row-sharded over the ranks, for this rank's windows
+    (``lfb_tpu``'s ``sharded_rows_lookup``).  ``feats_local`` is this rank's
+    (S, D) shard of the (world * S, D) table; ``rows`` (N, M) are global
+    row ids of the rank's windows.  Every row lives on one rank, so: gather
+    every rank's row ids (int32), look up the rows held here with zeros for
+    the others, and sum-scatter the windows back, each rank keeping its own
+    (N, M, D).  A window's row is its holder's row plus exact zeros, so the
+    result is bitwise that of a whole table."""
+    S = feats_local.shape[0]
+    all_rows = mesh.gather_rows(rows.to(torch.int32)).long()
+    local = all_rows - mesh.rank() * S
+    held = (local >= 0) & (local < S)
+    vals = feats_local[local.clamp(0, S - 1)]
+    vals = torch.where(held[..., None], vals, torch.zeros((), dtype=vals.dtype,
+                                                          device=vals.device))
+    if not mesh.distributed():
+        return vals
+    out = vals.new_empty(rows.shape + vals.shape[-1:])
+    dist.reduce_scatter_tensor(out, vals)
+    return out
+
+
+class ShardedDeviceBank:
+    """A device bank whose feature table is row-sharded over the ranks of
+    the process group (``lfb_tpu``'s ``ShardedDeviceBank``): each rank
+    holds ``ceil(R / world)`` rows (the table padded with zero rows to a
+    multiple of the world), cutting the bank's memory per card by the world
+    size; window gathers reassemble through :func:`sharded_rows_lookup`.
+    The index tables stay whole in every rank.  The inner bank's table is
+    dropped (``inner.feats`` None), so a stray gather from it fails."""
+
+    def __init__(self, inner):
+        if inner.feats is None:
+            raise ValueError(
+                "bank already sharded: this inner bank's feature table was "
+                'dropped by a previous shard_bank; reuse that '
+                'ShardedDeviceBank (shard_bank() does this automatically)')
+        self.inner = inner
+        self.world, r = mesh.world_size(), mesh.rank()
+        feats = inner.feats
+        per_rank = -(-feats.shape[0] // self.world)
+        shard = feats[r * per_rank:(r + 1) * per_rank]
+        self.feats = torch.zeros((per_rank,) + tuple(feats.shape[1:]),
+                                 dtype=feats.dtype, device=feats.device)
+        self.feats[:shard.shape[0]] = shard
+        inner.feats = None
+        inner._sharded_wrapper = self
+
+    def num_videos(self) -> int:
+        return self.inner.num_videos()
+
+    def gather(self, *args) -> torch.Tensor:
+        """As the inner bank's ``gather`` (AVA: video, sec, generator;
+        frame-level: video, begin, end)."""
+        return sharded_rows_lookup(self.feats, self.inner.choose_rows(*args))
+
+    def gather_centers(self, video_idx: torch.Tensor,
+                       center: torch.Tensor) -> torch.Tensor:
+        begin, end = self.inner.window(center.to(self.inner.frame_ids.device))
+        return self.gather(video_idx, begin, end)
+
+
+def shard_bank(bank):
+    """Row-shard a device bank's feature table over the process group's
+    ranks (idempotent: a bank already sharded, or an inner bank whose table
+    a previous call took, gives that ``ShardedDeviceBank``)."""
+    if bank is None or isinstance(bank, ShardedDeviceBank):
+        return bank
+    cached = getattr(bank, '_sharded_wrapper', None)
+    if cached is not None:
+        if cached.world != mesh.world_size():
+            raise ValueError('bank already sharded over {} ranks, not '
+                             '{}'.format(cached.world, mesh.world_size()))
+        return cached
+    return ShardedDeviceBank(bank)
 
 
 def build_device_bank(cfg, host_bank: Dict, video_name_to_idx=None, *,

@@ -24,6 +24,7 @@ import torch
 from lfb_tpu_torch.data.loader import DataLoader, DeviceFeed, get_input_db
 from lfb_tpu_torch.models.model import init_params
 from lfb_tpu_torch.models.spec import ModelSpec, build_spec
+from lfb_tpu_torch.parallel import mesh
 from lfb_tpu_torch.train import checkpoints
 from lfb_tpu_torch.train.steps import make_eval_step
 
@@ -104,7 +105,10 @@ def _host(a) -> np.ndarray:
 def extract_ava_bank(spec: ModelSpec, params: Mapping[str, torch.Tensor],
                      batches: Iterable[Mapping]) -> Dict[int, Dict[int, list]]:
     """Sweep the bank-extraction forward over ``batches`` (each with 'data',
-    'proposals', 'metadata' and 'box_mask') and build the host bank."""
+    'proposals', 'metadata' and 'box_mask') and build the host bank.  In a
+    process group the batches are the rank's shards, and the features,
+    metadata and masks are gathered into the global batches' order, so
+    every rank builds the whole bank."""
     if not (spec.lfb_infer_only and spec.head_type == 'roi'):
         raise ValueError('extract_ava_bank needs the AVA lfb_infer_only spec')
     step = make_eval_step(spec)
@@ -112,8 +116,8 @@ def extract_ava_bank(spec: ModelSpec, params: Mapping[str, torch.Tensor],
     for batch in batches:
         out = step(params, batch)
         features.append(_host(out['box_pooled'].float()))
-        metadata.append(_host(batch['metadata']))
-        masks.append(_host(batch['box_mask']))
+        metadata.append(_host(mesh.gather_rows(batch['metadata'])))
+        masks.append(_host(mesh.gather_rows(batch['box_mask'])))
     return construct_ava_lfb(features, metadata, masks)
 
 
@@ -123,7 +127,9 @@ def extract_frame_bank(spec: ModelSpec, params: Mapping[str, torch.Tensor],
     """Sweep the clip-level bank-extraction forward over ``batches`` (each
     with 'data') and build the frame-level host bank of ``dataset``
     ('charades' or 'epic') from ``clip_metadata``, the sweep's clip list in
-    batch order (see :func:`construct_frame_level_lfb`)."""
+    batch order (see :func:`construct_frame_level_lfb`).  In a process
+    group the batches are the rank's shards and the features are gathered
+    into the global batches' order."""
     if not (spec.lfb_infer_only and spec.head_type == 'basic'):
         raise ValueError('extract_frame_bank needs a clip-level '
                          'lfb_infer_only spec')
@@ -141,9 +147,12 @@ def get_lfb(cfg, params_file: str, is_train: bool, *, device='cuda',
     the bank-extraction model, ``params`` or its init with ``params_file``
     loaded into it, sweeps the split on ``device``: the lfb_infer_only
     dataset at the center crop, with the TRAIN lists when ``is_train``,
-    batch by batch from the ``DataLoader`` through ``to_device``.  AVA's
-    metadata and box masks stay on the host, from the numpy batches.  With
-    ``LFB.WRITE_LFB`` the bank is pickled into ``CHECKPOINT.DIR``.
+    batch by batch from the ``DataLoader`` through ``to_device``.  In a
+    process group each rank sweeps its shard of every batch
+    (``TEST.BATCH_SIZE`` must divide by the world size, to which the
+    launcher clamps it) and every rank builds the whole bank, which its
+    device bank needs.  With ``LFB.WRITE_LFB`` rank 0 pickles the bank into
+    ``CHECKPOINT.DIR``.
     """
     if cfg.LFB.LOAD_LFB:
         return load_lfb(cfg, is_train)
@@ -162,14 +171,13 @@ def get_lfb(cfg, params_file: str, is_train: bool, *, device='cuda',
     loader = DataLoader(db, cfg.TEST.BATCH_SIZE,
                         num_workers=cfg.DATALOADER.NUM_WORKERS,
                         prefetch=cfg.DATALOADER.PREFETCH_BATCHES,
-                        seed=cfg.RNG_SEED, is_train=False)
+                        seed=cfg.RNG_SEED, is_train=False,
+                        rank=mesh.rank(), world=mesh.world_size())
     feed = DeviceFeed(loader, device, 'LFB sweep ({})'.format(
         'train' if is_train else split))
     try:
         if cfg.DATASET == 'ava':
-            lfb = extract_ava_bank(spec, params, (
-                {**dev, 'metadata': host['metadata'],
-                 'box_mask': host['box_mask']} for host, dev in feed))
+            lfb = extract_ava_bank(spec, params, (dev for _, dev in feed))
         else:
             lfb = extract_frame_bank(
                 spec, params, (dev for _, dev in feed),
@@ -177,6 +185,6 @@ def get_lfb(cfg, params_file: str, is_train: bool, *, device='cuda',
                 cfg.DATASET)
     finally:
         loader.shutdown()
-    if cfg.LFB.WRITE_LFB:
+    if cfg.LFB.WRITE_LFB and mesh.rank() == 0:
         write_lfb(cfg, lfb, is_train)
     return lfb

@@ -282,7 +282,10 @@ def default_config() -> Config:
     # Run the per-iteration forward/backward as an explicit shard_map body
     # instead of auto-sharded jit.  Numerically identical (loss sums/counts
     # psum into the exact global mean) and lets the fused Pallas kernels run
-    # on multi-chip meshes.  Train path requires MODEL.USE_AFFINE.
+    # on multi-chip meshes.  Train path requires MODEL.USE_AFFINE.  The port
+    # runs one process per device, each always the per-device body
+    # (train/steps.py), so True and False run the same code there, as
+    # lfb_tpu's test_shard_map_step_matches_auto_sharded shows them equal.
     c.TPU.SHARD_MAP = False
     c.TPU.MESH_SHAPE = []              # e.g. [8] -> data mesh; [] -> all devices
     # Keep the LFB in HBM and gather windows on device instead of shipping
@@ -311,7 +314,8 @@ def default_config() -> Config:
     # the 1-4 GB bank per process via the host pipeline); window gathers
     # are reassembled on-device with an index all_gather + reduce_scatter.
     # Requires TPU.SHARD_MAP (the feature shard enters the step body as an
-    # explicit P('data') operand).
+    # explicit P('data') operand).  In the port the rows are sharded over
+    # the ranks of the process group (bank/device_bank.py:shard_bank).
     c.TPU.BANK_SHARDED = False
     # Storage dtype for the HBM-resident device bank ('float32' or
     # 'bfloat16').  bfloat16 halves bank HBM (AVA: 3.3 GB -> 1.65 GB,

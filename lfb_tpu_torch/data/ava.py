@@ -186,12 +186,19 @@ class AvaDataset:
     def db_size(self) -> int:
         return len(self.keyframe_indices)
 
-    def minibatch(self, indices: List[int],
-                  rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    def minibatch(self, indices: List[int], rng: np.random.Generator,
+                  clips: Optional[range] = None) -> Dict[str, np.ndarray]:
+        """The batch of ``indices``, or with ``clips`` only those clips of
+        it (a data-parallel rank's): the clips before them pass their random
+        draws through undecoded (``transforms.frame_stub``), so the batch's
+        generator reaches each of the rank's clips as it does building the
+        whole batch; the proposals keep their clip indices in the whole
+        batch."""
         cfg = self.cfg
         half_len = self.seq_len // 2
         max_boxes = cfg.TPU.MAX_BOXES_PER_CLIP
-        B = len(indices)
+        clips = range(len(indices)) if clips is None else clips
+        B = len(clips)
         S = self.crop_size
         shift = CENTER_CROP_INDEX if self.shift is None else self.shift
 
@@ -216,22 +223,24 @@ class AvaDataset:
         # reference device d's clips only.  Padding rows are zeros: they name
         # clip 0 and carry box_mask 0.  All consumers filter by box_mask, not
         # by contiguity (eval/metrics.py, models/model.py).
-        for b, idx in enumerate(indices):
-            row = b * max_boxes
+        for b, idx in enumerate(indices[:clips.stop]):
+            own = b in clips
             if self.split == 'train':
                 idx = int(rng.integers(len(self.keyframe_indices)))
             video_idx, sec, center_idx = self.keyframe_indices[idx]
             seq = get_sequence(center_idx, half_len, self.sample_rate,
                                len(self.image_paths[video_idx]))
-            clip = transforms.load_frames(
-                [self.image_paths[video_idx][f] for f in seq],
-                retry=cfg.IMG_LOAD_RETRY)
+            paths = [self.image_paths[video_idx][f] for f in seq]
+            clip = (transforms.load_frames(paths, retry=cfg.IMG_LOAD_RETRY)
+                    if own else transforms.frame_stub(paths[0]))
             height, width = clip.shape[1:3]
 
             box_label_list = self.boxes_and_labels[video_idx][sec]
             if len(box_label_list) > max_boxes:
-                logger.warning('keyframe (%d, %d): %d boxes truncated to %d',
-                               video_idx, sec, len(box_label_list), max_boxes)
+                if own:
+                    logger.warning('keyframe (%d, %d): %d boxes truncated to '
+                                   '%d', video_idx, sec, len(box_label_list),
+                                   max_boxes)
                 box_label_list = box_label_list[:max_boxes]
             boxes = np.array([bl[0] for bl in box_label_list], np.float32)
 
@@ -240,7 +249,6 @@ class AvaDataset:
                 rng=rng, spatial_shift=shift, boxes=boxes,
                 force_flip=cfg.AVA.FORCE_TEST_FLIP and not self.is_train_aug,
                 output_uint8=out_u8)
-            data[b] = clip
 
             window = None
             if self.lfb_enabled and not self.device_bank:
@@ -249,7 +257,10 @@ class AvaDataset:
                     window_size=cfg.LFB.WINDOW_SIZE,
                     k=cfg.AVA.LFB_MAX_NUM_FEAT_PER_STEP,
                     lfb_dim=cfg.LFB.LFB_DIM, rng=rng)
-
+            if not own:
+                continue
+            data[b - clips.start] = clip
+            row = (b - clips.start) * max_boxes
             for box_idx, (box, box_labels) in enumerate(box_label_list):
                 proposals[row, 0] = b
                 proposals[row, 1:] = tboxes[box_idx]

@@ -136,11 +136,14 @@ class CharadesDataset:
             return self.num_videos
         return self.num_videos * self.num_test_clips
 
-    def minibatch(self, indices: List[int],
-                  rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    def minibatch(self, indices: List[int], rng: np.random.Generator,
+                  clips: Optional[range] = None) -> Dict[str, np.ndarray]:
+        """The batch of ``indices``, or with ``clips`` only those clips
+        (a data-parallel rank's; see ``AvaDataset.minibatch``)."""
         cfg = self.cfg
         half_len = self.seq_len // 2
-        B = len(indices)
+        clips = range(len(indices)) if clips is None else clips
+        B = len(clips)
         S = self.crop_size
         out_u8 = cfg.TPU.DEVICE_NORMALIZE and not (
             self.is_train_aug and cfg.TRAIN.USE_COLOR_AUGMENTATION)
@@ -155,7 +158,8 @@ class CharadesDataset:
         lfb_center = (np.zeros((B,), np.int32)
                       if self.lfb_enabled and self.device_bank else None)
 
-        for b, idx in enumerate(indices):
+        for b, idx in enumerate(indices[:clips.stop]):
+            own = b in clips
             if self.lfb_infer_only:
                 video_idx, center_idx = self.lfb_frames[idx]
                 shift = CENTER_CROP_INDEX
@@ -175,15 +179,18 @@ class CharadesDataset:
             num_frames = len(self.image_paths[video_idx])
             seq = get_sequence(center_idx, half_len, self.sample_rate,
                                num_frames)
-            clip = transforms.load_frames(
-                [self.image_paths[video_idx][f] for f in seq],
-                retry=cfg.IMG_LOAD_RETRY)
+            paths = [self.image_paths[video_idx][f] for f in seq]
+            clip = (transforms.load_frames(paths, retry=cfg.IMG_LOAD_RETRY)
+                    if own else transforms.frame_stub(paths[0]))
             clip, _ = transforms.preprocess_clip(
                 clip, is_train=self.is_train_aug, crop_size=S, cfg=cfg,
                 rng=rng,
                 spatial_shift=(shift if shift is not None
                                else CENTER_CROP_INDEX),
                 output_uint8=out_u8)
+            if not own:
+                continue
+            b -= clips.start
             data[b] = clip
 
             for lbl in aggregate_labels(

@@ -204,11 +204,14 @@ class EpicDataset:
             window_size=cfg.LFB.WINDOW_SIZE, fps=cfg.EPIC.FPS,
             lfb_dim=cfg.LFB.LFB_DIM)
 
-    def minibatch(self, indices: List[int],
-                  rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    def minibatch(self, indices: List[int], rng: np.random.Generator,
+                  clips: Optional[range] = None) -> Dict[str, np.ndarray]:
+        """The batch of ``indices``, or with ``clips`` only those clips
+        (a data-parallel rank's; see ``AvaDataset.minibatch``)."""
         cfg = self.cfg
         half_len = self.seq_len // 2
-        B = len(indices)
+        clips = range(len(indices)) if clips is None else clips
+        B = len(clips)
         S = self.crop_size
         out_u8 = cfg.TPU.DEVICE_NORMALIZE and not (
             self.is_train_aug and cfg.TRAIN.USE_COLOR_AUGMENTATION)
@@ -224,7 +227,8 @@ class EpicDataset:
                       if self.lfb_enabled and self.device_bank else None)
         shift = CENTER_CROP_INDEX if self.shift is None else self.shift
 
-        for b, idx in enumerate(indices):
+        for b, idx in enumerate(indices[:clips.stop]):
+            own = b in clips
             if self.is_train:
                 idx = int(rng.integers(len(self.annotations)))
             (person, video_name, start_frame, stop_frame, verb,
@@ -233,12 +237,15 @@ class EpicDataset:
             seq, center_idx = get_segment_sequence(
                 rng, start_frame, stop_frame, half_len, self.sample_rate,
                 num_frames, self.is_train)
-            clip = transforms.load_frames(
-                [self.image_paths[video_name][f] for f in seq],
-                retry=cfg.IMG_LOAD_RETRY)
+            paths = [self.image_paths[video_name][f] for f in seq]
+            clip = (transforms.load_frames(paths, retry=cfg.IMG_LOAD_RETRY)
+                    if own else transforms.frame_stub(paths[0]))
             clip, _ = transforms.preprocess_clip(
                 clip, is_train=self.is_train_aug, crop_size=S, cfg=cfg,
                 rng=rng, spatial_shift=shift, output_uint8=out_u8)
+            if not own:
+                continue
+            b -= clips.start
             data[b] = clip
             labels[b] = verb if cfg.EPIC.CLASS_TYPE == 'verb' else noun
             if self.lfb_enabled:

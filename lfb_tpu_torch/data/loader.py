@@ -8,7 +8,9 @@ thread pool that builds fixed-shape numpy batches ahead of time (cv2
 releases the GIL for decode/resize) and an ordered prefetch window; in place
 of ``lfb_tpu``'s ``parallel.shard_batch``, :func:`to_device` copies a batch
 to one device.  :class:`DeviceFeed` runs that loop for a sweep and times
-its host and card sides.
+its host and card sides.  In a data-parallel run each rank's loader builds
+only its own clips of every batch (``rank``, ``world``), and each rank's
+feed times its own sweep.
 
 Determinism: batch ``i`` of epoch stream ``seed`` uses
 ``np.random.default_rng((seed, i))`` -- no global RNG.
@@ -66,12 +68,28 @@ def to_device(batch: Mapping[str, np.ndarray],
 
 
 class DataLoader:
-    """Ordered prefetching loader over a dataset DB."""
+    """Ordered prefetching loader over a dataset DB.
+
+    ``batch_size`` is the global batch.  With ``world`` > 1 the loader of
+    rank ``rank`` builds only that rank's clips of every global batch,
+    ``[rank*b, (rank+1)*b)`` with b = batch_size / world, and their
+    clip-aligned box rows (the proposals keep their global clip indices):
+    the rank's shard of the global batch, bitwise, as
+    :func:`lfb_tpu_torch.parallel.mesh.shard_batch` cuts it.  The datasets
+    replay the random draws of the clips before the rank's without decoding
+    them (``minibatch(..., clips=)``)."""
 
     def __init__(self, db, batch_size: int, *, num_workers: int = 8,
-                 prefetch: int = 4, seed: int = 0, is_train: bool = False):
+                 prefetch: int = 4, seed: int = 0, is_train: bool = False,
+                 rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError('DataLoader: batch size {} is not a multiple of '
+                             '{} ranks'.format(batch_size, world))
         self.db = db
         self.batch_size = batch_size
+        self.local_batch_size = batch_size // world
+        self.rank = rank
+        self.world = world
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
         self.seed = seed
@@ -118,7 +136,13 @@ class DataLoader:
 
     def _build(self, batch_idx: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng((self.seed, batch_idx))
-        return self.db.minibatch(self._batch_indices(batch_idx), rng)
+        indices = self._batch_indices(batch_idx)
+        if self.world == 1:
+            return self.db.minibatch(indices, rng)
+        b = self.local_batch_size
+        return self.db.minibatch(indices, rng,
+                                 clips=range(self.rank * b,
+                                             (self.rank + 1) * b))
 
     def _timed_build(self, batch_idx: int
                      ) -> Tuple[Dict[str, np.ndarray], float]:
@@ -184,7 +208,8 @@ class DeviceFeed:
     the means over the batches after the first prefetch window (None when
     the sweep is no longer than the window): those the loader began only
     once the sweep had taken a batch, so their wait is the loader's rate
-    against the card's.  It is logged and appended to :data:`SWEEPS`."""
+    against the card's.  It is logged and appended to :data:`SWEEPS`.
+    Clips are the rank's (``DataLoader.local_batch_size`` a batch)."""
 
     def __init__(self, loader: DataLoader, device, label: str, *,
                  num_batches: Optional[int] = None, start_batch: int = 0):
@@ -234,7 +259,7 @@ class DeviceFeed:
                 'batches': len(rows),
                 'first_ms': rows[0]['wall_ms'] if rows else None,
                 'sweep_s': sweep_s,
-                'sweep_clips_per_s': (len(rows) * self.loader.batch_size
+                'sweep_clips_per_s': (len(rows) * self.loader.local_batch_size
                                       / sweep_s if sweep_s else None),
                 'steady': (self._means(rows[window:])
                            if len(rows) > window else None)}
@@ -245,7 +270,8 @@ class DeviceFeed:
                     'card_ms'):
             vals = [r[key] for r in rows if key in r]
             out[key] = statistics.mean(vals) if vals else None
-        out['clips_per_s'] = (self.loader.batch_size / out['wall_ms'] * 1e3
+        out['clips_per_s'] = (self.loader.local_batch_size
+                              / out['wall_ms'] * 1e3
                               if out['wall_ms'] else None)
         out['card_busy'] = (out['card_ms'] / out['wall_ms']
                             if out['card_ms'] is not None and out['wall_ms']

@@ -294,3 +294,43 @@ def load_frames(paths, retry: int = 10) -> np.ndarray:
         if attempt == retry - 1:
             raise IOError('Failed to load images {}'.format(paths))
         time.sleep(1.0)
+
+
+# SOF markers (baseline, extended, progressive, lossless; not DHT C4, JPG C8
+# or DAC CC), whose segment holds the frame's height and width.
+_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def frame_shape(path) -> Tuple[int, int]:
+    """(height, width) of the frame ``cv2.imread`` would give, read from
+    the JPEG's SOF segment without decoding it.  A file that is not a
+    baseline JPEG, or whose Exif block may ask ``cv2`` to rotate it, is
+    decoded to find out."""
+    with open(path, 'rb') as f:
+        if f.read(2) == b'\xff\xd8':
+            while True:
+                head = f.read(4)
+                if len(head) < 4 or head[0] != 0xFF:
+                    break
+                marker, length = head[1], int.from_bytes(head[2:], 'big')
+                if marker == 0xE1:                  # APP1: maybe Exif
+                    break
+                if marker in _SOF:
+                    body = f.read(5)
+                    return (int.from_bytes(body[1:3], 'big'),
+                            int.from_bytes(body[3:5], 'big'))
+                f.seek(length - 2, 1)
+    image = _cv2().imread(str(path))
+    if image is None:
+        raise IOError('Failed to load image {}'.format(path))
+    return image.shape[:2]
+
+
+def frame_stub(path) -> np.ndarray:
+    """One black frame of the shape of the frame at ``path``, (1, H, W, 3)
+    uint8: what a data-parallel rank passes through :func:`preprocess_clip`
+    for a clip of another rank, so that the clip's random draws (which
+    depend only on the frame's shape) advance the batch's generator as the
+    decoded clip's would, at the cost of one small resize."""
+    return np.zeros((1,) + tuple(frame_shape(path)) + (3,), np.uint8)
+

@@ -170,10 +170,6 @@ def build_spec(cfg, split: str, lfb_infer_only: bool = False) -> ModelSpec:
     """Derive an immutable ModelSpec from a finalized Config for one phase
     (the train split, unless ``lfb_infer_only``, is the training phase)."""
     is_train = split == 'train' and not lfb_infer_only
-    for key in ('SHARD_MAP', 'BANK_SHARDED'):
-        if cfg.TPU[key]:
-            raise NotImplementedError(
-                'TPU.{} is not ported to lfb_tpu_torch'.format(key))
     if is_train:
         if not cfg.MODEL.USE_AFFINE:
             raise NotImplementedError(

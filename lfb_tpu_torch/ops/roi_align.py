@@ -9,6 +9,10 @@ Detectron op (``lib/models/lfb_helper.py:144-150``):
     realized as a ``max_grid``-sized lattice with per-ROI masking.
   * Samples outside ``[-1, size]`` contribute zero; in-range coords clamp
     to the border.
+  * A batch index outside ``[0, B)`` clamps to the nearest clip, as the
+    CUDA kernel does and ``lfb_tpu``'s gather gives: a rank's padding rows
+    name clip -r*b once their proposals are localised
+    (``train/steps.py:_localize_proposals``), and read clip 0.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, *,
     feats = features.to(f32)
     rois = rois.to(f32)
 
-    batch_idx = rois[:, 0].long()
+    batch_idx = rois[:, 0].long().clamp(0, B - 1)
     x1 = rois[:, 1] * spatial_scale
     y1 = rois[:, 2] * spatial_scale
     x2 = rois[:, 3] * spatial_scale

@@ -7,7 +7,10 @@ Usage:
       TEST.PARAMS_FILE model.pkl [LFB.MODEL_PARAMS_FILE bank_model.pkl] \
       [--device cuda] [KEY VALUE ...]
 
-Detections CSVs (AVA) and prediction pickles (EPIC) go to
+It runs data-parallel on ``min(NUM_GPUS, cards)`` ranks
+(:mod:`lfb_tpu_torch.parallel.launch`; under ``torchrun`` on its ranks):
+each rank sweeps its shard of every batch and rank 0 gathers the outputs
+and writes the detections CSVs (AVA) and prediction pickles (EPIC) to
 ``CHECKPOINT.DIR``.
 """
 
@@ -18,6 +21,7 @@ import sys
 
 import torch
 
+from lfb_tpu_torch.bank.device_bank import shard_bank
 from lfb_tpu_torch.bank.lfb import get_lfb
 from lfb_tpu_torch.core.config import clone, load_config
 from lfb_tpu_torch.data.loader import DataLoader, DeviceFeed, get_input_db
@@ -25,6 +29,7 @@ from lfb_tpu_torch.eval.metrics import MetricsCalculator
 from lfb_tpu_torch.eval.multicrop import combine_ava_multi_crops
 from lfb_tpu_torch.models.model import init_params
 from lfb_tpu_torch.models.spec import build_spec
+from lfb_tpu_torch.parallel import launch, mesh
 from lfb_tpu_torch.train import checkpoints as ckpt
 from lfb_tpu_torch.train.steps import make_eval_step
 
@@ -42,7 +47,8 @@ def get_test_name(cfg, shift):
 
 def test_one_crop(cfg, lfb=None, shift=None, output_dir='.', device='cuda'):
     """One full sweep at one (scale, flip, shift) on ``device`` (reference
-    ``test_net.py:96-168``); returns the metrics."""
+    ``test_net.py:96-168``); returns the metrics (None on ranks > 0, which
+    sweep their shards and leave the metrics and files to rank 0)."""
     device = torch.device(device)
     cfg = clone(cfg)
     if 'FULL_EVAL' not in cfg.AVA or not cfg.AVA.FULL_EVAL:
@@ -66,7 +72,8 @@ def test_one_crop(cfg, lfb=None, shift=None, output_dir='.', device='cuda'):
     loader = DataLoader(db, cfg.TEST.BATCH_SIZE,
                         num_workers=cfg.DATALOADER.NUM_WORKERS,
                         prefetch=cfg.DATALOADER.PREFETCH_BATCHES,
-                        seed=cfg.RNG_SEED, is_train=False)
+                        seed=cfg.RNG_SEED, is_train=False,
+                        rank=mesh.rank(), world=mesh.world_size())
     meter = MetricsCalculator(
         cfg, split, video_idx_to_name=db.video_idx_to_name,
         total_num_boxes=getattr(db, 'num_boxes_used', None),
@@ -77,24 +84,31 @@ def test_one_crop(cfg, lfb=None, shift=None, output_dir='.', device='cuda'):
     bank = getattr(db, 'lfb', None)
     if not hasattr(bank, 'gather'):
         bank = None
+    if cfg.TPU.BANK_SHARDED:
+        bank = shard_bank(bank)
     step = make_eval_step(spec, bank=bank, bank_seed=cfg.RNG_SEED)
 
     total = loader.num_batches()
+    lead = mesh.rank() == 0
     try:
-        for i, (batch, dev_batch) in enumerate(
+        for i, (_, dev_batch) in enumerate(
                 DeviceFeed(loader, device, 'test sweep (shift {})'.format(
                     shift))):
             out = step(params, dev_batch)
-            meter.update_test(out['logits'].float().cpu().numpy(),
-                              batch['labels'],
-                              original_boxes=batch.get('original_boxes'),
-                              metadata=batch.get('metadata'),
-                              box_mask=batch.get('box_mask'))
+            batch = mesh.gather_host(dev_batch, ('labels', 'original_boxes',
+                                                 'metadata', 'box_mask'))
+            if lead:
+                meter.update_test(out['logits'].float().cpu().numpy(),
+                                  batch['labels'],
+                                  original_boxes=batch.get('original_boxes'),
+                                  metadata=batch.get('metadata'),
+                                  box_mask=batch.get('box_mask'))
             if (i + 1) % cfg.LOG_PERIOD == 0 or i + 1 == total:
                 logger.info('| Test: [%d/%d]', i + 1, total)
     finally:
         loader.shutdown()
-
+    if not lead:
+        return None
     metrics = meter.finalize_metrics(name=get_test_name(cfg, shift))
     logger.info('Test results: %s', metrics)
     return metrics
@@ -102,7 +116,8 @@ def test_one_crop(cfg, lfb=None, shift=None, output_dir='.', device='cuda'):
 
 def test_net(cfg, lfb=None, output_dir='.', device='cuda'):
     """Full test flow incl. AVA multi-crop (reference ``test_net.py:48-93``);
-    returns the last threshold's metrics, or for multi-crop its final mAP."""
+    returns the last threshold's metrics, or for multi-crop its final mAP
+    (on rank 0 of a data-parallel run; None on the others)."""
     if cfg.DATASET == 'ava':
         results = None
         for threshold in cfg.AVA.DETECTION_SCORE_THRESH_EVAL:
@@ -135,8 +150,9 @@ def test_net(cfg, lfb=None, output_dir='.', device='cuda'):
                             test_one_crop(cfg_c, lfb=crop_lfb, shift=shift,
                                           output_dir=output_dir,
                                           device=device)
-                results = combine_ava_multi_crops(cfg_t, output_dir)
-                logger.info('Multi-crop mAP: %s', results)
+                if mesh.rank() == 0:
+                    results = combine_ava_multi_crops(cfg_t, output_dir)
+                    logger.info('Multi-crop mAP: %s', results)
             else:
                 results = test_one_crop(cfg_t, lfb=lfb,
                                         output_dir=output_dir, device=device)
@@ -149,7 +165,7 @@ def test_net(cfg, lfb=None, output_dir='.', device='cuda'):
 
 def main(argv=None):
     """Parse ``argv`` (``sys.argv[1:]`` by default), load the config and run
-    :func:`test_net`; returns its result."""
+    :func:`test_net` on every rank; returns rank 0's result."""
     logging.basicConfig(level=logging.INFO, format=FORMAT, stream=sys.stdout)
     parser = argparse.ArgumentParser(description='Video model testing')
     parser.add_argument('--config_file', type=str, default=None)
@@ -165,9 +181,13 @@ def main(argv=None):
     cfg = load_config(args.config_file, args.opts or [])
     # Artifacts (detections CSVs, prediction pickles) go next to the
     # checkpoints, like the reference's train-time eval outputs.
-    output_dir = cfg.CHECKPOINT.DIR or '.'
-    os.makedirs(output_dir, exist_ok=True)
-    return test_net(cfg, output_dir=output_dir, device=args.device)
+    os.makedirs(cfg.CHECKPOINT.DIR or '.', exist_ok=True)
+    return launch.run(_test_in_rank, cfg, args.device)
+
+
+def _test_in_rank(cfg, device):
+    """What one rank of ``main`` runs."""
+    return test_net(cfg, output_dir=cfg.CHECKPOINT.DIR or '.', device=device)
 
 
 if __name__ == '__main__':

@@ -10,6 +10,12 @@ model (``LFB.MODEL_PARAMS_FILE``), then trains (``train/trainer.py``:
 checkpoints and the train-time eval under ``CHECKPOINT.DIR``), then, with
 ``TRAIN.TEST_AFTER_TRAIN``, tests the last checkpoint as ``test_net``
 does, writing its artifacts next to the checkpoints.
+
+It runs data-parallel on ``min(NUM_GPUS, cards)`` ranks, spawned by
+:mod:`lfb_tpu_torch.parallel.launch`, or on the ranks ``torchrun`` starts:
+  torchrun --nproc_per_node 8 -m lfb_tpu_torch.tools.train_net ...
+Each rank trains on its shard of every ``TRAIN.BATCH_SIZE`` batch; rank 0
+writes the checkpoints, the banks' pickles, the logs and the test's files.
 """
 
 import argparse
@@ -21,6 +27,7 @@ import torch
 
 from lfb_tpu_torch.bank.lfb import get_lfb
 from lfb_tpu_torch.core.config import clone, load_config
+from lfb_tpu_torch.parallel import launch
 from lfb_tpu_torch.tools.test_net import test_net
 from lfb_tpu_torch.train.trainer import Trainer
 
@@ -29,8 +36,9 @@ logger = logging.getLogger(__name__)
 
 
 def train(cfg, device='cuda'):
-    """Sweep the banks, train, and test the last checkpoint on ``device``.
-    Returns (the last checkpoint's path, the test's metrics or None)."""
+    """Sweep the banks, train, and test the last checkpoint on ``device``
+    (in a process group, as one of its ranks).  Returns (the last
+    checkpoint's path, the test's metrics or None: None on ranks > 0)."""
     device = torch.device(device)
     train_lfb = test_lfb = None
     if cfg.LFB.ENABLED:
@@ -57,7 +65,7 @@ def train(cfg, device='cuda'):
 
 def main(argv=None):
     """Parse ``argv`` (``sys.argv[1:]`` by default), load the config and run
-    :func:`train`; returns what it returns."""
+    :func:`train` on every rank; returns what it returns in rank 0."""
     logging.basicConfig(level=logging.INFO, format=FORMAT, stream=sys.stdout)
     parser = argparse.ArgumentParser(description='Video model training')
     parser.add_argument('--node_id', type=int, default=0)
@@ -74,7 +82,7 @@ def main(argv=None):
     cfg = load_config(args.config_file, args.opts or [])
     # The banks, checkpoints and eval artifacts go there.
     os.makedirs(cfg.CHECKPOINT.DIR or '.', exist_ok=True)
-    return train(cfg, device=args.device)
+    return launch.run(train, cfg, args.device)
 
 
 if __name__ == '__main__':

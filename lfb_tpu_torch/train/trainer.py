@@ -1,5 +1,5 @@
-"""Training orchestration on one device (port of
-``lfb_tpu/train/trainer.py``; reference ``train_net.py:93-212``).
+"""Training orchestration (port of ``lfb_tpu/train/trainer.py``; reference
+``train_net.py:93-212``).
 
 The host loop handles LR scheduling + momentum correction, checkpoint
 cadence, periodic eval, precise-BN, metrics and the NaN watchdog, around
@@ -8,9 +8,12 @@ launches on the device).  Metric pulls (device -> host) wait for
 LOG_PERIOD, checkpoints and evals, so the host runs ahead of the device
 between them.
 
-``lfb_tpu`` trains on the devices it has when there are fewer than
-``NUM_GPUS``; the port has one device, so ``TRAIN.BATCH_SIZE`` is the batch
-of every step on it.
+In a process group (``lfb_tpu``'s mesh) every rank runs this loop on its
+shard of each ``TRAIN.BATCH_SIZE`` batch, from the same params (checked at
+start-up), and makes the same update with the summed gradients; rank 0
+alone writes the checkpoints, the json_stats and the log, every rank reads
+the resume point, and the NaN watchdog reads the global loss, so all ranks
+stop together.  Without a group it trains on one device.
 """
 
 from __future__ import annotations
@@ -23,11 +26,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from lfb_tpu_torch.bank.device_bank import shard_bank
 from lfb_tpu_torch.core.config import clone
 from lfb_tpu_torch.data.loader import DataLoader, DeviceFeed, get_input_db
 from lfb_tpu_torch.eval.metrics import MetricsCalculator
 from lfb_tpu_torch.models.model import frozen_param_names, init_params
 from lfb_tpu_torch.models.spec import build_spec
+from lfb_tpu_torch.parallel import mesh
 from lfb_tpu_torch.train import checkpoints as ckpt
 from lfb_tpu_torch.train import optimizer as opt
 from lfb_tpu_torch.train.lr_policy import get_lr_at_iter
@@ -58,9 +63,11 @@ class Trainer:
         self.checkpoint_dir = os.path.join(
             os.path.abspath(self.output_dir), 'checkpoints')
         os.makedirs(self.checkpoint_dir, exist_ok=True)
-        logger.info('Training on one device (%s) for NUM_GPUS %d: the '
-                    'global TRAIN.BATCH_SIZE %d a step on it', self.device,
-                    cfg.NUM_GPUS, cfg.TRAIN.BATCH_SIZE)
+        self.rank, self.world = mesh.rank(), mesh.world_size()
+        logger.info('Training on %d rank(s) (%s) for NUM_GPUS %d: %d clips a '
+                    'step on each, the global TRAIN.BATCH_SIZE %d',
+                    self.world, self.device, cfg.NUM_GPUS,
+                    cfg.TRAIN.BATCH_SIZE // self.world, cfg.TRAIN.BATCH_SIZE)
         self.train_lfb = train_lfb
         self.test_lfb = test_lfb
 
@@ -76,7 +83,8 @@ class Trainer:
             self.train_db, cfg.TRAIN.BATCH_SIZE,
             num_workers=cfg.DATALOADER.NUM_WORKERS,
             prefetch=cfg.DATALOADER.PREFETCH_BATCHES,
-            seed=cfg.RNG_SEED, is_train=True)
+            seed=cfg.RNG_SEED, is_train=True, rank=self.rank,
+            world=self.world)
         # Training-time evaluation mirrors the reference's phase injection
         # (``train_net.py:107-108``): the val split uses the TRAIN detection
         # threshold and the mini (sec%4==0) subset unless
@@ -94,7 +102,8 @@ class Trainer:
             self.test_db, cfg.TEST.BATCH_SIZE,
             num_workers=cfg.DATALOADER.NUM_WORKERS,
             prefetch=cfg.DATALOADER.PREFETCH_BATCHES,
-            seed=cfg.RNG_SEED + 1, is_train=False)
+            seed=cfg.RNG_SEED + 1, is_train=False, rank=self.rank,
+            world=self.world)
 
         # Model/optimizer state.
         self.frozen_names = frozen_param_names(self.spec, params)
@@ -107,13 +116,20 @@ class Trainer:
         else:
             self.mstate = opt.SGDState(momentum={
                 k: momentum[k] for k in self.trainable})
+        mesh.check_same({**params, **{'momentum ' + k: v for k, v in
+                                      self.mstate.momentum.items()}},
+                        'the initial params and momentum')
 
         # Datasets convert host banks to device banks under TPU.DEVICE_BANK;
         # read the (possibly converted) bank back for the steps.
+        train_bank = _device_bank(self.train_db)
+        test_bank = _device_bank(self.test_db)
+        if cfg.TPU.BANK_SHARDED:
+            train_bank, test_bank = shard_bank(train_bank), shard_bank(
+                test_bank)
         self.train_step = make_train_step(self.spec, cfg.SOLVER,
-                                          bank=_device_bank(self.train_db))
-        self.eval_step = make_eval_step(self.test_spec,
-                                        bank=_device_bank(self.test_db),
+                                          bank=train_bank)
+        self.eval_step = make_eval_step(self.test_spec, bank=test_bank,
                                         bank_seed=cfg.RNG_SEED)
 
         # Meters.
@@ -198,11 +214,16 @@ class Trainer:
             'lfb_tpu_torch')
 
     def save_checkpoint(self, cur_iter: int) -> str:
+        """Rank 0 writes the checkpoint; every rank waits for it and gets
+        its path."""
         path = os.path.join(self.checkpoint_dir,
                             'c2_model_iter{}.pkl'.format(cur_iter + 1))
-        ckpt.save_params(path, self.params(), model_iter=cur_iter + 1,
-                         lr=self.current_lr, momentum=self.mstate.momentum)
-        logger.info('Saved checkpoint %s', path)
+        if self.rank == 0:
+            ckpt.save_params(path, self.params(), model_iter=cur_iter + 1,
+                             lr=self.current_lr,
+                             momentum=self.mstate.momentum)
+            logger.info('Saved checkpoint %s', path)
+        mesh.barrier()
         return path
 
     def params(self) -> Dict[str, torch.Tensor]:
@@ -230,7 +251,8 @@ class Trainer:
                     raise RuntimeError(
                         'ERROR: Got NaN loss at iter {}'.format(it))
                 self.train_meter.update_train(
-                    loss, aux['prob'].float().cpu().numpy(), labels, lr)
+                    loss, aux['prob'].float().cpu().numpy(),
+                    labels.cpu().numpy(), lr)
             pending.clear()
 
         logger.info('Model parameters:\n%s',
@@ -243,8 +265,8 @@ class Trainer:
         trace = StepTrace(cfg.PROF_DAG, self.start_iter, self.output_dir,
                           self.device)
         try:
-            for cur_iter, (host, batch) in enumerate(train_feed,
-                                                     self.start_iter):
+            for cur_iter, (_, batch) in enumerate(train_feed,
+                                                  self.start_iter):
                 # PROF_DAG: trace steps 1-3 (reference uses the prof_dag
                 # executor for per-op timing, ``train_net.py:69-72``).
                 trace.step(cur_iter)
@@ -254,8 +276,10 @@ class Trainer:
                     self.train_step(
                         self.trainable, self.frozen, self.mstate, batch,
                         torch.Generator(device=self.device).manual_seed(
-                            cfg.RNG_SEED * 1000003 + cur_iter), lr)
-                pending.append((cur_iter, aux, host['labels'], lr))
+                            mesh.step_seed(cfg.RNG_SEED * 1000003
+                                           + cur_iter)), lr)
+                pending.append((cur_iter, aux,
+                                mesh.gather_rows(batch['labels']), lr))
                 self.iter_timer.toc()
 
                 if (cur_iter + 1) % log_period == 0:
@@ -285,9 +309,11 @@ class Trainer:
                     self._maybe_precise_bn()
                     self.evaluate(name='iter{}'.format(cur_iter + 1))
                     self.train_meter.finalize_metrics(is_train=True)
-                    log_json_stats(get_json_stats_dict(
+                    stats = get_json_stats_dict(
                         cfg, self.train_meter, self.test_meter, cur_iter,
-                        self.device))
+                        self.device)
+                    if self.rank == 0:
+                        log_json_stats(stats)
                     self.train_meter.reset()
 
             drain()
@@ -302,18 +328,25 @@ class Trainer:
             self.test_loader.shutdown()
         return last_checkpoint
 
-    def evaluate(self, name: str = 'latest') -> Dict[str, float]:
-        """One full sweep over the test split."""
+    def evaluate(self, name: str = 'latest') -> Optional[Dict[str, float]]:
+        """One full sweep over the test split; each rank sweeps its shards,
+        rank 0 gathers the logits, labels, boxes and metadata, and computes
+        and returns the metrics (None on the other ranks)."""
         self.test_meter.reset()
         params = self.params()
-        for batch, dev_batch in DeviceFeed(self.test_loader, self.device,
-                                           'eval sweep ({})'.format(name)):
+        for _, dev_batch in DeviceFeed(self.test_loader, self.device,
+                                       'eval sweep ({})'.format(name)):
             out = self.eval_step(params, dev_batch)
-            self.test_meter.update_test(
-                out['logits'].float().cpu().numpy(), batch['labels'],
-                original_boxes=batch.get('original_boxes'),
-                metadata=batch.get('metadata'),
-                box_mask=batch.get('box_mask'))
+            batch = mesh.gather_host(dev_batch, ('labels', 'original_boxes',
+                                                 'metadata', 'box_mask'))
+            if self.rank == 0:
+                self.test_meter.update_test(
+                    out['logits'].float().cpu().numpy(), batch['labels'],
+                    original_boxes=batch.get('original_boxes'),
+                    metadata=batch.get('metadata'),
+                    box_mask=batch.get('box_mask'))
+        if self.rank:
+            return None
         metrics = self.test_meter.finalize_metrics(name=name)
         self.test_meter.compute_and_log_best()
         logger.info('Eval %s: %s', name, metrics)

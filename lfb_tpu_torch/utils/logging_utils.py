@@ -6,8 +6,9 @@ parameter-table printer standing in for the reference's per-op shape dump
 
 The device memory of a json_stats line is PyTorch's count for the training
 device (``torch.cuda.memory_stats``: the bytes allocated now and at the
-peak), in place of ``lfb_tpu``'s per-TPU ``memory_stats``; a CPU run has
-no such key.
+peak; in a data-parallel run the largest over the ranks), in place of
+``lfb_tpu``'s per-TPU ``memory_stats``; a CPU run has no such key.
+``nGPU`` is the number of ranks the run uses.
 """
 
 from __future__ import annotations
@@ -18,23 +19,31 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
+from lfb_tpu_torch.parallel import mesh
+
 logger = logging.getLogger(__name__)
 
 
 def device_memory(device) -> Optional[Dict]:
     """{device index: {'bytes_in_use', 'peak_bytes_in_use'}} of a CUDA
-    device (``lfb_tpu``'s keys), None for the CPU."""
+    device (``lfb_tpu``'s keys), None for the CPU.  In a process group
+    every rank calls it (one all-reduce) and gets the largest of each count
+    over the ranks."""
     device = torch.device(device)
     if device.type != 'cuda':
         return None
     stats = torch.cuda.memory_stats(device)
+    counts = mesh.all_max(torch.tensor(
+        [stats['allocated_bytes.all.current'],
+         stats['allocated_bytes.all.peak']], device=device))
     return {str(device.index or 0): {
-        'bytes_in_use': stats['allocated_bytes.all.current'],
-        'peak_bytes_in_use': stats['allocated_bytes.all.peak']}}
+        'bytes_in_use': int(counts[0]), 'peak_bytes_in_use': int(counts[1])}}
 
 
 def get_json_stats_dict(cfg, train_meter, test_meter, curr_iter: int,
                         device='cpu') -> Dict:
+    """The json_stats of an eval period; every rank of a process group
+    calls it (:func:`device_memory`)."""
     stats = {
         'eval_period': cfg.TRAIN.EVAL_PERIOD,
         'batchSize': cfg.TRAIN.BATCH_SIZE,
@@ -42,7 +51,7 @@ def get_json_stats_dict(cfg, train_meter, test_meter, curr_iter: int,
         'num_classes': cfg.MODEL.NUM_CLASSES,
         'momentum': cfg.SOLVER.MOMENTUM,
         'weightDecay': cfg.SOLVER.WEIGHT_DECAY,
-        'nGPU': cfg.NUM_GPUS,
+        'nGPU': mesh.world_size(),
         'LR': cfg.SOLVER.BASE_LR,
         'bn_momentum': cfg.MODEL.BN_MOMENTUM,
         'currentIter': curr_iter + 1,

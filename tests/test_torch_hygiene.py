@@ -2,7 +2,8 @@
 
 * Importing every module of ``lfb_tpu_torch`` and ``chip_smoke``, running a
   tiny device-bank eval step, a tiny train step (dropout on, bank windows
-  from the device bank) and a tiny Charades eval step (fused bottleneck,
+  from the device bank), the same step again in a one-rank gloo group
+  (``lfb_tpu_torch.parallel``) and a tiny Charades eval step (fused bottleneck,
   frame-level bank), loading the EPIC configs from their YAML files and a
   checkpoint through the port's checkpoint layer loads no module of the JAX
   package ``lfb_tpu`` (the port keeps its own copies of what it took from
@@ -81,6 +82,21 @@ _, _, state, aux = make_train_step(train_spec, cfg.SOLVER, bank=bank)(
         'labels': torch.ones((1, 80)), 'box_mask': torch.ones(1)},
     torch.Generator().manual_seed(0), optimizer.get_lr_at_iter(cfg.SOLVER, 0))
 assert bool(torch.isfinite(aux['loss'])) and state.momentum['pred_w'].any()
+
+import os, tempfile
+from lfb_tpu_torch.parallel import mesh
+with tempfile.TemporaryDirectory() as d:
+    mesh.init_distributed('cpu', world=1, rank=0,
+                          init_method='file://' + os.path.join(d, 'store'))
+    _, _, _, aux = make_train_step(train_spec, cfg.SOLVER, bank=bank)(
+        trainable, frozen, state, {
+            'data': torch.zeros((1, 8, 32, 32, 3), dtype=torch.uint8),
+            'proposals': torch.tensor([[0.0, 2.0, 2.0, 30.0, 30.0]]),
+            'metadata': torch.tensor([[0.0, 902.0, 0.0, 0.0]]),
+            'labels': torch.ones((1, 80)), 'box_mask': torch.ones(1)},
+        torch.Generator().manual_seed(mesh.step_seed(0)), 0.01)
+    assert mesh.world_size() == 1 and bool(torch.isfinite(aux['loss']))
+    torch.distributed.destroy_process_group()
 
 from lfb_tpu_torch.bank.device_bank import FrameDeviceBank
 from lfb_tpu_torch.config import charades_cfg

@@ -164,8 +164,16 @@ def test_build_spec_takes_the_fused_bottleneck(split):
     {'NONLOCAL.USE_BN': True, 'NONLOCAL.USE_AFFINE': False},
 ])
 def test_build_spec_refuses_what_is_not_ported(overrides):
+    """True-BN training is refused; ``TPU.SHARD_MAP`` and
+    ``TPU.BANK_SHARDED`` are ported (data parallelism over
+    ``torch.distributed``) and build for both splits, as in lfb_tpu."""
     cfg = flagship_cfg({**TINY, **overrides})
     key = next(iter(overrides))
+    if key.startswith('TPU.'):
+        for split in ('test', 'train'):
+            build_spec(cfg, split)
+            jax_models.build_spec(cfg, split)
+        return
     if key in TRAIN_ONLY:
         build_spec(cfg, 'test')
     else:
