@@ -174,6 +174,26 @@ result):
     within ``DP_BANK_BOUND``).  ``tools.train_net`` on two ranks is
     left to the CPU tests (``tests/test_torch_parallel_tools.py``): on
     ``cuda`` the command lines take NCCL, one rank a card.
+15. True-BN training (``MODEL.USE_AFFINE False`` with true-BN non-local
+    blocks, ``lfb_tpu``'s default) of the flagship at full width, seeded
+    perturbed weights with running statistics: (a) one f32 step (1 clip x
+    4 boxes, dropout 0) on the card against the same step on the CPU (the
+    loss, updated params, running statistics and, as a whole, the momentum
+    within ``TRUE_BN_F32_BOUNDS``); (b) at the released B = 16, crop 224, bf16,
+    with ``TPU.REMAT 'stage'`` set, 1 warm-up and 3 timed steps: the launch
+    counters read remat off (8 attention forwards a step, not 13), ms per
+    step, the peak memory; (c) ``compute_precise_bn_stats`` over 4 of those
+    batches, ms per iteration, then one eval forward with the new
+    statistics in bf16 within ``TRUE_BN_EVAL_BOUND`` of the same forward in
+    f32; (d) two gloo ranks on the card, 2 f32 true-BN steps at a global 2
+    clips against one process's (running statistics and params within
+    ``TRUE_BN_DP_BOUND`` of each tensor's largest value, the momentum as a
+    whole within ``TRUE_BN_F32_BOUNDS``).
+16. The parity harness: ``python -m lfb_tpu_torch.tools.parity_eval
+    --dryrun DIR`` (its ``main``, in process) over its five configs on
+    ``cuda``, the flagship through multi-crop testing with its bank
+    inferred again for each flip; each config timed, ``DRYRUN SUMMARY:
+    5/5`` asserted.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so the plain
 versions the kernels are compared with compute in full f32.
@@ -229,6 +249,39 @@ DP_WORLD, DP_STEPS = 2, 3
 # 1, relative to the largest: bf16 through R101 at another batch (8 clips a
 # rank, not 16), where cuDNN may take other algorithms.
 DP_BANK_BOUND = 2e-3
+# Phase 15: true-BN training (lfb_tpu's default, MODEL.USE_AFFINE False with
+# true-BN non-local blocks), at B = 16 under TPU.REMAT 'stage' (which true BN
+# turns off), precise BN over 4 of its batches, two gloo ranks on the card.
+TRUE_BN = {'MODEL.USE_AFFINE': False, 'NONLOCAL.USE_AFFINE': False,
+           'NONLOCAL.USE_BN': True}
+TRUE_BN_WARMUP, TRUE_BN_STEPS, PRECISE_BN_ITERS = 1, 3, 4
+# The f32 steps of (a) and (d): no dropout (the card and the CPU, or the
+# ranks and one process, draw other masks).
+F32_STEP = {'TPU.COMPUTE_DTYPE': 'float32', 'TRAIN.DROPOUT_RATE': 0.0,
+            'FBO_NL.DROPOUT_RATE': 0.0}
+# Under true BN a bias that a batch-statistics BN follows has an exact
+# gradient of zero, as ``*_phi_b`` always has: the non-local blocks'
+# ``*_out_b`` (the BN after the output conv subtracts its shift) and
+# ``*_g_b`` (the softmax rows sum to 1, so it shifts every output alike).
+TRUE_BN_ZERO_GRAD = ('_phi_b', '_out_b', '_g_b')
+# (a), one f32 step of one clip on the card against the CPU: the loss, the
+# updated params and the running statistics, each tensor against its
+# largest CPU value, and the momentum as a whole (its relative L2
+# distance).  A random deep BN net's gradients are chaotic: scaling the
+# weights by one f32 rounding step (NUDGE) moves single momentum buffers by
+# up to 1.1e-1 of their largest value on the card, so each buffer's gap is
+# logged beside that floor, not bounded; over all buffers the nudge moves
+# the momentum by 2.6e-4 (relative L2) and the CPU is 1.0e-4 away (PR 12),
+# where a wrong statistic or gradient moves it by its own scale.
+TRUE_BN_F32_BOUNDS = {'loss': 1e-4, 'params': 1e-4, 'stats': 1e-3,
+                      'momentum': 1e-3}
+NUDGE = 2 ** -22
+# (c) the eval forward in bf16 against f32 (phase 4's bound for bf16); (d)
+# two ranks against one process: the losses, and each param and running
+# statistic against its largest value, TRUE_BN_DP_BOUND; the momentum's
+# relative L2 distance (1.7e-4 on the card, the nudge's 1.4e-4),
+# TRUE_BN_F32_BOUNDS['momentum'].
+TRUE_BN_EVAL_BOUND, TRUE_BN_DP_BOUND = 2e-2, 1e-4
 AVA_VIDEOS = 235
 CHARADES_VIDEOS = 1814                  # TEST.DATASET_SIZE, the val split
 CHARADES_FRAMES = (15 * 24, 45 * 24)    # video lengths, 30 s on average
@@ -1800,30 +1853,13 @@ def train_reference_check(cfg):
     import torch
     from lfb_tpu_torch.config import flagship_cfg
     from lfb_tpu_torch.models.spec import build_spec
-    from lfb_tpu_torch.train import optimizer
-    from lfb_tpu_torch.train.optimizer import get_lr_at_iter
-    from lfb_tpu_torch.train.steps import make_train_step, split_params
-    spec = build_spec(flagship_cfg({
-        **CFG_OVERRIDES, 'TPU.COMPUTE_DTYPE': 'float32',
-        'TRAIN.DROPOUT_RATE': 0.0, 'FBO_NL.DROPOUT_RATE': 0.0}), 'train')
+    spec = build_spec(flagship_cfg({**CFG_OVERRIDES, **F32_STEP}), 'train')
     params = perturbed_params(spec, torch.device('cuda'))
     batch = make_batch(spec, np.random.default_rng(SEED + 5), 'cuda',
                        n_clips=1, with_lfb=True, with_labels=True)
-    lr = get_lr_at_iter(cfg.SOLVER, 0)
-    runs = {}
-    for device in ('cuda', 'cpu'):
-        p = {k: v.to(device, copy=True) for k, v in params.items()}
-        trainable, frozen = split_params(spec, p)
-        state = optimizer.init_state(p, set(frozen))
-        t0 = time.perf_counter()
-        _, _, state, aux = make_train_step(spec, cfg.SOLVER)(
-            trainable, frozen, state,
-            {k: v.to(device) for k, v in batch.items()},
-            torch.Generator(device=device).manual_seed(SEED), lr)
-        loss = aux['loss'].item()
-        runs[device] = (loss, {k: v.cpu() for k, v in state.momentum.items()},
-                        time.perf_counter() - t0)
-    (gpu_loss, gpu_m, gpu_s), (cpu_loss, cpu_m, cpu_s) = runs['cuda'], runs['cpu']
+    (gpu_loss, _, gpu_m, _, gpu_s), (cpu_loss, _, cpu_m, _, cpu_s) = (
+        one_step(device, spec, cfg.SOLVER, params, batch)
+        for device in ('cuda', 'cpu'))
     loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
     log('train reference: loss card {:.7f} CPU {:.7f}, rel {:.3e} (bound '
         '1e-04); card {:.1f} s (first step), CPU {:.1f} s'.format(
@@ -2083,15 +2119,16 @@ def remat_f32_check(cfg, bank):
             worst_leaf(runs[2][1], runs[1][1]))
 
 
-def worst_leaf(got, ref):
+def worst_leaf(got, ref, zero_grad=('_phi_b',)):
     """The largest difference of a tensor of ``got`` from that of ``ref``,
     relative to the largest |value| of the ``ref`` tensor: (rel, name).  A
-    ``*_phi_b`` tensor is held to the scale of its ``*_phi_w`` tensor
+    bias whose name ends in one of ``zero_grad`` (``*_phi_b``) is held to the
+    scale of its weight (``*_phi_w``): its exact gradient is zero
     (:func:`train_reference_check` says why)."""
     worst = (0.0, '')
     for name, want in ref.items():
         scale = want.abs().max().item()
-        if name.endswith('_phi_b'):
+        if name.endswith(zero_grad):
             scale = max(scale, ref[name[:-1] + 'w'].abs().max().item())
         diff = (got[name].float() - want.float()).abs().max().item()
         worst = max(worst, (diff / scale if scale else diff, name))
@@ -2799,28 +2836,7 @@ def data_parallel_phase(cfg, bank, stage_run, stage_ms, root):
     del bank, batches, stage_run
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    ctx = torch.multiprocessing.get_context('spawn')
-    results = ctx.Queue()
-    with tempfile.TemporaryDirectory(dir='build') as d:
-        procs = torch.multiprocessing.start_processes(
-            dp_rank, args=(os.path.join(d, 'store'), root, results),
-            nprocs=DP_WORLD, join=False, start_method='spawn')
-        out = {}
-        while len(out) < DP_WORLD:
-            try:
-                r, result = results.get(timeout=1.0)
-                out[r] = result
-            except queue.Empty:
-                if procs.join(timeout=0):
-                    break
-        while not procs.join():
-            pass
-    if len(out) != DP_WORLD:
-        raise AssertionError('phase 14 (b): results of ranks {}'.format(
-            sorted(out)))
-    log('phase 14 (b): {:.1f} s for the two ranks, start-up included'.format(
-        time.perf_counter() - t0))
+    run_ranks('phase 14 (b)', dp_rank, root)
     return {k: sum(n[k] for n in all_launches) for k in all_launches[0]}
 
 
@@ -2988,6 +3004,418 @@ def dp_rank(rank, store, root, results):
     results.put((rank, out))
 
 
+def true_bn_cfg(**overrides):
+    """The flagship config in true-BN mode (:data:`TRUE_BN`)."""
+    from lfb_tpu_torch.config import flagship_cfg
+    return flagship_cfg({**CFG_OVERRIDES, **TRUE_BN, **overrides})
+
+
+def true_bn_params(spec, device):
+    """:func:`perturbed_params` with each residual branch's last BN scale
+    (``*_branch2c_bn_s``) near 0, 0.02 + 0.002 N(0, 1), as the reference
+    starts it (``MODEL.BN_INIT_GAMMA`` 0); the non-local blocks' scales
+    start at 0 too and are drawn at 0.05 N(0, 1).  With batch statistics
+    nothing grows from block to block, and at :func:`perturbed_params`'
+    0.2 a random 101-layer BN net is chaotic: one f32 step's momentum on
+    the card and on the CPU differed by up to 1.2e-1 of a tensor's largest
+    value (PR 12), with the loss within 1e-7."""
+    import torch
+    params = perturbed_params(spec, device)
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    for name, value in params.items():
+        if name.endswith('_branch2c_bn_s'):
+            params[name] = 0.02 + 0.002 * torch.randn(
+                value.shape, generator=g, device=device)
+    return params
+
+
+def rel_l2(got, ref):
+    """The relative L2 distance of the tensors ``got`` from ``ref``, taken
+    over all of them at once."""
+    num = sum((got[k].double() - v.double()).square().sum().item()
+              for k, v in ref.items())
+    den = sum(v.double().square().sum().item() for v in ref.values())
+    return (num / den) ** 0.5
+
+
+def nudged(params):
+    """``params`` with every weight (``*_w``) scaled by 1 + NUDGE."""
+    return {k: v * (1 + NUDGE) if k.endswith('_w') else v
+            for k, v in params.items()}
+
+
+def running_stats(params):
+    """The BN running statistics (``*_bn_rm``, ``*_bn_riv``) of ``params``."""
+    return {k: v for k, v in params.items()
+            if k.endswith(('_bn_rm', '_bn_riv'))}
+
+
+def true_bn_phase():
+    """Phase 15: true-BN training of the flagship at full width
+    (:func:`true_bn_cfg`: every BN and the non-local blocks' BN normalize
+    with batch statistics).  (a) :func:`true_bn_reference_check`; (b) at
+    the released B = 16, crop 224, bf16, with ``TPU.REMAT 'stage'`` set, 1
+    warm-up and 3 timed steps with windows in the batch: each step's
+    launches those of a step without remat (8 attention forwards, not 13),
+    ms per step, the peak memory, every running statistic moved and momentum
+    on the BN scales; (c) ``compute_precise_bn_stats`` over 4 of those
+    batches (ms per iteration, launches those of 4 forwards), then one eval
+    forward (crop 256, 2 clips) with the new statistics in bf16 and in f32:
+    finite, the probs within ``TRUE_BN_EVAL_BOUND``; (d)
+    :func:`true_bn_rank` on two gloo ranks.  Returns the launches of (a),
+    (b) and (c)."""
+    import torch
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.train.precise_bn import compute_precise_bn_stats
+    from lfb_tpu_torch.train.steps import make_eval_step
+    dev = torch.device('cuda')
+    t0 = time.perf_counter()
+    all_launches = [true_bn_reference_check()]
+    t1 = time.perf_counter()
+
+    cfg = true_bn_cfg(**{'TPU.REMAT': 'stage'})
+    spec = build_spec(cfg, 'train')
+    if spec.use_affine or spec.nl.use_affine or spec.remat != 'stage':
+        raise AssertionError('phase 15: not a true-BN spec under stage')
+    rng = np.random.default_rng(SEED + 22)
+    batches = [make_batch(spec, rng, dev, n_clips=REMAT_B, with_lfb=True,
+                          with_labels=True)
+               for _ in range(TRUE_BN_WARMUP + TRUE_BN_STEPS)]
+    params = true_bn_params(spec, dev)
+    before = {k: v.clone() for k, v in running_stats(params).items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, launches, state = train_steps(
+        'phase 15 (b)', spec, cfg.SOLVER, None, batches, params,
+        PER_FORWARD['train'])
+    all_launches.append(launches)
+    unmoved = [k for k, v in before.items() if torch.equal(params[k], v)]
+    if unmoved or not state.momentum['res2_0_branch2a_bn_s'].any():
+        raise AssertionError('phase 15 (b): running statistics not written '
+                             '({}) or no momentum on a BN scale'.format(
+                                 unmoved[:3]))
+    log("phase 15 (b) true BN, TPU.REMAT 'stage' (off under true BN): "
+        'launches per step {} (remat would run 13 attention forwards); the '
+        '{} running statistics moved'.format(PER_FORWARD['train'],
+                                             len(before)))
+    step_ms, peak = log_steps('phase 15 (b) true-BN train at B = {}, crop '
+                              '{}, bf16'.format(REMAT_B, spec.crop_size), ms,
+                              TRUE_BN_WARMUP, REMAT_B, losses)
+    del state, before
+    t2 = time.perf_counter()
+
+    stamps = []
+    reset_launches()
+    new = compute_precise_bn_stats(spec, params, timed(batches, stamps),
+                                   PRECISE_BN_ITERS)
+    launches = read_launches()
+    want = {k: n * PRECISE_BN_ITERS for k, n in PER_FORWARD['B'].items()}
+    iter_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    if launches != want or len(iter_ms) != PRECISE_BN_ITERS:
+        raise AssertionError('phase 15 (c): launches {} != {}'.format(
+            launches, want))
+    all_launches.append(launches)
+    del batches
+    probs = {}
+    batch = make_batch(build_spec(cfg, 'test'), rng, dev, n_clips=2,
+                       with_lfb=True)
+    reset_launches()
+    for dtype in ('bfloat16', 'float32'):
+        spec_e = build_spec(true_bn_cfg(**{'TPU.COMPUTE_DTYPE': dtype}),
+                            'test')
+        probs[dtype] = make_eval_step(spec_e)(new, batch)['prob'].float()
+    launches = read_launches()
+    want = {k: 2 * n for k, n in PER_FORWARD['B'].items()}
+    if launches != want:
+        raise AssertionError('phase 15 (c) eval: launches {} != {}'.format(
+            launches, want))
+    all_launches.append(launches)
+    err = (probs['bfloat16'] - probs['float32']).abs().max().item()
+    log('phase 15 (c) precise BN over {} batches of {}: ms per iteration {} '
+        '({:.1f} after the first); eval forward with the new statistics '
+        '(crop {}, 2 clips): bf16 prob {} from f32 (bound {:.0e}), finite '
+        '{}; {}'.format(PRECISE_BN_ITERS, REMAT_B,
+                        ['{:.1f}'.format(m) for m in iter_ms],
+                        statistics.mean(iter_ms[1:]),
+                        build_spec(cfg, 'test').crop_size,
+                        '{:.3e}'.format(err), TRUE_BN_EVAL_BOUND,
+                        bool(torch.isfinite(probs['bfloat16']).all()),
+                        card_line()))
+    if not (err <= TRUE_BN_EVAL_BOUND
+            and torch.isfinite(probs['bfloat16']).all()):
+        raise AssertionError('phase 15 (c): the eval forward with the '
+                             'precise-BN statistics is off')
+    del params, new, batch, probs
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+
+    run_ranks('phase 15 (d)', true_bn_rank)
+    log('phase 15: (a) {:.1f} s, (b) {:.1f} s, (c) {:.1f} s, (d) {:.1f} s; '
+        'the B = 16 step {:.1f} ms, peak {:.2f} GiB'.format(
+            t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3, step_ms,
+            peak))
+    return {k: sum(n[k] for n in all_launches) for k in all_launches[0]}
+
+
+def one_step(device, spec, solver, params, batch):
+    """One ``make_train_step`` step on ``device`` from a copy of ``params``
+    at iteration 0's LR: (loss, updated trainable params, momentum, running
+    statistics, seconds), all on the CPU."""
+    import torch
+    from lfb_tpu_torch.train import optimizer
+    from lfb_tpu_torch.train.optimizer import get_lr_at_iter
+    from lfb_tpu_torch.train.steps import make_train_step, split_params
+    p = {k: v.to(device, copy=True) for k, v in params.items()}
+    trainable, frozen = split_params(spec, p)
+    state = optimizer.init_state(p, set(frozen))
+    t0 = time.perf_counter()
+    _, _, state, aux = make_train_step(spec, solver)(
+        trainable, frozen, state, {k: v.to(device) for k, v in batch.items()},
+        torch.Generator(device=device).manual_seed(SEED),
+        get_lr_at_iter(solver, 0))
+    loss = aux['loss'].item()
+    seconds = time.perf_counter() - t0
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}  # noqa: E731
+    return (loss, cpu(trainable), cpu(state.momentum),
+            cpu(running_stats(frozen)), seconds)
+
+
+def true_bn_reference_check():
+    """Phase 15 (a): one full-width f32 true-BN step (1 clip x 4 boxes, T
+    32, crop 224, dropout 0, windows in the batch) on the card (kernels)
+    against the same step on the CPU (plain versions), from the same
+    params: the loss, the updated params and the running statistics the
+    step wrote, each within ``TRUE_BN_F32_BOUNDS`` of its largest CPU
+    value, and the momentum's relative L2 distance; each buffer's worst gap
+    logged beside the floor, how far the card's own momentum moves when
+    the weights are scaled by 1 + ``NUDGE``.  Returns the card step's
+    launches."""
+    import torch
+    from lfb_tpu_torch.models.spec import build_spec
+    cfg = true_bn_cfg(**F32_STEP)
+    spec = build_spec(cfg, 'train')
+    params = true_bn_params(spec, torch.device('cuda'))
+    batch = make_batch(spec, np.random.default_rng(SEED + 21), 'cuda',
+                       n_clips=1, with_lfb=True, with_labels=True)
+    reset_launches()
+    card = one_step('cuda', spec, cfg.SOLVER, params, batch)
+    launches = read_launches()
+    if launches != PER_FORWARD['train']:
+        raise AssertionError('phase 15 (a): launches {} != {}'.format(
+            launches, PER_FORWARD['train']))
+    host = one_step('cpu', spec, cfg.SOLVER, params, batch)
+    # How far one f32 rounding step of the weights moves the card's own
+    # momentum: the floor under the card-vs-CPU gaps.
+    nudge = one_step('cuda', spec, cfg.SOLVER, nudged(params), batch)
+    floor = worst_leaf(nudge[2], card[2], TRUE_BN_ZERO_GRAD)
+    loss_rel = abs(card[0] - host[0]) / abs(host[0])
+    momentum = rel_l2(card[2], host[2])
+    params_rel = worst_leaf(card[1], host[1])
+    stats_rel = worst_leaf(card[3], host[3])
+    bounds = TRUE_BN_F32_BOUNDS
+    log('phase 15 (a) one f32 true-BN step, card vs CPU: loss {:.7f} / '
+        '{:.7f}, rel {:.3e} (bound {:.0e}); updated params worst rel {:.3e} '
+        '({}; bound {:.0e}); running statistics {:.3e} ({}; bound {:.0e}); '
+        'momentum rel L2 {:.3e} (bound {:.0e}), worst buffer {:.3e} ({}); '
+        'the card\'s momentum with the weights scaled by 1 + 2^-22 (the '
+        'floor): rel L2 {:.3e}, worst buffer {:.3e} ({}); card {:.1f} s, CPU '
+        '{:.1f} s'.format(
+            card[0], host[0], loss_rel, bounds['loss'], *params_rel,
+            bounds['params'], *stats_rel, bounds['stats'], momentum,
+            bounds['momentum'],
+            *worst_leaf(card[2], host[2], TRUE_BN_ZERO_GRAD),
+            rel_l2(nudge[2], card[2]), *floor, card[4], host[4]))
+    if not (loss_rel <= bounds['loss'] and momentum <= bounds['momentum']
+            and params_rel[0] <= bounds['params']
+            and stats_rel[0] <= bounds['stats']):
+        raise AssertionError('phase 15 (a): the card\'s true-BN step '
+                             'disagrees with the CPU\'s')
+    return launches
+
+
+def true_bn_rank(rank, store, results):
+    """One of phase 15 (d)'s two ranks, both on ``cuda:0``, in a gloo group
+    (the BN statistics' all-reduces and the gradients' through the host).
+    Rank 0 first runs two f32 true-BN steps of the flagship (dropout off,
+    windows in the batch) alone, before the group exists, on global batches
+    of 2 clips x 4 boxes; then both ranks run them on their halves (1 clip
+    each), taking the global batch's statistics.  Every rank must hold the
+    same params, momentum and running statistics (``mesh.check_same``), and
+    rank 0's losses, params and running statistics must be within
+    ``TRUE_BN_DP_BOUND`` of the one process's, each tensor against its
+    largest value, its momentum within ``TRUE_BN_F32_BOUNDS['momentum']``
+    (relative L2 distance; each buffer's worst gap logged beside the floor,
+    the one process's move when the weights are scaled by 1 + ``NUDGE``).
+    Rank r puts (r, its numbers) on ``results``."""
+    import torch
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.parallel import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device('cuda', 0)
+    cfg = true_bn_cfg(**F32_STEP)
+    spec = build_spec(cfg, 'train')
+    rng = np.random.default_rng(SEED + 23)
+    batches = [make_batch(spec, rng, dev, n_clips=DP_WORLD, with_lfb=True,
+                          with_labels=True) for _ in range(2)]
+
+    def run(label, feed, nudge=False):
+        params = true_bn_params(spec, dev)
+        if nudge:
+            params = nudged(params)
+        losses, ms, _, state = train_steps(label, spec, cfg.SOLVER, None, feed,
+                                           params, PER_FORWARD['train'])
+        cpu = lambda d: {k: v.cpu() for k, v in d.items()}  # noqa: E731
+        return (losses, cpu({k: params[k] for k in state.momentum}),
+                cpu(state.momentum), cpu(running_stats(params)), ms)
+
+    if rank == 0:
+        ref = run('phase 15 (d), one process', batches)
+        nudge = run('phase 15 (d), one process, nudged', batches, nudge=True)
+        floor = worst_leaf(nudge[2], ref[2], TRUE_BN_ZERO_GRAD)
+    torch.distributed.init_process_group('gloo', init_method='file://' + store,
+                                         world_size=DP_WORLD, rank=rank)
+    out = {}
+    try:
+        got = run('phase 15 (d), rank {}'.format(rank),
+                  [mesh.shard_batch(b, rank, DP_WORLD) for b in batches])
+        mesh.check_same({**got[1], **got[3], **{
+            'momentum ' + k: v for k, v in got[2].items()}},
+            'the true-BN params, momentum and running statistics')
+        if rank == 0:
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got[0], ref[0]))
+            worst = {'params': worst_leaf(got[1], ref[1]),
+                     'running statistics': worst_leaf(got[3], ref[3])}
+            momentum = rel_l2(got[2], ref[2])
+            log('phase 15 (d) gloo, 2 ranks on one card, 1 clip each, 2 f32 '
+                'true-BN steps: {:.1f} ms for the second step (one process, '
+                '2 clips: {:.1f} ms); against one process: the losses rel '
+                '{:.3e}; {} (bound {:.0e} of each tensor\'s largest value); '
+                'the momentum rel L2 {:.3e} (bound {:.0e}), worst buffer '
+                '{:.3e} ({}); the one process\'s momentum with the weights '
+                'scaled by 1 + 2^-22 (the floor): rel L2 {:.3e}, worst buffer '
+                '{:.3e} ({}); every rank the same; {}'.format(
+                    got[4][1], ref[4][1], loss_rel,
+                    ', '.join('{} worst rel {:.3e} ({})'.format(k, *v)
+                              for k, v in worst.items()), TRUE_BN_DP_BOUND,
+                    momentum, TRUE_BN_F32_BOUNDS['momentum'],
+                    *worst_leaf(got[2], ref[2], TRUE_BN_ZERO_GRAD),
+                    rel_l2(nudge[2], ref[2]), *floor, card_line()))
+            if not (loss_rel <= TRUE_BN_DP_BOUND
+                    and momentum <= TRUE_BN_F32_BOUNDS['momentum']
+                    and all(v[0] <= TRUE_BN_DP_BOUND
+                            for v in worst.values())):
+                raise AssertionError('phase 15 (d): two ranks disagree with '
+                                     'one process')
+            out = {'momentum': momentum,
+                   **{k: v[0] for k, v in worst.items()}}
+    finally:
+        torch.distributed.destroy_process_group()
+    results.put((rank, out))
+
+
+def run_ranks(label, fn, *args):
+    """Spawn ``fn(rank, store, *args, results)`` on :data:`DP_WORLD` ranks
+    with a file store under ``build/``; each rank puts (rank, result) on
+    ``results``.  Raises unless every rank put one; returns {rank:
+    result}."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.get_context('spawn')
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(dir='build') as d:
+        procs = torch.multiprocessing.start_processes(
+            fn, args=(os.path.join(d, 'store'),) + args + (results,),
+            nprocs=DP_WORLD, join=False, start_method='spawn')
+        out = {}
+        while len(out) < DP_WORLD:
+            try:
+                r, result = results.get(timeout=1.0)
+                out[r] = result
+            except queue.Empty:
+                if procs.join(timeout=0):
+                    break
+        while not procs.join():
+            pass
+    if len(out) != DP_WORLD:
+        raise AssertionError('{}: results of ranks {}'.format(label,
+                                                              sorted(out)))
+    log('{}: {:.1f} s for the two ranks, start-up included'.format(
+        label, time.perf_counter() - t0))
+    return out
+
+
+class _Tee:
+    """Writes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def parity_dryrun_phase():
+    """Phase 16: ``python -m lfb_tpu_torch.tools.parity_eval --dryrun DIR``
+    (its ``main``, in this process, on ``cuda``) over the five
+    ``DRYRUN_CONFIGS``: manifest-shaped random checkpoints, the synthetic
+    splits of ``tests/synthetic.py``, bank inference for the LFB configs
+    and the flagship's multi-crop test (2 flips x 1 scale x 3 shifts, the
+    bank inferred again for each flip).  Each config timed; the output must
+    hold ``DRYRUN SUMMARY: 5/5`` and a PARITY line for each config; the
+    forward kernels must have run and no backward kernel.  Returns the
+    launches."""
+    import contextlib
+    import io
+    import tempfile
+    from lfb_tpu_torch.tools import parity_eval
+    seconds = {}
+    dryrun_one = parity_eval.dryrun_one
+
+    def timed_one(name, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return dryrun_one(name, *args, **kwargs)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir='build') as d:
+        parity_eval.dryrun_one = timed_one
+        reset_launches()
+        try:
+            with contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+                parity_eval.main(['--dryrun', d])
+        finally:
+            parity_eval.dryrun_one = dryrun_one
+        launches = read_launches()
+    text = out.getvalue()
+    names = parity_eval.DRYRUN_CONFIGS
+    log('phase 16 parity_eval --dryrun on cuda: {:.1f} s; per config {}; '
+        'launches {}'.format(time.perf_counter() - t0, ', '.join(
+            '{} {:.1f} s'.format(n, seconds.get(n, float('nan')))
+            for n in names), launches))
+    parity_lines = [line for line in text.splitlines()
+                    if line.startswith('PARITY[')]
+    if ('DRYRUN SUMMARY: {0}/{0}'.format(len(names)) not in text
+            or len(parity_lines) != len(names) or len(names) != 5
+            or not all(launches[k] > 0 for k in ('stem_conv', 'attention',
+                                                  'roi_align_maxpool'))
+            or any(launches[k] for k in _NO_BWD)
+            or launches['fused_bottleneck']):
+        raise AssertionError('phase 16: {} PARITY lines, launches {}'.format(
+            len(parity_lines), launches))
+    return launches
+
+
 def trace_window(label, run, count, out, stem):
     """Run ``run(i)`` for i < ``count`` on the host clock, then the same
     under torch.profiler; write the Chrome trace and the operator table to
@@ -3097,6 +3525,7 @@ def main():
         help='instead of the checks, trace the full-width phase-B forward and '
              'a train step and write the traces and operator tables to DIR')
     args = parser.parse_args()
+    t_start = time.perf_counter()
     preamble()
     import torch
     from lfb_tpu_torch.config import flagship_cfg
@@ -3129,6 +3558,9 @@ def main():
         path_launches.append(data_parallel_phase(cfg, bank, stage_run,
                                                  stage_ms, root))
     del bank, stage_run
+    torch.cuda.empty_cache()
+    path_launches.append(true_bn_phase())
+    path_launches.append(parity_dryrun_phase())
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -3142,6 +3574,8 @@ def main():
                         'library_device_ms': r.get('library_device_ms'),
                         'library': r.get('library'),
                         'tolerance': r['tolerance']})
+    log('chip_smoke: {:.1f} s in all, phases 1-16'.format(
+        time.perf_counter() - t_start))
     print(card_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -230,6 +230,11 @@ class DeviceFeed:
             t0 = time.perf_counter()
             dev = to_device(batch, self.device)
             to_device_s = time.perf_counter() - t0
+            # Read before the consumer runs: it may start another sweep of
+            # the loader (precise BN), which begins new lists.
+            row = {'build_ms': 1e3 * self.loader.build_s[-1],
+                   'wait_ms': 1e3 * self.loader.wait_s[-1],
+                   'to_device_ms': 1e3 * to_device_s}
             if cuda:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -239,10 +244,8 @@ class DeviceFeed:
                 end.record()
                 events.append((start, end))
             t_end = time.perf_counter()
-            self.rows.append({'build_ms': 1e3 * self.loader.build_s[-1],
-                              'wait_ms': 1e3 * self.loader.wait_s[-1],
-                              'to_device_ms': 1e3 * to_device_s,
-                              'wall_ms': 1e3 * (t_end - t_prev)})
+            row['wall_ms'] = 1e3 * (t_end - t_prev)
+            self.rows.append(row)
             t_prev = t_end
         if cuda:
             torch.cuda.synchronize(self.device)

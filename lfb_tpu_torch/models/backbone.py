@@ -10,21 +10,27 @@ blocks run per temporal group of 4 frames in affine mode (reference
 
 The modules hold no weights: each ``forward`` takes the model's flat
 parameter mapping ``p`` and reads its blobs by name.  Activations are NDHWC.
-``train`` changes nothing in frozen-affine mode (the ported one); true BN
-refuses to train (``layers.apply_norm``).  With ``use_pallas_bottleneck``,
+``train`` changes nothing in frozen-affine mode; with true BN it normalizes
+with batch statistics and records them in ``bn_updates``
+(``layers.apply_norm``).  With ``use_pallas_bottleneck``,
 inference runs each identity block as one fused kernel
 (``ops/cuda_bottleneck.py``).
 
 Rematerialization (``spec.remat``, ``lfb_tpu/models/backbone.py:143-192``):
-in training, 'stage' runs each res-stage, 'res2' res2 alone and 'block'
-each bottleneck block (not the non-local block after it) under
+in training with the frozen affine, 'stage' runs each res-stage, 'res2'
+res2 alone and 'block' each bottleneck block (not the non-local block after
+it) under
 ``torch.utils.checkpoint``, which keeps only the region's input and runs
 the region again in the backward.  The stem and pool1 stay outside.  The
 checkpoint is the non-reentrant one: the regions read their parameters
 from ``p``, not from their inputs, and only that form carries gradients to
 such tensors.  Nothing in the backbone draws random numbers (the bank
 windows and the dropout masks are drawn outside it), so the recompute needs
-no RNG state.
+no RNG state.  Training with true BN (``spec.use_affine`` False) turns
+remat off, as ``lfb_tpu`` does: its batch statistics leave the regions
+through ``bn_updates``.  With ``MODEL.USE_AFFINE`` True and true-BN
+non-local blocks remat stays on, and the recompute derives the same batch
+statistics again.
 """
 
 from __future__ import annotations
@@ -130,7 +136,8 @@ class Bottleneck(nn.Module):
         self.has_branch1 = not (dim_in == dim_out and temp_stride == 1
                                 and stride == 1)
 
-    def forward(self, p: P, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, p: P, x: torch.Tensor, train: bool,
+                bn_updates: dict | None = None) -> torch.Tensor:
         spec, pre = self.spec, self.prefix
         # The fused block (inference, frozen affine, identity shortcut), under
         # lfb_tpu's predicate (``lfb_tpu/models/backbone.py:213-219``) but
@@ -146,7 +153,8 @@ class Bottleneck(nn.Module):
 
         def norm(name, h):
             return apply_norm(p, pre + name, h, use_affine=spec.use_affine,
-                              epsilon=spec.bn_epsilon, train=train)
+                              epsilon=spec.bn_epsilon, train=train,
+                              bn_updates=bn_updates)
 
         h = conv3d(x, p[pre + '_branch2a_w'],
                    strides=(self.temp_stride, 1, 1),
@@ -178,7 +186,8 @@ class NonLocal(nn.Module):
         self.group_num = (spec.pool_stride // spec.nl_group_size if grouped
                           else 1)
 
-    def forward(self, p: P, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, p: P, x: torch.Tensor, train: bool,
+                bn_updates: dict | None = None) -> torch.Tensor:
         B, T, H, W, C = x.shape
         g = self.group_num
         if g > 1:
@@ -188,10 +197,11 @@ class NonLocal(nn.Module):
             x_nl = x.reshape(B * g, T // g, H, W, C)
         else:
             x_nl = x
-        out = x_nl + self._attend(p, x_nl, train)
+        out = x_nl + self._attend(p, x_nl, train, bn_updates)
         return out.reshape(B, T, H, W, C) if g > 1 else out
 
-    def _attend(self, p: P, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def _attend(self, p: P, x: torch.Tensor, train: bool,
+                bn_updates: dict | None) -> torch.Tensor:
         nl, pre = self.spec.nl, self.prefix
         B, T, H, W, C = x.shape
         dim_inner = p[pre + '_theta_w'].shape[0]
@@ -209,7 +219,8 @@ class NonLocal(nn.Module):
                       p.get(pre + '_out_b'))
         if nl.use_bn or nl.use_affine:
             out = apply_norm(p, pre + '_bn', out, use_affine=nl.use_affine,
-                             epsilon=nl.bn_epsilon, train=train)
+                             epsilon=nl.bn_epsilon, train=train,
+                             bn_updates=bn_updates)
         return out
 
 
@@ -246,33 +257,38 @@ class Backbone(nn.Module):
             stages.append(nn.ModuleList(layers))
         self.stages = nn.ModuleList(stages)
 
-    def forward(self, p: P, x: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+    def forward(self, p: P, x: torch.Tensor, train: bool = False,
+                bn_updates: dict | None = None) -> torch.Tensor:
+        """``bn_updates``: where true-BN layers record their batch
+        statistics in training (``layers.apply_norm``)."""
         spec = self.spec
         h = StemConv.apply(x, p['conv1_w'], self.temporal_pad)
         h = apply_norm(p, 'res_conv1_bn', h, use_affine=spec.use_affine,
-                       epsilon=spec.bn_epsilon, train=train)
+                       epsilon=spec.bn_epsilon, train=train,
+                       bn_updates=bn_updates)
         h = max_pool_3d(F.relu(h), (1, 3, 3), (1, 2, 2), (0, 1, 1))
-        # lfb_tpu also turns remat off in true-BN training, which the port
-        # refuses (``layers.apply_norm``).
-        remat = spec.remat if train else ''
+        # As ``lfb_tpu/models/backbone.py:143-148``: no remat in true-BN
+        # training, whose statistics flow out through ``bn_updates``.
+        remat = spec.remat if train and spec.use_affine else ''
         for stage_i, stage in enumerate(self.stages):
             if stage_i == 1:
                 h = max_pool_3d(h, (2, 1, 1), (2, 1, 1))   # pool2: T/2
             if remat == 'stage' or (remat == 'res2' and stage_i == 0):
                 h = _recomputed(self._stage, p, stage, h, train, False)
             else:
-                h = self._stage(p, stage, h, train, remat == 'block')
+                h = self._stage(p, stage, h, train, remat == 'block',
+                                bn_updates)
         return h.detach() if spec.freeze_backbone else h
 
     @staticmethod
     def _stage(p: P, stage: nn.ModuleList, h: torch.Tensor, train: bool,
-               remat_block: bool) -> torch.Tensor:
+               remat_block: bool, bn_updates: dict | None = None
+               ) -> torch.Tensor:
         for layer in stage:
             if remat_block and isinstance(layer, Bottleneck):
                 h = _recomputed(layer, p, h, train)
             else:
-                h = layer(p, h, train)
+                h = layer(p, h, train, bn_updates)
         return h
 
 

@@ -1,5 +1,5 @@
-"""Parameter initialization, frozen / inference-time norms and dropout (port
-of ``lfb_tpu/models/layers.py``).
+"""Parameter initialization, norms and dropout (port of
+``lfb_tpu/models/layers.py``).
 
 Parameters live in one flat ``{name: tensor}`` mapping keyed by the
 reference's Caffe2 blob names (``conv1_w``, ``res4_5_branch2a_bn_s``,
@@ -14,11 +14,12 @@ PyTorch's own:
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import torch
 
 from lfb_tpu_torch.ops.affine import affine_nd
+from lfb_tpu_torch.parallel import mesh
 
 Params = Dict[str, torch.Tensor]
 
@@ -63,20 +64,77 @@ def init_norm(params: Params, name: str, dim: int, *, use_affine: bool,
 
 
 def apply_norm(params: Mapping[str, torch.Tensor], name: str, x: torch.Tensor,
-               *, use_affine: bool, epsilon: float,
-               train: bool = False) -> torch.Tensor:
-    """Frozen affine (reference AffineNd) or inference-mode SpatialBN over
-    channels-last ``x``.  The affine is the same in training (its scale and
-    bias are frozen); SpatialBN with batch statistics is not ported."""
+               *, use_affine: bool, epsilon: float, train: bool = False,
+               bn_updates: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+               | None = None) -> torch.Tensor:
+    """Frozen affine (reference AffineNd) or SpatialBN over channels-last
+    ``x`` (``lfb_tpu/models/layers.py:84-110``).
+
+    In training with true BN the batch's per-channel mean and population
+    variance normalize (:class:`BatchNorm`; over every rank of a process
+    group), and the (mean, var) pair is recorded under ``name`` in
+    ``bn_updates`` for the running-statistic update and precise BN.
+    Otherwise the running statistics ``_rm`` / ``_riv`` do."""
     scale = params[name + '_s']
     bias = params[name + '_b']
     if use_affine:
         return affine_nd(x, scale, bias)
     if train:
-        raise NotImplementedError('training with true BN (batch statistics) '
-                                  'is not ported to lfb_tpu_torch')
+        y, mean, var = BatchNorm.apply(x, scale, bias, epsilon)
+        if bn_updates is not None:
+            bn_updates[name] = (mean, var)
+        return y
     inv = torch.rsqrt(params[name + '_riv'] + epsilon) * scale
     return ((x.float() - params[name + '_rm']) * inv + bias).to(x.dtype)
+
+
+class BatchNorm(torch.autograd.Function):
+    """SpatialBN with batch statistics over channels-last ``x``: the mean
+    and the population variance of each channel, taken in f32 over every
+    axis but the last and over every rank (two passes, as ``jnp.var``:
+    the mean first, then the mean squared deviation), normalize ``x``,
+    and the result is cast back to ``x``'s dtype.  Returns (y, mean, var).
+
+    In a process group the statistics are global, as ``lfb_tpu``'s mesh
+    computes them (the reference's are per GPU): the forward all-reduces
+    the per-channel sums and counts, and the backward the per-channel sums
+    of the incoming gradient g and of g * x_hat, which is that all-reduce's
+    own backward.  Each rank's dx is then the whole loss's gradient of its
+    shard, and the scale and bias get the rank's own sums, which the
+    step's gradient all-reduce adds up.  The backward keeps only ``x`` (in
+    its own dtype) and the f32 per-channel mean and inverse std, and
+    recomputes x_hat."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, epsilon):
+        c = x.shape[-1]
+        xf = x.reshape(-1, c).float()
+        sums = mesh.all_sum(torch.cat([xf.sum(0),
+                                       xf.new_full((1,), xf.shape[0])]))
+        count = sums[c:]
+        mean = sums[:c] / count
+        centered = xf - mean
+        del xf
+        var = mesh.all_sum(centered.square().sum(0)) / count
+        rstd = torch.rsqrt(var + epsilon)
+        y = centered.mul_(rstd * scale).add_(bias).to(x.dtype)
+        ctx.save_for_backward(x, mean, rstd, scale, count)
+        ctx.mark_non_differentiable(mean, var)
+        return y.reshape(x.shape), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, mean, rstd, scale, count = ctx.saved_tensors
+        c = x.shape[-1]
+        g = gy.reshape(-1, c).float()
+        xhat = (x.reshape(-1, c).float() - mean).mul_(rstd)
+        local = torch.cat([g.sum(0), (g * xhat).sum(0)])
+        total = mesh.all_sum(local.clone()) / count
+        dx = g.sub(total[:c]).sub_(xhat.mul_(total[c:])).mul_(rstd * scale)
+        _, need_scale, need_bias, _ = ctx.needs_input_grad
+        return (dx.to(x.dtype).reshape(x.shape),
+                local[c:] if need_scale else None,
+                local[:c] if need_bias else None, None)
 
 
 def layer_norm(x: torch.Tensor, *, epsilon: float = 1e-3) -> torch.Tensor:

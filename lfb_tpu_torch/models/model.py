@@ -92,7 +92,9 @@ class LFBModel(nn.Module):
         Returns 'box_pooled' (AVA) or 'pool5', plus 'logits' and 'prob'
         unless the spec is the bank-extraction (lfb_infer_only) one, and
         'loss' when the batch has labels.  ``train`` turns on dropout, drawn
-        from ``generator``.
+        from ``generator``; with true BN (``spec.use_affine`` False) it also
+        normalizes with batch statistics and returns them under
+        'bn_updates' ({bn layer name: (mean, var)}, as ``lfb_tpu``).
         """
         spec = self.spec
         x = batch['data']
@@ -103,8 +105,9 @@ class LFBModel(nn.Module):
                                device=x.device)
             x = (x.float() / 255.0 - mean) / std
         x = x.to(_DTYPES[spec.compute_dtype])
+        bn_updates = {} if train and not spec.use_affine else None
 
-        feats = self.backbone(p, x, train)
+        feats = self.backbone(p, x, train, bn_updates)
         if self.roi_head is not None:
             clip_feat = self.roi_head(feats, batch['proposals'])
         else:
@@ -129,6 +132,8 @@ class LFBModel(nn.Module):
         if batch.get('labels') is not None:
             out['loss'] = _loss(spec, logits, batch['labels'],
                                 batch.get('box_mask'))
+        if bn_updates:
+            out['bn_updates'] = bn_updates
         return out
 
 

@@ -13,8 +13,6 @@ tensor through their plain PyTorch versions.  One switch stays,
 identity bottleneck, a different program for the same block rather than a
 kernel of an op that always runs.  ``remat`` (``TPU.REMAT``) picks what a
 training forward recomputes in the backward (``torch.utils.checkpoint``).
-:func:`build_spec` raises ``NotImplementedError``, naming the key, for what
-the port does not run yet.
 """
 
 from __future__ import annotations
@@ -170,15 +168,6 @@ def build_spec(cfg, split: str, lfb_infer_only: bool = False) -> ModelSpec:
     """Derive an immutable ModelSpec from a finalized Config for one phase
     (the train split, unless ``lfb_infer_only``, is the training phase)."""
     is_train = split == 'train' and not lfb_infer_only
-    if is_train:
-        if not cfg.MODEL.USE_AFFINE:
-            raise NotImplementedError(
-                'MODEL.USE_AFFINE False: training with true BN (batch '
-                'statistics) is not ported to lfb_tpu_torch')
-        if cfg.NONLOCAL.USE_BN and not cfg.NONLOCAL.USE_AFFINE:
-            raise NotImplementedError(
-                'NONLOCAL.USE_BN True with NONLOCAL.USE_AFFINE False: training '
-                'non-local blocks with true BN is not ported to lfb_tpu_torch')
     if cfg.TPU.REMAT not in REMAT_MODES:
         raise ValueError('TPU.REMAT {!r}: not one of {}'.format(
             cfg.TPU.REMAT, REMAT_MODES))

@@ -93,11 +93,19 @@ def make_train_step(spec: ModelSpec, solver, bank=None):
     In a process group the batch is the rank's shard, the gradients are
     summed over the ranks (one flat all-reduce), every rank makes the same
     update, and 'loss' is the global loss and 'prob' the global batch's.
+
+    With true BN the forward's batch statistics then move the running ones
+    in ``frozen``, in place, as ``lfb_tpu/train/steps.py:216-226``: with m
+    = ``MODEL.BN_MOMENTUM``, ``_rm <- m * _rm + (1 - m) * mean`` and
+    ``_riv <- m * _riv + (1 - m) * var`` (the population variance).  In a
+    process group the statistics are the global batch's, so every rank
+    writes the same values.
     """
     momentum = float(solver.MOMENTUM)
     nesterov = bool(solver.NESTEROV)
     wd = float(solver.WEIGHT_DECAY)
     wd_bn = float(solver.WEIGHT_DECAY_BN)
+    bn_momentum = float(spec.bn_momentum)
 
     def step(trainable: Dict[str, torch.Tensor],
              frozen: Dict[str, torch.Tensor], mstate: opt.SGDState,
@@ -119,6 +127,12 @@ def make_train_step(spec: ModelSpec, solver, bank=None):
             trainable, dict(zip(names, grads)), mstate, lr=lr,
             momentum=momentum, nesterov=nesterov, weight_decay=wd,
             weight_decay_bn=wd_bn)
+        with torch.no_grad():
+            for name, stats in out.get('bn_updates', {}).items():
+                for suffix, stat in zip(('_rm', '_riv'), stats):
+                    running = frozen[name + suffix]
+                    running.copy_(bn_momentum * running
+                                  + (1.0 - bn_momentum) * stat)
         aux = {'loss': mesh.all_sum(loss.detach()),
                'prob': mesh.gather_rows(out['prob'].detach())}
         return trainable, frozen, mstate, aux

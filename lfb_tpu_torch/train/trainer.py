@@ -28,7 +28,8 @@ import torch
 
 from lfb_tpu_torch.bank.device_bank import shard_bank
 from lfb_tpu_torch.core.config import clone
-from lfb_tpu_torch.data.loader import DataLoader, DeviceFeed, get_input_db
+from lfb_tpu_torch.data.loader import (DataLoader, DeviceFeed, get_input_db,
+                                       to_device)
 from lfb_tpu_torch.eval.metrics import MetricsCalculator
 from lfb_tpu_torch.models.model import frozen_param_names, init_params
 from lfb_tpu_torch.models.spec import build_spec
@@ -36,6 +37,7 @@ from lfb_tpu_torch.parallel import mesh
 from lfb_tpu_torch.train import checkpoints as ckpt
 from lfb_tpu_torch.train import optimizer as opt
 from lfb_tpu_torch.train.lr_policy import get_lr_at_iter
+from lfb_tpu_torch.train.precise_bn import compute_precise_bn_stats
 from lfb_tpu_torch.train.steps import (make_eval_step, make_train_step,
                                        split_params)
 from lfb_tpu_torch.utils.logging_utils import (describe_params,
@@ -127,6 +129,7 @@ class Trainer:
         if cfg.TPU.BANK_SHARDED:
             train_bank, test_bank = shard_bank(train_bank), shard_bank(
                 test_bank)
+        self.train_bank = train_bank
         self.train_step = make_train_step(self.spec, cfg.SOLVER,
                                           bank=train_bank)
         self.eval_step = make_eval_step(self.test_spec, bank=test_bank,
@@ -202,16 +205,22 @@ class Trainer:
     # ------------------------------------------------------------------ #
 
     def _maybe_precise_bn(self):
-        """Recompute true BN stats before checkpoint/eval (reference
-        ``train_net.py:163-182``); no-op in frozen-affine mode, the only
-        mode the port trains in."""
+        """Recompute the true-BN running statistics before a checkpoint or
+        an eval (reference ``train_net.py:163-182``, ``lfb_tpu``
+        ``trainer.py:198-215``) over the first
+        ``TRAIN.ITER_COMPUTE_PRECISE_BN`` train batches, each rank its
+        shards, with the train step's bank; no-op in frozen-affine mode."""
         cfg = self.cfg
         if not cfg.TRAIN.COMPUTE_PRECISE_BN or self.spec.use_affine:
             return
-        raise NotImplementedError(
-            'TRAIN.COMPUTE_PRECISE_BN with MODEL.USE_AFFINE False: precise '
-            'BN statistics (true-BN training) are not ported to '
-            'lfb_tpu_torch')
+        num = cfg.TRAIN.ITER_COMPUTE_PRECISE_BN
+        params = compute_precise_bn_stats(
+            self.spec, self.params(),
+            (to_device(b, self.device)
+             for b in self.train_loader.batches(num_batches=num)),
+            num, bank=self.train_bank)
+        for name in self.frozen:
+            self.frozen[name] = params[name]
 
     def save_checkpoint(self, cur_iter: int) -> str:
         """Rank 0 writes the checkpoint; every rank waits for it and gets

@@ -20,6 +20,9 @@
   under ``TPU.REMAT 'stage'``, a checkpoint).
 * ``python -m lfb_tpu_torch.tools.train_net --help`` and
   ``...tools.evaluate_actions --help`` load none of them, ``cv2`` included.
+* Importing ``train.precise_bn``, ``train.c2_manifest`` or
+  ``tools.parity_eval`` alone loads none of them either, nor does
+  ``python -m lfb_tpu_torch.tools.parity_eval --help``.
 """
 
 import json
@@ -169,6 +172,34 @@ def test_cli_help_loads_nothing_forbidden(tool):
     assert 'usage:' in proc.stdout and '--config_file' in proc.stdout or \
         '--verb_file' in proc.stdout
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+IMPORT_SCRIPT = r'''
+import importlib, json, sys
+importlib.import_module(sys.argv[1])
+print(json.dumps(sorted(m for m in sys.modules
+                        if m in %r or m.startswith('lfb_tpu.'))))
+'''
+
+
+@pytest.mark.parametrize('module', ['train.precise_bn', 'train.c2_manifest',
+                                    'tools.parity_eval'])
+def test_module_alone_loads_nothing_forbidden(module):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, '-c', IMPORT_SCRIPT % (FORBIDDEN,),
+         'lfb_tpu_torch.' + module],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    if module == 'tools.parity_eval':
+        proc = subprocess.run(
+            [sys.executable, '-c', HELP_SCRIPT % (FORBIDDEN,),
+             'lfb_tpu_torch.' + module],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert 'usage:' in proc.stdout and '--dryrun' in proc.stdout
+        assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 CLI_SCRIPT = r'''

@@ -21,7 +21,6 @@ arc.
 
 import dataclasses
 import os
-import re
 import tempfile
 from unittest import mock
 
@@ -139,10 +138,6 @@ def test_spec_matches_lfb_tpu():
             assert mine == theirs, field
 
 
-# Keys whose refusal is for training only: inference still builds.
-TRAIN_ONLY = ('MODEL.USE_AFFINE', 'NONLOCAL.USE_BN')
-
-
 @pytest.mark.parametrize('split', ['test', 'train'])
 def test_build_spec_takes_the_fused_bottleneck(split):
     """The fused bottleneck is ported: ``build_spec`` takes the key for both
@@ -164,24 +159,17 @@ def test_build_spec_takes_the_fused_bottleneck(split):
     {'NONLOCAL.USE_BN': True, 'NONLOCAL.USE_AFFINE': False},
 ])
 def test_build_spec_refuses_what_is_not_ported(overrides):
-    """True-BN training is refused; ``TPU.SHARD_MAP`` and
-    ``TPU.BANK_SHARDED`` are ported (data parallelism over
-    ``torch.distributed``) and build for both splits, as in lfb_tpu."""
+    """None of these is refused any more: ``TPU.SHARD_MAP`` and
+    ``TPU.BANK_SHARDED`` (data parallelism over ``torch.distributed``) and
+    true-BN training (``MODEL.USE_AFFINE False``; ``NONLOCAL.USE_BN`` with
+    ``NONLOCAL.USE_AFFINE False``) build for both splits, as in lfb_tpu,
+    with lfb_tpu's norm settings."""
     cfg = flagship_cfg({**TINY, **overrides})
-    key = next(iter(overrides))
-    if key.startswith('TPU.'):
-        for split in ('test', 'train'):
-            build_spec(cfg, split)
-            jax_models.build_spec(cfg, split)
-        return
-    if key in TRAIN_ONLY:
-        build_spec(cfg, 'test')
-    else:
-        with pytest.raises(NotImplementedError, match=re.escape(key)):
-            build_spec(cfg, 'test')
-    with pytest.raises(NotImplementedError, match=re.escape(key)):
-        build_spec(cfg, 'train')
-    build_spec(flagship_cfg(TINY), 'train')
+    for split in ('test', 'train'):
+        spec = build_spec(cfg, split)
+        jspec = jax_models.build_spec(cfg, split)
+        assert spec.use_affine == jspec.use_affine
+        assert dataclasses.asdict(spec.nl) == dataclasses.asdict(jspec.nl)
 
 
 @pytest.mark.parametrize('remat', ['', 'stage', 'res2', 'block'])

@@ -152,7 +152,8 @@ def ranks(tmp_path_factory):
     with open(root / 'inputs.pkl', 'wb') as f:
         pickle.dump(inputs, f)
     torch.multiprocessing.start_processes(
-        torch_parallel_ranks.main, args=(WORLD, str(root)), nprocs=WORLD,
+        torch_parallel_ranks.main,
+        args=(WORLD, str(root), ('train', 'eval', 'banks')), nprocs=WORLD,
         start_method='spawn')
     results = []
     for r in range(WORLD):

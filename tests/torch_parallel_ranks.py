@@ -13,6 +13,14 @@ Cases:
 * ``banks``: the train step and the eval step with a device bank, once
   replicated and once row-sharded by ``shard_bank``, AVA and frame-level
   (Charades), dropout and window draws on: everything must be bitwise equal.
+* ``true_bn`` (``tests/test_torch_true_bn.py``): a true-BN train step from
+  each of the states the test gives (all-BN and mixed), whose batch
+  statistics are the global batch's, with every rank's params, momentum
+  and running statistics checked the same (``mesh.check_same``); then
+  ``compute_precise_bn_stats`` over the rank's shards of two global
+  batches.
+
+``main`` runs the cases its caller names.
 """
 
 import copy
@@ -28,6 +36,7 @@ from lfb_tpu_torch.convert import params_from_jax
 from lfb_tpu_torch.models.spec import build_spec
 from lfb_tpu_torch.parallel import mesh
 from lfb_tpu_torch.train import optimizer as opt
+from lfb_tpu_torch.train.precise_bn import compute_precise_bn_stats
 from lfb_tpu_torch.train.steps import (make_eval_step, make_train_step,
                                        split_params)
 
@@ -143,10 +152,46 @@ def case_banks(inp):
     return results
 
 
-CASES = {'train': case_train, 'eval': case_eval, 'banks': case_banks}
+def case_true_bn(inp):
+    results = {}
+    for mode, overrides in inp['true_bn_modes'].items():
+        cfg = flagship_cfg({**inp['cfg'], **overrides})
+        step = make_train_step(build_spec(cfg, 'train'), cfg.SOLVER)
+        local = tensors(mesh.shard_batch(inp['batch'], mesh.rank(),
+                                         mesh.world_size()))
+        for k, (state, lr) in enumerate(zip(inp['true_bn_states'][mode],
+                                            inp['true_bn_lrs'])):
+            train, frozen, momentum = (params_from_jax(d, device='cpu')
+                                       for d in state)
+            train, frozen, mstate, aux = step(
+                train, frozen, opt.SGDState(momentum=momentum), local,
+                torch.Generator().manual_seed(mesh.step_seed(k)), lr)
+            mesh.check_same({**train, **frozen, **{
+                'momentum ' + n: v for n, v in mstate.momentum.items()}},
+                'the true-BN step\'s params, momentum and running '
+                'statistics')
+            results[mode, k] = {
+                'loss': aux['loss'].item(), 'prob': aux['prob'].numpy().copy(),
+                'params': numpy(train), 'momentum': numpy(mstate.momentum),
+                'frozen': numpy(frozen)}
+    cfg = flagship_cfg({**inp['cfg'], **inp['true_bn_modes']['all']})
+    spec = build_spec(cfg, 'train')
+    params = params_from_jax(inp['true_bn_params']['all'], device='cpu')
+    new = compute_precise_bn_stats(
+        spec, params, [tensors(mesh.shard_batch(b, mesh.rank(),
+                                                mesh.world_size()))
+                       for b in inp['precise_bn_batches']], 2)
+    stats = {k: v for k, v in new.items() if k.endswith(('_rm', '_riv'))}
+    mesh.check_same(stats, 'the precise BN statistics')
+    results['precise_bn'] = numpy(stats)
+    return results
 
 
-def main(rank, world, root):
+CASES = {'train': case_train, 'eval': case_eval, 'banks': case_banks,
+         'true_bn': case_true_bn}
+
+
+def main(rank, world, root, cases):
     # Two ranks of several intra-op threads each, beside the suite's other
     # workers, spend their time spinning: 2 steps take 20 s, not 2.
     torch.set_num_threads(2)
@@ -156,7 +201,7 @@ def main(rank, world, root):
         with open('{}/inputs.pkl'.format(root), 'rb') as f:
             inp = pickle.load(f)
         torch.manual_seed(0)
-        out = {name: fn(inp) for name, fn in CASES.items()}
+        out = {name: CASES[name](inp) for name in cases}
         with open('{}/rank{}.pkl'.format(root, rank), 'wb') as f:
             pickle.dump(out, f)
     finally:
