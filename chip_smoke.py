@@ -194,6 +194,18 @@ result):
     ``cuda``, the flagship through multi-crop testing with its bank
     inferred again for each flip; each config timed, ``DRYRUN SUMMARY:
     5/5`` asserted.
+17. The on-card tools (:func:`tools_phase`): (a) ``python -m
+    lfb_tpu_torch.tools.gpu_smoke`` in a subprocess, its nine PASS lines
+    and its pass line last; (b) ``tools.mfu_probe``'s grid (the train-mode
+    forward with its loss at B 8 / 16 x crop 224 / 256, its launch
+    counters checked), conv (each backbone op alone, at three regimes) and
+    flat modes at full width, in process, their tables printed under the
+    card's name and power limit; (c) the cost model's count of the (8, 224)
+    forward within 2% of ``GRID_TF``, every per-op entry above the card's
+    peak marked INVALID, the flat rewrite within its 2e-2; (d) a
+    diagnostic, logged and not bounded: two f32 train steps from one state
+    in a subprocess, as run and under deterministic algorithms, whether
+    they agree bitwise and which ops have no deterministic implementation.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so the plain
 versions the kernels are compared with compute in full f32.
@@ -3416,6 +3428,158 @@ def parity_dryrun_phase():
     return launches
 
 
+# Phase 17 (c): the cost model's count of the probe's grid forward at B = 8,
+# crop 224 (train mode, with its loss): convolutions 3.6266 TF, matmuls
+# 0.3793 (the non-local projections, the FBO and the classifier), attention
+# 0.2820 (q k^T and p v once each), as counted on the CPU
+# (tests/test_torch_flops.py).
+GRID_TF, GRID_TF_BOUND = 4.288, 2e-2
+# gpu_smoke's PASS lines: attention forward and dq at two shapes, RoI,
+# training, the step in a one-rank group and its conv1_w update, the bank.
+GPU_SMOKE_PASSES = 9
+# The flat rewrite's bound (mfu_probe's MISMATCH flag), relative to the
+# conv's largest output.
+FLAT_BOUND = 2e-2
+
+
+def tools_phase():
+    """Phase 17: the on-card tools at full width.  (a) ``python -m
+    lfb_tpu_torch.tools.gpu_smoke`` in a subprocess (phase 14's process
+    groups stay out of it): rc 0, the six checks' nine PASS lines, the pass
+    line last.  (b) In
+    this process, ``tools.mfu_probe``'s grid (its launches counted: each
+    forward must launch phase B's kernels), conv and flat modes, tables
+    printed.  (c) The grid's (8, 224) count within ``GRID_TF_BOUND`` of
+    ``GRID_TF``; every per-op entry above the card's peak marked INVALID;
+    no flat row beyond ``FLAT_BOUND``.  (d) :func:`drift_diagnostic`.
+    Returns the grid's launches."""
+    from lfb_tpu_torch.tools import mfu_probe
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'lfb_tpu_torch.tools.gpu_smoke'], cwd=here,
+        capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        log('  gpu_smoke: ' + line)
+    passed = [line for line in lines if line.startswith('[PASS]')]
+    if proc.returncode or not lines or (
+            lines[-1] != 'GPU smoke: all checks passed') or (
+                len(passed) != GPU_SMOKE_PASSES):
+        log(proc.stderr[-3000:])
+        raise AssertionError('phase 17: gpu_smoke rc {}, {} PASS lines'.format(
+            proc.returncode, len(passed)))
+    t1 = time.perf_counter()
+    log('phase 17 (a) gpu_smoke: {} PASS lines in {:.1f} s'.format(
+        len(passed), t1 - t0))
+
+    reset_launches()
+    grid = mfu_probe.run_grid()
+    launches = read_launches()
+    forwards = len(mfu_probe.GRID) * (mfu_probe.GRID_ITERS
+                                      + mfu_probe.WARMUP)
+    want = {name: n * forwards for name, n in PER_FORWARD['B'].items()}
+    log('phase 17 grid: launches {} (want {}, {} forwards)'.format(
+        launches, want, forwards))
+    if launches != want:
+        raise AssertionError('phase 17: grid launches {} != {}'.format(
+            launches, want))
+    tf = grid[mfu_probe.TRAIN_REGIME]['tf']
+    log('phase 17 cost model at B = 8, crop 224: {:.4f} TF (want {} within '
+        '{:.0%})'.format(tf, GRID_TF, GRID_TF_BOUND))
+    if abs(tf - GRID_TF) > GRID_TF_BOUND * GRID_TF:
+        raise AssertionError('phase 17: {:.4f} TF'.format(tf))
+    t2 = time.perf_counter()
+    entries = mfu_probe.run_conv(grid)
+    unmarked = [e['sig'].label() for e in entries
+                if e['mfu'] > 1.0 and not e['invalid']]
+    if unmarked:
+        raise AssertionError('phase 17: per-op rows above the peak, not '
+                             'marked: {}'.format(unmarked))
+    t3 = time.perf_counter()
+    flat = mfu_probe.run_flat()
+    if any(not r['err'] <= FLAT_BOUND for r in flat):
+        raise AssertionError('phase 17: flat rewrite errors {}'.format(
+            [r['err'] for r in flat]))
+    t4 = time.perf_counter()
+    drift_diagnostic()
+    log('phase 17: {:.1f} s (gpu_smoke {:.1f}, grid {:.1f}, conv {:.1f} with '
+        '{} entries, {} INVALID, flat {:.1f}, drift {:.1f})'.format(
+            time.perf_counter() - t0, t1 - t0, t2 - t1, t3 - t2, len(entries),
+            sum(e['invalid'] for e in entries), t4 - t3,
+            time.perf_counter() - t4))
+    return launches
+
+
+def drift_diagnostic():
+    """Phase 17 (d), logged and not bounded: :func:`drift_steps` in a
+    process of its own with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (cuBLAS
+    reproducible under deterministic algorithms)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, '-c', 'import chip_smoke; chip_smoke.drift_steps()'],
+        cwd=here, env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=':4096:8'),
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        log(proc.stderr[-3000:])
+        raise AssertionError('phase 17 (d): rc {}'.format(proc.returncode))
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    for mode, r in result.items():
+        log('phase 17 (d) two f32 train steps from one state, {}: bitwise '
+            'equal {}; loss diff {:.3e}; params differing {} (max {:.3e}; '
+            'first {}), momentum differing {} (max {:.3e}), of {} tensors; '
+            'nondeterministic ops named: {}'.format(
+                mode, r['bitwise'], r['loss_diff'], r['params_differ'],
+                r['params_max'], r['params_names'], r['momentum_differ'],
+                r['momentum_max'], r['tensors'], r['ops'] or 'none'))
+    return result
+
+
+def drift_steps():
+    """Two f32 train steps of the flagship (1 clip x 4 boxes, T 32, crop
+    224, dropout 0, ``TPU.REMAT ''``, windows in the batch) from the same
+    params and batch, first as the port runs them, then under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, which
+    warns for each op that has no deterministic implementation; prints one
+    JSON line: for each mode, whether the two steps agree bitwise, how many
+    updated params and momentum buffers differ and by how much, and the ops
+    the warnings name."""
+    import warnings
+    import torch
+    from lfb_tpu_torch.config import flagship_cfg
+    from lfb_tpu_torch.models.spec import build_spec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = flagship_cfg({**CFG_OVERRIDES, **F32_STEP})
+    spec = build_spec(cfg, 'train')
+    params = perturbed_params(spec, torch.device('cuda'))
+    batch = make_batch(spec, np.random.default_rng(SEED + 5), 'cuda',
+                       n_clips=1, with_lfb=True, with_labels=True)
+    result = {}
+    for mode in ('as run', 'deterministic algorithms'):
+        torch.use_deterministic_algorithms(mode != 'as run', warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            a, b = (one_step('cuda', spec, cfg.SOLVER, params, batch)
+                    for _ in range(2))
+        ops = sorted({str(w.message).split(' does not have')[0]
+                      for w in caught
+                      if 'deterministic implementation' in str(w.message)})
+        r = {'ops': ops, 'loss_diff': abs(a[0] - b[0]),
+             'tensors': len(a[1]) + len(a[2])}
+        for key, i in (('params', 1), ('momentum', 2)):
+            gaps = {k: (a[i][k] - b[i][k]).abs().max().item() for k in a[i]}
+            differ = sorted(k for k, g in gaps.items() if g > 0)
+            r[key + '_differ'] = len(differ)
+            r[key + '_max'] = max(gaps.values())
+            r[key + '_names'] = differ[:4]
+        r['bitwise'] = (r['loss_diff'] == 0 and not r['params_differ']
+                        and not r['momentum_differ'])
+        result[mode] = r
+    torch.use_deterministic_algorithms(False)
+    print(json.dumps(result))
+
+
 def trace_window(label, run, count, out, stem):
     """Run ``run(i)`` for i < ``count`` on the host clock, then the same
     under torch.profiler; write the Chrome trace and the operator table to
@@ -3561,6 +3725,7 @@ def main():
     torch.cuda.empty_cache()
     path_launches.append(true_bn_phase())
     path_launches.append(parity_dryrun_phase())
+    path_launches.append(tools_phase())
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -3574,7 +3739,7 @@ def main():
                         'library_device_ms': r.get('library_device_ms'),
                         'library': r.get('library'),
                         'tolerance': r['tolerance']})
-    log('chip_smoke: {:.1f} s in all, phases 1-16'.format(
+    log('chip_smoke: {:.1f} s in all, phases 1-17'.format(
         time.perf_counter() - t_start))
     print(card_line())
     print(json.dumps({'kernels': kernels}))

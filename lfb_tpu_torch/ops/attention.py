@@ -46,10 +46,20 @@ def _attention_plain(q, k, v, *, scale, mask, use_softmax, round_p=True):
     probabilities rounded to promote(q.dtype, bf16) before p.V.
     ``round_p=False`` keeps p in f32, as the f32 CUDA kernels do (the bf16
     ones round p to bf16 before p.V, as ``round_p=True`` does)."""
-    compute = torch.promote_types(q.dtype, torch.bfloat16)
+    return _attend_plain(_logits_plain(q, k, scale), v, dtype=q.dtype,
+                         mask=mask, use_softmax=use_softmax, round_p=round_p)
+
+
+def _logits_plain(q, k, scale):
+    """The f32 (B, Nq, Nk) logits q k^T, times ``scale`` unless None."""
     logits = torch.matmul(q.float(), k.float().transpose(1, 2))
-    if scale is not None:
-        logits = logits * scale
+    return logits if scale is None else logits * scale
+
+
+def _attend_plain(logits, v, *, dtype, mask, use_softmax, round_p):
+    """:func:`_attention_plain` from its logits; the output in ``dtype``
+    (q's)."""
+    compute = torch.promote_types(dtype, torch.bfloat16)
     if use_softmax:
         if mask is not None:
             if mask.dim() == 2:
@@ -58,8 +68,8 @@ def _attention_plain(q, k, v, *, scale, mask, use_softmax, round_p=True):
                 -1e30, dtype=torch.float32, device=logits.device))
         p = torch.softmax(logits, dim=-1)
     else:
-        p = logits / k.shape[1]
+        p = logits / logits.shape[-1]
     if round_p:
         p = p.to(compute)
     out = torch.matmul(p.float(), v.to(compute).float())
-    return out.to(q.dtype)
+    return out.to(dtype)

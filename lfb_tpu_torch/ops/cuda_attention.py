@@ -62,11 +62,12 @@ def attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, scale: float, *,
                             round_p: bool = False):
     """(out, lse): :func:`attention_plain` and the f32 (B, Nq) row
-    log-sum-exp of the scaled logits.  ``round_p`` rounds p to the compute
-    dtype before p.V, as lfb_tpu's XLA reference does."""
-    out = attention._attention_plain(q, k, v, scale=scale, mask=None,
-                                     use_softmax=True, round_p=round_p)
-    logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    log-sum-exp of the scaled logits, both from one q k^T (so a FLOP count
+    of this version matches the kernel's work).  ``round_p`` rounds p to the
+    compute dtype before p.V, as lfb_tpu's XLA reference does."""
+    logits = attention._logits_plain(q, k, scale)
+    out = attention._attend_plain(logits, v, dtype=q.dtype, mask=None,
+                                  use_softmax=True, round_p=round_p)
     return out, torch.logsumexp(logits, dim=-1)
 
 

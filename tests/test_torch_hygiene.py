@@ -20,9 +20,10 @@
   under ``TPU.REMAT 'stage'``, a checkpoint).
 * ``python -m lfb_tpu_torch.tools.train_net --help`` and
   ``...tools.evaluate_actions --help`` load none of them, ``cv2`` included.
-* Importing ``train.precise_bn``, ``train.c2_manifest`` or
-  ``tools.parity_eval`` alone loads none of them either, nor does
-  ``python -m lfb_tpu_torch.tools.parity_eval --help``.
+* Importing ``train.precise_bn``, ``train.c2_manifest``,
+  ``tools.parity_eval``, ``utils.flops``, ``tools.mfu_probe`` or
+  ``tools.gpu_smoke`` alone loads none of them either, nor does ``python
+  -m lfb_tpu_torch.tools.{parity_eval,mfu_probe,gpu_smoke} --help``.
 """
 
 import json
@@ -182,8 +183,14 @@ print(json.dumps(sorted(m for m in sys.modules
 '''
 
 
+# The command lines among these modules, and a word their --help prints.
+HELP_WORDS = {'tools.parity_eval': '--dryrun', 'tools.mfu_probe': 'grid',
+              'tools.gpu_smoke': 'usage:'}
+
+
 @pytest.mark.parametrize('module', ['train.precise_bn', 'train.c2_manifest',
-                                    'tools.parity_eval'])
+                                    'tools.parity_eval', 'utils.flops',
+                                    'tools.mfu_probe', 'tools.gpu_smoke'])
 def test_module_alone_loads_nothing_forbidden(module):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -192,13 +199,13 @@ def test_module_alone_loads_nothing_forbidden(module):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
-    if module == 'tools.parity_eval':
+    if module in HELP_WORDS:
         proc = subprocess.run(
             [sys.executable, '-c', HELP_SCRIPT % (FORBIDDEN,),
              'lfb_tpu_torch.' + module],
             cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
         assert proc.returncode == 0, proc.stderr[-3000:]
-        assert 'usage:' in proc.stdout and '--dryrun' in proc.stdout
+        assert 'usage:' in proc.stdout and HELP_WORDS[module] in proc.stdout
         assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 

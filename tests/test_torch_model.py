@@ -51,7 +51,7 @@ from lfb_tpu_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from lfb_tpu_torch.models import model as port_model  # noqa: E402
 from lfb_tpu_torch.models.spec import build_spec  # noqa: E402
 from lfb_tpu_torch.ops import cuda_bottleneck  # noqa: E402
-from lfb_tpu_torch.tools import train_net  # noqa: E402
+from lfb_tpu_torch.tools import gpu_smoke, mfu_probe, train_net  # noqa: E402
 from lfb_tpu_torch.train import checkpoints  # noqa: E402
 from lfb_tpu_torch.train.steps import make_eval_step  # noqa: E402
 
@@ -378,6 +378,10 @@ DEFAULT_DEVICE_CALLS = {
         {'pred_b': np.zeros(3, np.float32)})['pred_b'],
     'load_params_into': lambda: load_into_default_device(),
     'train_net.train': lambda: train_on_default_device(),
+    'mfu_probe._train_batch': lambda: mfu_probe._train_batch(
+        build_spec(flagship_cfg(TINY), 'train'), 1, 32)['data'],
+    'gpu_smoke.TinyRun': lambda: gpu_smoke.TinyRun(
+        sizes=(8, 32, 1)).batch['data'],
 }
 
 
