@@ -16,7 +16,8 @@ result):
    spills and wgmma notes, and the tensor-core instructions (HMMA, HGMMA)
    that ``cuobjdump -sass`` finds in each attention kernel, the stem
    forward and weight gradient and the fused bottleneck: the bf16 ones
-   must have some, and the stem forward HGMMA (``wgmma``).
+   must have some, and the attention kernels and the stem forward HGMMA
+   (``wgmma``), with no note from ptxas that it serialised their wgmma.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    flagship shapes (every attention regime, and the EPIC FBO-NL's decode
    shapes; the fused bottleneck at every identity-block shape of R101 at
@@ -34,7 +35,10 @@ result):
    work.  The stem forward is also timed, and its rate logged, at the
    train step's shape; the RoI forward also at the AVA dataset's layout
    (``TPU.MAX_BOXES_PER_CLIP`` 32 rows a clip, 1-6 of them boxes, the rest
-   zero rows of clip 0: 512 rows a batch).
+   zero rows of clip 0: 512 rows a batch).  Each bf16 attention regime
+   (res3, res4) logs the kernel's device ms and TFLOP/s beside SDPA's
+   device ms, holds the row log-sum-exp to ``torch.logsumexp`` and checks
+   that two calls give bitwise the same out and lse.
 3. Hold the full-width model on the card (f32, kernels) against the same
    model on the CPU (f32, plain versions) on one clip: the flagship,
    Charades with the fused bottleneck, and EPIC verb with it.
@@ -79,7 +83,9 @@ result):
    log-sum-exp against ``torch.logsumexp``;
    time both, with the library call and the bound, as in phase 2 (cuDNN's
    weight gradient for the stem; SDPA's backward, its forward + backward
-   less its forward, for attention).
+   less its forward, for attention; per bf16 regime the kernels' device ms
+   and TFLOP/s beside SDPA's backward), and check that two calls of the
+   attention backward give bitwise the same dq, dk and dv.
 10. One full-width f32 train step (1 clip x 4 boxes, dropout 0) on the card
     (kernels) against the same step on the CPU (plain versions), from the
     same params: the loss and every momentum buffer.
@@ -441,6 +447,10 @@ def preamble():
                                        'wgmma', 'Performance')):
             log('  ptxas: ' + line.strip())
     check_tensor_cores(cuda_build.library_path())
+    serialized = serialized_wgmma(cuda_build.build_log)
+    if serialized:
+        raise AssertionError('ptxas serialised the wgmma of {} '
+                             '(C7510-C7520)'.format(', '.join(serialized)))
 
 
 def host_record():
@@ -459,11 +469,13 @@ def host_record():
 # The bf16 kernels that must run on the tensor cores (HMMA is the SASS of
 # mma.sync, HGMMA of wgmma): attention forward and backward, the stem
 # forward and weight gradient and the fused bottleneck; those of
-# WGMMA_KERNELS must have HGMMA.
-MMA_KERNELS = ('attn_mma_kernel', 'attn_bwd_dkdv_mma_kernel',
-               'attn_bwd_dq_mma_kernel', 'stem_conv_wgmma_kernel',
+# WGMMA_KERNELS must have HGMMA, and ptxas must not have serialised their
+# wgmma (its notes C7510-C7520).
+MMA_KERNELS = ('attn_fwd_wgmma_kernel', 'attn_bwd_dkdv_wgmma_kernel',
+               'attn_bwd_dq_wgmma_kernel', 'stem_conv_wgmma_kernel',
                'stem_dw_mma_kernel', 'fused_bottleneck_mma_kernel')
-WGMMA_KERNELS = ('stem_conv_wgmma_kernel',)
+WGMMA_KERNELS = ('attn_fwd_wgmma_kernel', 'attn_bwd_dkdv_wgmma_kernel',
+                 'attn_bwd_dq_wgmma_kernel', 'stem_conv_wgmma_kernel')
 
 
 def check_tensor_cores(lib_path):
@@ -500,6 +512,25 @@ def check_tensor_cores(lib_path):
                    for fn, n in counts.items()):
             raise AssertionError('{}: no HGMMA (wgmma) in its '
                                  'SASS'.format(kernel))
+
+
+def serialized_wgmma(build_log):
+    """The kernels of ``WGMMA_KERNELS`` for which ptxas's log holds a note
+    that it serialised their wgmma (C7520 and its kin C7510-C7519: a path
+    it cannot prove uniform, too few registers, accumulators written inside
+    a pipeline stage): the note names its function, or else follows the
+    function's 'Compiling entry function' line."""
+    import re
+    found, current = set(), ''
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+        if re.search(r'\(C75[12]\d\)', line) and 'serialized' in line:
+            named = re.search(r"function '([^']+)'", line)
+            fn = named.group(1) if named else current
+            found.update(k for k in WGMMA_KERNELS if k in fn)
+    return sorted(found)
 
 
 def cuda_ms(fn, iters):
@@ -722,6 +753,39 @@ def check_roi_layout(label, fmap, rois_np, dense, iters):
     return r
 
 
+def log_regime(label, flops, r, lib_label):
+    """One bf16 attention regime's device ms and rate beside the library
+    call's device ms, the card named."""
+    rate = flops / (r['device_ms'] * 1e-3) / 1e12
+    log('  {}: kernel device {:.4f} ms, {:.1f} TFLOP/s ({:.1f}% of the bf16 '
+        'peak); {} device {:.4f} ms ({:.2f}x the kernel); {}'.format(
+            label, r['device_ms'], rate, 100 * rate * 1e12
+            / PEAK_FLOPS['bfloat16'], lib_label, r['library_device_ms'],
+            r['library_device_ms'] / r['device_ms'], card_line()))
+
+
+def check_attention_forward(label, q, k, v, scale, r):
+    """A bf16 regime of the forward at phase B's shape: its rate beside
+    SDPA's, its row log-sum-exp against ``torch.logsumexp`` (1e-5 of the
+    largest), and two calls bitwise equal (no atomics, a fixed order)."""
+    import torch
+    from lfb_tpu_torch.ops import cuda_attention
+    b, nq, c = q.shape
+    log_regime('attention {} forward'.format(label),
+               4 * b * nq * k.shape[1] * c, r, 'SDPA')
+    out, lse = cuda_attention.fused_attention_lse(q, k, v, scale=scale)
+    ref = torch.logsumexp(
+        torch.matmul(q.float(), k.float().transpose(1, 2)) * scale, dim=-1)
+    rel = ((lse - ref).abs().max() / ref.abs().max()).item()
+    out2, lse2 = cuda_attention.fused_attention_lse(q, k, v, scale=scale)
+    same = torch.equal(out, out2) and torch.equal(lse, lse2)
+    log('  attention {} lse: rel err {:.3e} vs torch.logsumexp (bound '
+        '1e-05); two calls bitwise equal: {}'.format(label, rel, same))
+    if not rel <= 1e-5 or not same:
+        raise AssertionError('attention {}: lse {:.3e} or two calls '
+                             'differ'.format(label, rel))
+
+
 def check_kernels(iters=TIMING_ITERS):
     """Phase 2: each kernel vs its plain version at the flagship shapes, with
     its bound and, where one PyTorch call computes the same function, that
@@ -806,6 +870,8 @@ def check_kernels(iters=TIMING_ITERS):
             lambda: cuda_attention.attention_plain(q, k, v, c ** -0.5),
             1e-2 if dtype == torch.bfloat16 else 1e-5, iters, lib_fwd)
         log('  SDPA backend for {}: {}'.format(label, backend))
+        if dtype == torch.bfloat16:
+            check_attention_forward(label, q, k, v, c ** -0.5, r)
         total['err'] = max(total['err'], r['err'])
         for key in ('ms', 'device_ms', 'plain_ms', 'library_ms',
                     'library_device_ms'):
@@ -815,9 +881,10 @@ def check_kernels(iters=TIMING_ITERS):
         parts.append((calls * ms, by))
     log('attention, the 8 calls of one phase-B forward: kernel {:.3f} ms '
         '(device {:.3f} ms), plain {:.3f} ms, SDPA {:.3f} ms (device {:.3f} '
-        'ms); {}'.format(
+        'ms); device kernel / SDPA {:.3f}; {}'.format(
             total['ms'], total['device_ms'], total['plain_ms'],
-            total['library_ms'], total['library_device_ms'], card_line()))
+            total['library_ms'], total['library_device_ms'],
+            total['device_ms'] / total['library_device_ms'], card_line()))
     # The clip-level FBO-NL's decode shapes (Nq 1, f32) of the EPIC phases,
     # logged with their bound; the totals above stay the flagship's.
     for label, nk in (('EPIC verb FBO-NL', 40), ('EPIC noun FBO-NL', 120)):
@@ -1824,6 +1891,21 @@ def check_backward_at(n_clips, iters):
         lib_dev = r['library_device_ms'] - device_ms(lib_fwd)
         log('  SDPA backend for {}: {}; its backward {:.4f} ms (device '
             '{:.4f} ms)'.format(label, backend, lib_ms, lib_dev))
+        if dtype == torch.bfloat16:
+            log_regime('attention_bwd {} at B = {}'.format(label, n_clips),
+                       10 * b * nq * nk * c,
+                       dict(r, library_device_ms=lib_dev), 'SDPA backward')
+            again = cuda_attention.fused_attention_bwd(q, k, v, do, lse,
+                                                       delta, scale=scale)
+            first = cuda_attention.fused_attention_bwd(q, k, v, do, lse,
+                                                       delta, scale=scale)
+            same = all(torch.equal(x, y) for x, y in zip(first, again))
+            log('  attention_bwd {}: two calls bitwise equal: {}'.format(
+                label, same))
+            if not same:
+                raise AssertionError('attention_bwd {}: two calls '
+                                     'differ'.format(label))
+            del again, first
         total['err'] = max(total['err'], r['err'])
         total['ms'] += calls * r['ms']
         total['device_ms'] += calls * r['device_ms']
@@ -1837,9 +1919,10 @@ def check_backward_at(n_clips, iters):
         parts.append((calls * ms, by))
     log('attention_bwd, the 8 calls of one train step at B = {}: kernel '
         '{:.3f} ms (device {:.3f} ms), plain {:.3f} ms, SDPA backward {:.3f} '
-        'ms (device {:.3f} ms); {}'.format(
+        'ms (device {:.3f} ms); device kernel / SDPA {:.3f}; {}'.format(
             n_clips, total['ms'], total['device_ms'], total['plain_ms'],
-            total['library_ms'], total['library_device_ms'], card_line()))
+            total['library_ms'], total['library_device_ms'],
+            total['device_ms'] / total['library_device_ms'], card_line()))
     results['attention_bwd'] = add_bound(dict(
         total, tolerance='1e-5 f32, 1e-2 bf16',
         library='F.scaled_dot_product_attention backward ({})'.format(

@@ -6,31 +6,28 @@
 // the scaled logits, which the backward kernels (attention_bwd.cu) read.
 //
 // Three launch shapes:
-//  * attn_mma_kernel -- bf16 with Nq > 1: the in-backbone non-local blocks
-//    (phase B at B = 16, crop 256: res3 64 x 4096 x 1024 x C 256, res4
-//    16 x 4096 x 1024 x C 512).  These are matmul-sized: the 8 calls of a
-//    phase-B forward do 962 GFLOP, 0.97 ms at the H100's 989 TFLOP/s bf16
-//    dense, so the tensor cores bound it.  FlashAttention-style on
-//    mma.sync.m16n8k16 (bf16 in, f32 accumulate): one CTA of 8 warps per
-//    (batch, query tile); a warp owns 16 query rows and up to 256 O columns.
-//    The Q tile stays in shared memory; tiles of K and V stream through a
-//    two-stage cp.async ring.  S = Q K^T on the tensor cores (K is already
-//    the B operand, no transpose), the online softmax in f32 registers with
-//    exp2 and scale * log2(e) folded in, then P rounded to bf16 straight
-//    from the S accumulators as the A operand of P V (V through
-//    ldmatrix.trans), as lfb_tpu's XLA reference rounds p before p.V.  The
-//    row sum l is taken over the f32 p.
-//    At C = 512 the O accumulator (64 x 512 f32, 256 floats a thread) does
-//    not fit one warp group's registers, so a CTA of 64 query rows has two
-//    groups of 4 warps, each owning half of O's columns (option (a): the
-//    first version split the columns across CTAs, which recomputes S, and
-//    took 3.01 ms against this layout's 1.96 for the res4 call on an H100
-//    SXM at 700 W).  The two warps of a row group each compute half of the
-//    tile's S columns and exchange them through shared memory (f32, 10 KB),
-//    so S is computed once; K and V stream in 32-key tiles (200 KB with
-//    Q).  At C <= 256 a CTA is 128 query rows (8 warps) and 64-key tiles
-//    in 198 KB.  Keys past Nk get s = -inf; query rows past Nq load as
-//    zeros and are not stored.
+//  * attn_fwd_wgmma_kernel -- bf16 with Nq > 1: the in-backbone non-local
+//    blocks (phase B at B = 16, crop 256: res3 64 x 4096 x 1024 x C 256,
+//    res4 16 x 4096 x 1024 x C 512).  These are matmul-sized: the 8 calls
+//    of a phase-B forward do 962 GFLOP, 0.97 ms at the H100's 989 TFLOP/s
+//    bf16 dense, so the tensor cores bound it, and only wgmma reaches their
+//    full rate.  FlashAttention-style and warp-specialised: a producer
+//    warpgroup (its registers given back by setmaxnreg) has one thread load
+//    the Q tile and rings of K and V tiles into shared memory by TMA (128-
+//    byte swizzle, mbarriers), and two consumer warpgroups run S = Q K^T
+//    with both operands in shared memory, the online softmax in registers
+//    (exp2, scale * log2 e folded in), and O += P V with P rounded to bf16
+//    straight from the S accumulators as the register A operand (as
+//    lfb_tpu's XLA reference rounds p before p.V; the row sum l is taken
+//    over the f32 p) and V the MN-major B operand.  C <= 256: a CTA is 128
+//    query rows, 64 per group, with 64-key tiles, and the groups take turns
+//    to issue so one's softmax runs under the other's products.  C up to
+//    512: O (64 x 512 f32) would be 256 floats a thread, over the register
+//    cap, so a CTA is 64 rows whose O columns the two groups split; each
+//    sums S over its half of the channels and they swap the halves through
+//    shared memory, so S is formed once (32-key tiles).  Keys past Nk get
+//    s = -inf; query rows past Nq load as zeros and the TMA store of O
+//    drops them.
 //  * attn_tiled_kernel -- f32 with Nq > 1 (the parity checks run the whole
 //    model in f32 and hold it to the CPU at 2e-3, which TF32 would break):
 //    one CTA per (batch, 32-query tile), K and V streamed in 64-row tiles
@@ -43,7 +40,7 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -248,232 +245,289 @@ attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 
-// ---- bf16, Nq > 1: tensor cores -------------------------------------------
+// ---- bf16, Nq > 1: wgmma on TMA-fed shared memory -------------------------
 
-constexpr int kMmaThreads = 256;             // 8 warps
-constexpr int kMmaDV = 256;                  // O columns per warp
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kWgThreads = 3 * 128;   // two consumer warpgroups, a producer one
+constexpr int kStages = 2;
 
-// A CTA of NCG column groups: 16 x 8/NCG query rows, and keys streamed in
-// tiles of 64 (NCG = 1) or 32 (NCG = 2, where K and V are twice as wide).
-__host__ __device__ constexpr int mma_rows(int ncg) { return 16 * (8 / ncg); }
-__host__ __device__ constexpr int mma_keys(int ncg) { return ncg == 1 ? 64 : 32; }
+// The two tilings.  kSplitC = false (C <= 256): the warpgroups own 64 query
+// rows each of a 128-row CTA, over 4 panels of 64 channels (zeros past C),
+// and stream 64-key tiles.  kSplitC = true (C up to 512): the warpgroups
+// share 64 query rows, each summing S over its half of the 8 panels and
+// owning that half of O's columns; keys stream in 32-key tiles.
+template <bool kSplitC>
+struct Fwd {
+  static constexpr int NP = kSplitC ? 8 : 4;         // 64-channel panels
+  static constexpr int BQ = kSplitC ? 64 : 128;      // query rows a CTA
+  static constexpr int BK = kSplitC ? 32 : 64;       // keys a tile
+  static constexpr int PS = kSplitC ? NP / 2 : NP;   // panels of S a group
+  static constexpr int kQBytes = NP * BQ * 128;
+  static constexpr int kTileBytes = NP * BK * 128;   // K or V
+  // Partial S tiles exchanged by the two groups: 2 slots x 2 groups.
+  static constexpr int kExBytes = kSplitC ? 2 * 2 * 64 * BK * 4 : 0;
+  static constexpr int kBarOffset =
+      kQBytes + 2 * kStages * kTileBytes + kExBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + 128;
+};
 
-// Shared memory of attn_mma_kernel<NCG, *>: the Q tile, two stages of K and
-// V (rows padded by 8 bf16) and, with two column groups, the f32 S tile.
-inline size_t mma_smem_bytes(int C, int ncg) {
-  return (size_t)(mma_rows(ncg) + 4 * mma_keys(ncg)) * (C + 8) *
-             sizeof(lfb::bf16) +
-         (ncg > 1 ? (size_t)mma_rows(ncg) * (mma_keys(ncg) + 8) * sizeof(float)
-                  : 0);
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// NCG column groups of 8 / NCG warps: warp w owns query rows 16 (w % NRG)
-// of the tile and O columns kMmaDV (w / NRG).  With NCG = 2 (C > 256) the
-// two warps of a row group each compute half of the tile's S columns,
-// exchange them through shared memory, and both run the softmax on the
-// whole row.  CC > 0 fixes C at compile time (the model's 256 and 512), so
-// the C-deep loops unroll and the column guards fold away; with the
-// 128-row CTAs this took the res3 call of a phase-B forward from 2.79 to
-// 1.46 ms on an H100 SXM at 700 W.  CC = 0 takes C from the argument.
-template <int NCG, int CC>
-__global__ void __launch_bounds__(kMmaThreads)
-attn_mma_kernel(const lfb::bf16* __restrict__ q, const lfb::bf16* __restrict__ k,
-                const lfb::bf16* __restrict__ v, lfb::bf16* __restrict__ out,
-                float* __restrict__ lse, int Nq, int Nk, int C_arg,
-                float scale_log2) {
-  using lfb::bf16;
-  constexpr int NRG = 8 / NCG;
-  constexpr int BQ = mma_rows(NCG);
-  constexpr int BK = mma_keys(NCG);
-  constexpr int lds = BK + 8;                // f32 S row stride
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int C = CC > 0 ? CC : C_arg;
+// FlashAttention-style forward on wgmma.  Warpgroup 2 is the producer: one
+// thread loads the Q tile once, and K and V tiles into two-stage rings by
+// TMA (a full and an empty mbarrier per stage, K's and V's apart, so a K
+// stage goes back as soon as its S is done).  Each consumer warpgroup, per
+// tile: S = Q K^T with both operands in shared memory (K rows are keys with
+// C contiguous: the K-major B operand); the online softmax in registers
+// (exp2, scale * log2 e folded in; keys past Nk get -inf); P rounded to bf16
+// straight from the S accumulators as the A operand of O += P V, V the
+// MN-major B operand.  P V of a tile is left running while the next S is
+// issued; the wait for S also retires it.  With one group per 64 rows the
+// groups take turns to issue (named barriers 4 and 5), so one's softmax
+// runs under the other's products.  At the end O / l goes, as bf16, into
+// the group's own part of the Q tile (swizzled) and out by TMA stores,
+// which drop the rows past Nq.
+template <bool kSplitC>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap to,
+                      float* __restrict__ lse, int Nq, int Nk, int C,
+                      float scale_log2) {
+  using F = Fwd<kSplitC>;
+  constexpr int BQ = F::BQ, BK = F::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const uint32_t sq = lfb::smem_addr(base);
+  const uint32_t sk = sq + F::kQBytes;                   // K stages
+  const uint32_t sv = sk + kStages * F::kTileBytes;      // V stages
+  float4* ex = reinterpret_cast<float4*>(base + F::kQBytes +
+                                         2 * kStages * F::kTileBytes);
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(base + F::kBarOffset);
+  uint64_t* kempty = kfull + kStages;
+  uint64_t* vfull = kempty + kStages;
+  uint64_t* vempty = vfull + kStages;
+  uint64_t* qbar = vempty + kStages;
+  const int tid = threadIdx.x;
+  // The warpgroup, warp-uniform as the compiler sees it (wgmma on a path
+  // it cannot prove uniform is serialised).
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rg = warp % NRG;
-  const int cg = warp / NRG;
-  const int c_lo = cg * kMmaDV;
-  const int nc = min(kMmaDV, C - c_lo);      // a multiple of 32
-  const int ld = C + 8;
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // BQ x ld
-  bf16* sK = sQ + BQ * ld;                     // 2 x BK x ld
-  bf16* sV = sK + 2 * BK * ld;                     // 2 x BK x ld
-  float* sS = reinterpret_cast<float*>(sV + 2 * BK * ld);   // BQ x lds
-  const bf16* qb = q + (size_t)b * Nq * C;
-  const bf16* kb = k + (size_t)b * Nk * C;
-  const bf16* vb = v + (size_t)b * Nk * C;
-
-  auto load_kv = [&](int tile, int buf) {
-    lfb::load_tile_async(sK + buf * BK * ld, ld, kb, C, tile * BK, BK, Nk, 0, C);
-    lfb::load_tile_async(sV + buf * BK * ld, ld, vb, C, tile * BK, BK, Nk, 0, C);
-  };
-  lfb::load_tile_async(sQ, ld, qb, C, q0, BQ, Nq, 0, C);
-  load_kv(0, 0);
-  lfb::cp_async_commit();
-
-  float o[kMmaDV / 8][4];
-#pragma unroll
-  for (int n = 0; n < kMmaDV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  // Rows g and g + 8 of this warp's 16: running max (log2 units) and the
-  // thread's partial row sum (its quad's four partials add up at the end).
-  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l_r[2] = {0.f, 0.f};
   const int ntiles = (Nk + BK - 1) / BK;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < ntiles) {
-      load_kv(t + 1, buf ^ 1);
-      lfb::cp_async_commit();
-      lfb::cp_async_wait<1>();
-    } else {
-      lfb::cp_async_wait<0>();
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      lfb::mbar_init(&kfull[s], 1);
+      lfb::mbar_init(&kempty[s], 8);           // the consumer warps
+      lfb::mbar_init(&vfull[s], 1);
+      lfb::mbar_init(&vempty[s], 8);
     }
-    __syncthreads();
-    const bf16* tK = sK + buf * BK * ld;
-    const bf16* tV = sV + buf * BK * ld;
-
-    // S = Q K^T: this warp's 16-key pairs of n-tiles (all of them if NCG = 1).
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < C; kk += 16) {
-      uint32_t a[4];
-      lfb::ldsm_x4(a, lfb::a_frag(sQ, ld, rg * 16, kk, lane));
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        if (np % NCG == cg) {
-          uint32_t bb[4];
-          lfb::ldsm_x4(bb, lfb::b_frag(tK, ld, np * 16, kk, lane));
-          lfb::mma_16816(s[2 * np], a, bb[0], bb[1]);
-          lfb::mma_16816(s[2 * np + 1], a, bb[2], bb[3]);
-        }
-      }
-    }
-    if constexpr (NCG > 1) {
-      float* srow = sS + (rg * 16 + (lane >> 2)) * lds + (lane & 3) * 2;
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        if ((n / 2) % NCG == cg) {
-          *reinterpret_cast<float2*>(srow + n * 8) = make_float2(s[n][0], s[n][1]);
-          *reinterpret_cast<float2*>(srow + 8 * lds + n * 8) =
-              make_float2(s[n][2], s[n][3]);
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        const float2 lo = *reinterpret_cast<const float2*>(srow + n * 8);
-        const float2 hi = *reinterpret_cast<const float2*>(srow + 8 * lds + n * 8);
-        s[n][0] = lo.x;
-        s[n][1] = lo.y;
-        s[n][2] = hi.x;
-        s[n][3] = hi.y;
-      }
-    }
-
-    // Online softmax over this tile's keys.
-    float mx[2] = {m_r[0], m_r[1]};
-    const int key0 = t * BK + (lane & 3) * 2;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = (key0 + n * 8 + (e & 1) < Nk) ? s[n][e] * scale_log2
-                                                      : -CUDART_INF_F;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      alpha[h] = exp2f(m_r[h] - mx[h]);      // 0 on the first tile
-      m_r[h] = mx[h];
-      l_r[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m_r[e >> 1]);
-        l_r[e >> 1] += p;
-        s[n][e] = p;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kMmaDV / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V over this warp's columns, P rounded to bf16 from the S
-    // accumulators.
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t pa[4];
-      lfb::pack_a(pa, s, kc);
-#pragma unroll
-      for (int np = 0; np < kMmaDV / 16; ++np) {
-        if (np * 16 < nc) {
-          uint32_t bb[4];
-          lfb::ldsm_x4_trans(bb, lfb::bt_frag(tV, ld, kc * 16, c_lo + np * 16,
-                                              lane));
-          lfb::mma_16816(o[2 * np], pa, bb[0], bb[1]);
-          lfb::mma_16816(o[2 * np + 1], pa, bb[2], bb[3]);
-        }
-      }
-    }
-    __syncthreads();                          // before this stage is reloaded
+    lfb::mbar_init(qbar, 1);
+    lfb::mbar_init_fence();
   }
+  __syncthreads();
 
-  float inv[2];
-  int row[2];
+  if (wg == 2) {
+    lfb::reg_dealloc<40>();
+    // ---- producer ----
+    if (tid == 256) {
+      lfb::mbar_arrive_expect_tx(qbar, F::kQBytes);
+      for (int p = 0; p < F::NP; ++p)
+        lfb::tma_load_3d(sq + p * BQ * 128, &tq, qbar, 64 * p, q0, b);
+      // K of tile t + 1 goes ahead of V of tile t.
+      auto load = [&](const CUtensorMap* map, uint32_t ring, uint64_t* full,
+                      uint64_t* empty, int t) {
+        const int s = t % kStages;
+        lfb::mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        lfb::mbar_arrive_expect_tx(&full[s], F::kTileBytes);
+        for (int p = 0; p < F::NP; ++p)
+          lfb::tma_load_3d(ring + s * F::kTileBytes + p * BK * 128, map,
+                           &full[s], 64 * p, t * BK, b);
+      };
+      load(&tk, sk, kfull, kempty, 0);
+      for (int t = 0; t < ntiles; ++t) {
+        if (t + 1 < ntiles) load(&tk, sk, kfull, kempty, t + 1);
+        load(&tv, sv, vfull, vempty, t);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    lfb::reg_alloc<232>();
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int row0 = kSplitC ? 0 : 64 * wg;      // the group's first Q row
+    const int ps0 = kSplitC ? wg * F::PS : 0;    // its first panel of S's sum
+    const int po0 = kSplitC ? 4 * wg : 0;        // its first panel of O
+    float o[128];                // unset: the first tile's P V overwrites it
+    uint32_t pa[BK / 16][4];
+    // Rows g and g + 8 of this warp's 16: running max (log2 units) and the
+    // thread's partial row sum (its quad's four partials add up at the end).
+    float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    float l_r[2] = {0.f, 0.f};
+    // Turns: group 0 issues first; each group issues S (and the P V before
+    // it) in its turn and passes the turn on.
+    if (!kSplitC && wg == 1) lfb::named_bar_arrive(4, 256);
+    lfb::mbar_wait(qbar, 0);
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % kStages;
+      lfb::mbar_wait(&kfull[st], (t / kStages) & 1);
+      if (!kSplitC && t == 0) lfb::named_bar_sync(4 + wg, 256);
+      // S = Q K^T (with kSplitC, over this group's half of the channels),
+      // issued in this group's turn, into an accumulator fresh each tile
+      // (the first product overwrites it): one carried over from the last
+      // tile would be defined by the softmax inside P V's pipeline stage,
+      // and ptxas would serialise the wgmma (C7515).
+      const uint32_t tk_addr = sk + st * F::kTileBytes;
+      float s[BK / 2];
+      lfb::wgmma_fence();
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
-    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
-    inv[h] = 1.f / l_r[h];
-    row[h] = q0 + rg * 16 + (lane >> 2) + 8 * h;
-    if (lse != nullptr && cg == 0 && (lane & 3) == 0 && row[h] < Nq)
-      lse[(size_t)b * Nq + row[h]] = m_r[h] * kLn2 + logf(l_r[h]);
-  }
+      for (int p = 0; p < F::PS; ++p)
 #pragma unroll
-  for (int n = 0; n < kMmaDV / 8; ++n) {
-    if (n * 8 < nc) {
-      const int col = c_lo + n * 8 + (lane & 3) * 2;
+        for (int j = 0; j < 4; ++j)
+          lfb::wgmma_ss<BK>(
+              s,
+              lfb::desc_sw128(sq + (ps0 + p) * BQ * 128 + row0 * 128 + 32 * j,
+                              16),
+              lfb::desc_sw128(tk_addr + (ps0 + p) * BK * 128 + 32 * j, 16),
+              (p | j) != 0);
+      lfb::wgmma_commit();
+      if (!kSplitC) lfb::named_bar_arrive(4 + (wg ^ 1), 256);
+      lfb::wgmma_wait<0>();        // this S, and the last tile's P V
+      lfb::fence_operand(s);
+      lfb::fence_operand(o);
+      __syncwarp();
+      if (lane == 0) {
+        lfb::mbar_arrive(&kempty[st]);
+        if (t > 0) lfb::mbar_arrive(&vempty[(t - 1) % kStages]);
+      }
+      if constexpr (kSplitC) {
+        // Each group summed S over half of C: swap the halves (in the
+        // accumulator's own order, slot t % 2) and add, the same sum in both.
+        float4* mine = ex + ((t & 1) * 2 + wg) * (BK / 8) * 128;
+        float4* theirs = ex + ((t & 1) * 2 + (wg ^ 1)) * (BK / 8) * 128;
+        const int i = tid & 127;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+          mine[j * 128 + i] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2],
+                                          s[4 * j + 3]);
+        lfb::named_bar_sync(1, 256);
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const float4 x = theirs[j * 128 + i];
+          s[4 * j] += x.x;
+          s[4 * j + 1] += x.y;
+          s[4 * j + 2] += x.z;
+          s[4 * j + 3] += x.w;
+        }
+      }
+
+      // Online softmax over this tile's keys.
+      float mx[2] = {m_r[0], m_r[1]};
+      const int key0 = t * BK + (lane & 3) * 2;
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const float x = (key0 + 8 * (e >> 2) + (e & 1) < Nk) ? s[e] * scale_log2
+                                                             : -CUDART_INF_F;
+        s[e] = x;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+      }
+      float alpha[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        if (row[h] < Nq)
-          *reinterpret_cast<__nv_bfloat162*>(
-              out + ((size_t)b * Nq + row[h]) * C + col) =
-              __floats2bfloat162_rn(o[n][2 * h] * inv[h],
-                                    o[n][2 * h + 1] * inv[h]);
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = lfb::fast_exp2(m_r[h] - mx[h]);      // 0 on the first tile
+        m_r[h] = mx[h];
+        l_r[h] *= alpha[h];
       }
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const float p = lfb::fast_exp2(s[e] - m_r[(e >> 1) & 1]);
+        l_r[(e >> 1) & 1] += p;
+        s[e] = p;
+      }
+#pragma unroll
+      for (int e = 0; e < 128; ++e) o[e] *= alpha[(e >> 1) & 1];
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) lfb::acc_to_a(pa[kc], s, kc);
+
+      // O += P V over the group's 256 columns.
+      lfb::mbar_wait(&vfull[st], (t / kStages) & 1);
+      if (!kSplitC) lfb::named_bar_sync(4 + wg, 256);
+      const uint32_t tv_addr = sv + st * F::kTileBytes;
+      lfb::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        lfb::Wgmma<256>::rs_t(
+            o, pa[kc],
+            lfb::desc_sw128(tv_addr + po0 * BK * 128 + kc * 16 * 128, BK * 128),
+            t > 0 || kc > 0);
+      lfb::wgmma_commit();
+    }
+    if (!kSplitC && wg == 0) lfb::named_bar_arrive(5, 256);
+    lfb::wgmma_wait<0>();
+    lfb::fence_operand(o);
+
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+      l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+      inv[h] = 1.f / l_r[h];
+      const int row = q0 + row0 + 16 * warp + (lane >> 2) + 8 * h;
+      if (lse != nullptr && (!kSplitC || wg == 0) && (lane & 3) == 0 &&
+          row < Nq)
+        lse[(size_t)b * Nq + row] = m_r[h] * kLn2 + logf(l_r[h]);
+    }
+    // O / l as bf16 into the group's own panels of the Q tile (no other group
+    // reads them), swizzled as TMA stores them.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * warp + (lane >> 2) + 8 * h;
+        const uint32_t off = (po0 + (i >> 3)) * BQ * 128 + r * 128 +
+                             (((i & 7) ^ (r & 7)) << 4) + (lane & 3) * 4;
+        *reinterpret_cast<uint32_t*>(base + off) =
+            lfb::pack_bf16(o[4 * i + 2 * h] * inv[h],
+                           o[4 * i + 2 * h + 1] * inv[h]);
+      }
+    }
+    lfb::fence_proxy_async();
+    lfb::named_bar_sync(2 + wg, 128);
+    if ((tid & 127) == 0) {
+      for (int p = 0; p < 4; ++p)
+        if (64 * (po0 + p) < C)
+          lfb::tma_store_3d(&to, sq + (po0 + p) * BQ * 128 + row0 * 128,
+                            64 * (po0 + p), q0 + row0, b);
+      lfb::tma_store_wait();
     }
   }
 }
 
-template <int NCG, int CC>
-cudaError_t launch_mma(const lfb::bf16* q, const lfb::bf16* k,
-                       const lfb::bf16* v, lfb::bf16* out, float* lse, int B,
-                       int Nq, int Nk, int C, float scale,
-                       cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(C, NCG);
-  cudaError_t err = lfb::allow_smem(attn_mma_kernel<NCG, CC>, smem);
+template <bool kSplitC>
+cudaError_t launch_wgmma(const lfb::bf16* q, const lfb::bf16* k,
+                         const lfb::bf16* v, lfb::bf16* out, float* lse, int B,
+                         int Nq, int Nk, int C, float scale,
+                         cudaStream_t stream) {
+  using F = Fwd<kSplitC>;
+  CUtensorMap tq, tk, tv, to;
+  cudaError_t err = lfb::tma_map_bf16(&tq, q, B, Nq, C, F::BQ);
+  if (err == cudaSuccess) err = lfb::tma_map_bf16(&tk, k, B, Nk, C, F::BK);
+  if (err == cudaSuccess) err = lfb::tma_map_bf16(&tv, v, B, Nk, C, F::BK);
+  if (err == cudaSuccess) err = lfb::tma_map_bf16(&to, out, B, Nq, C, 64);
+  if (err == cudaSuccess)
+    err = lfb::allow_smem(attn_fwd_wgmma_kernel<kSplitC>, F::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Nq + mma_rows(NCG) - 1) / mma_rows(NCG), B);
-  attn_mma_kernel<NCG, CC><<<grid, kMmaThreads, smem, stream>>>(
-      q, k, v, out, lse, Nq, Nk, C, scale * kLog2e);
+  const dim3 grid((Nq + F::BQ - 1) / F::BQ, B);
+  attn_fwd_wgmma_kernel<kSplitC><<<grid, kWgThreads, F::kSmem, stream>>>(
+      tq, tk, tv, to, lse, Nq, Nk, C, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -493,15 +547,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     attn_decode_kernel<T><<<B, kThreads, smem, stream>>>(qp, kp, vp, op, lp, Nk,
                                                          C, scale);
   } else if constexpr (std::is_same<T, lfb::bf16>::value) {
-    if (C == 256)
-      return launch_mma<1, 256>(qp, kp, vp, op, lp, B, Nq, Nk, C, scale,
-                                stream);
-    if (C == 512)
-      return launch_mma<2, 512>(qp, kp, vp, op, lp, B, Nq, Nk, C, scale,
-                                stream);
-    if (C <= kMmaDV)
-      return launch_mma<1, 0>(qp, kp, vp, op, lp, B, Nq, Nk, C, scale, stream);
-    return launch_mma<2, 0>(qp, kp, vp, op, lp, B, Nq, Nk, C, scale, stream);
+    if (C <= 256)
+      return launch_wgmma<false>(qp, kp, vp, op, lp, B, Nq, Nk, C, scale,
+                                 stream);
+    return launch_wgmma<true>(qp, kp, vp, op, lp, B, Nq, Nk, C, scale, stream);
   } else {
     const size_t smem =
         (size_t)(kTQ * C + kTK * (C + 4) + kTQ * kTK) * sizeof(float);

@@ -20,33 +20,26 @@
 // get p = 0 in the dq launch).
 //
 // bf16 with Nq > 1 -- the in-backbone non-local blocks (a train step at
-// B = 8, crop 224: res3 32 x 3136 x 784 x C 256, res4 8 x 3136 x 784 x C 512;
-// 705 GFLOP over its 8 calls at 5 passes, 0.71 ms at 989 TFLOP/s bf16
-// dense): every pass on mma.sync.m16n8k16 (bf16 in, f32 accumulate), 8
-// warps a CTA, operands staged by cp.async in row-padded shared tiles.  A
-// warp owns 16 rows (keys, or query rows) and a slice of the output
-// columns: the f32 accumulators of 64 keys' dk and dv at C = 512 (256 KB)
-// fit neither the registers nor shared memory of one CTA, so the columns
-// are split over the warps of a CTA, and the CTA covers fewer rows when C
-// is wide.  The warps that share rows split the work of S and dP between
-// them instead of repeating it, and exchange P and dS as bf16 through
-// shared memory (a first version split the columns over CTAs, each
-// recomputing S and dP: the res4 call took 3.71 ms on an H100 SXM at 700 W,
-// slower than the plain f32 version; this layout 2.78, and 1.55 with C
-// compiled in).
-//  * attn_bwd_dkdv_mma_kernel -- one CTA per (batch, tile of 16 x 8/ncg
-//    keys), ncg = C/128 column groups of 128.  It streams tiles of q and dO
-//    (64 query rows at C = 256, 32 elsewhere; two cp.async stages) and
-//    computes S^T = K Q^T and dP^T = V dO^T over the full C, each warp on a
-//    share of the query n-tiles; P^T and dS^T go to shared memory as bf16
-//    and come back as the A fragments of dV += P^T dO and dK += dS^T Q (q
-//    and dO through ldmatrix.trans); the sums stay f32.  The grid is 8 x 25
-//    CTAs at res4, 32 x 13 at res3.
-//  * attn_bwd_dq_mma_kernel -- one CTA per (batch, tile of 16 x 8/ncg query
-//    rows), ncg = C/256 column groups of 256.  It streams 32-key tiles of K
-//    and V (two stages, one at C = 512), recomputes S = Q K^T and dP = dO V^T
-//    on a share of the key n-tiles each, and adds dS K (K through
-//    ldmatrix.trans) with dS exchanged as above.
+// B = 8, crop 224: res3 32 x 3136 x 784 x C 256, res4 8 x 3136 x 784 x C
+// 512; 705 GFLOP over its 8 calls at 5 passes, 0.71 ms at 989 TFLOP/s bf16
+// dense): every product on wgmma, warp-specialised as the forward (a
+// producer warpgroup feeding shared-memory rings by TMA under mbarriers,
+// two consumer warpgroups); the score tiles P^T, dS^T and dS become A
+// operands straight from the accumulators, and the streamed q, dO and K
+// tiles serve as MN-major B operands.  The accumulators of 64 keys' dk and
+// dv (or 64 rows' dq) at C 256 fill a warpgroup's registers, so each sum
+// has its own group and the groups swap score tiles through shared memory.
+//  * attn_bwd_dkdv_wgmma_kernel -- one CTA per (batch, 64-key tile), K and
+//    V resident; group 0 forms S^T and P^T and sums dV, group 1 forms dP^T
+//    and dS^T (with group 0's P^T) and sums dK, over streamed q / dO tiles.
+//    At C 512 two CTAs of a cluster share the key tile, each holding half
+//    of the channels: each forms its part of S^T and dP^T and they swap
+//    parts through distributed shared memory, so nothing is formed twice.
+//  * attn_bwd_dq_wgmma_kernel -- one CTA per (batch, query tile), q and dO
+//    resident, K and V streamed: at C 256 each group forms S and dP for its
+//    own 64 of 128 rows and sums all of their dq; at C 512 a CTA is 64 rows,
+//    group 0 forms S and group 1 dP, they swap them, and each sums half of
+//    dq's columns.
 // f32 (the whole-model f32 parity checks) keeps the FMA-unit kernels
 // attn_bwd_dkdv_kernel / attn_bwd_dq_kernel: one CTA per (batch, 16-key
 // tile) with dk/dv in registers (each warp 2 keys, each lane C/32 columns)
@@ -57,7 +50,7 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -373,452 +366,530 @@ attn_bwd_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 
-// ---- bf16, Nq > 1: tensor cores -------------------------------------------
+// ---- bf16, Nq > 1: wgmma on TMA-fed shared memory -------------------------
 
-constexpr int kMmaWarps = 8;
-constexpr int kDkvCols = 128;                // dk/dv columns per warp
-constexpr int kDqBK = 32;                    // streamed keys
-constexpr int kDqCols = 256;                 // dq columns per warp
-constexpr int kLdP = kDqBK + 8;              // row stride of the bf16 dS tile
-
-// Query rows per streamed tile of the dk/dv launch: 64 where the model's
-// C = 256 leaves room for two stages of them, else 32.
-__host__ __device__ constexpr int dkdv_bq(int C) { return C == 256 ? 64 : 32; }
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kWgThreads = 3 * 128;   // two consumer warpgroups, a producer one
+constexpr int kStages = 2;
 
-// A launch's warps form `ncg` column groups of `nrg` row groups each: the
-// dk/dv launch covers 16 nrg keys and all C columns (128 a group), the dq
-// launch 16 nrg query rows and all C columns (256 a group).
-struct Split {
-  int ncg, nrg;
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// The tilings of the dk/dv launch: 64 keys a CTA, K and V resident as 4
+// panels of 64 channels, q and dO streamed in BQ-row tiles of the same
+// panels.  kWide false (C <= 256): the panels cover C (zeros past it), BQ
+// 64.  kWide true (C up to 512): a cluster of two CTAs shares a key tile,
+// CTA r owning channels 256 r .. 256 r + 255 of K, V, q, dO and of dk, dv;
+// each forms its part of S^T and dP^T over its channels and the two swap
+// parts through distributed shared memory, so S^T and dP^T are formed once;
+// BQ 32.
+template <bool kWide>
+struct Dkdv {
+  static constexpr int BQ = kWide ? 32 : 64;
+  static constexpr int kKvBytes = 4 * 64 * 128;      // K or V
+  static constexpr int kTileBytes = 4 * BQ * 128;    // q or dO
+  static constexpr int kPartBytes = 64 * BQ * 4;     // an f32 64 x BQ tile
+  // P^T from group 0 to group 1 (2 slots) and, with kWide, the peer CTA's
+  // parts of S^T and dP^T (2 slots each).
+  static constexpr int kExOffset = 2 * kKvBytes + 2 * kStages * kTileBytes;
+  static constexpr int kStatOffset = kExOffset + (kWide ? 6 : 2) * kPartBytes;
+  static constexpr int kBarOffset = kStatOffset + kStages * 2 * BQ * 4;
+  static constexpr int kSmem = 1024 + kBarOffset + 128;
 };
-inline Split dkdv_split(int C) {
-  const int ncg = (C + kDkvCols - 1) / kDkvCols;
-  return {ncg, kMmaWarps / ncg};
-}
-inline Split dq_split(int C) {
-  const int ncg = (C + kDqCols - 1) / kDqCols;
-  return {ncg, kMmaWarps / ncg};
+
+// The tilings of the dq launch: q and dO resident, K and V streamed in
+// BK-key tiles.  kWide false: 128 query rows a CTA, each group its own 64
+// rows and all of dq's columns, forming S and dP itself.  kWide true: 64
+// rows; group 0 forms S and group 1 dP over the full C, they swap them, and
+// each owns half of dq's columns.
+template <bool kWide>
+struct Dq {
+  static constexpr int NP = kWide ? 8 : 4;           // 64-channel panels
+  static constexpr int BR = kWide ? 64 : 128;        // query rows a CTA
+  static constexpr int BK = kWide ? 16 : 32;
+  static constexpr int kQBytes = NP * BR * 128;      // q or dO
+  static constexpr int kTileBytes = NP * BK * 128;   // K or V
+  static constexpr int kExBytes = kWide ? 2 * 2 * 64 * BK * 4 : 0;  // S, dP
+  static constexpr int kBarOffset =
+      2 * kQBytes + 2 * kStages * kTileBytes + kExBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + 64;
+};
+
+// Warpgroup 0 owns dV, warpgroup 1 dK, of the CTA's 64 keys and channels.
+// Per q tile (from the producer's ring: q, dO by TMA; lse * log2 e and
+// delta, rows past Nq +inf and 0, written by the producer warp's lanes):
+// group 0 forms S^T = K q^T, group 1 dP^T = V dO^T (K, V resident and
+// K-major A operands, q, dO K-major B operands; with kWide each adds the
+// peer CTA's part).  Group 0 turns S^T into P^T = exp2(S^T scale log2 e -
+// lse log2 e) and hands it, f32 in its accumulator order, to group 1
+// through shared memory, which forms dS^T = P^T (dP^T - delta).  Then dV +=
+// P^T dO and dK += dS^T q, P^T and dS^T the A operands straight from the
+// registers, dO and q MN-major B operands.  Keys past Nk are zero rows
+// whose sums are not stored; query rows past Nq have p = 0.
+template <bool kWide>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int Nq, int Nk, int C, float scale) {
+  using D = Dkdv<kWide>;
+  constexpr int BQ = D::BQ;
+  constexpr int kPart4 = D::kPartBytes / 16;          // float4s of a part
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const uint32_t sk = lfb::smem_addr(base);
+  const uint32_t sv = sk + D::kKvBytes;
+  const uint32_t sst = sv + D::kKvBytes;   // stage s: q at 2 s tiles, dO next
+  float4* ex = reinterpret_cast<float4*>(base + D::kExOffset);
+  float* stat = reinterpret_cast<float*>(base + D::kStatOffset);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + D::kBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+  uint64_t* recv = kvbar + 1;    // [group][slot]: the peer's part has landed
+  uint64_t* freed = recv + 4;    // [group][slot]: the peer has read ours
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int rank = kWide ? static_cast<int>(lfb::cluster_rank()) : 0;
+  const int c_lo = 256 * rank;                // the CTA's first channel
+  const int b = blockIdx.y;
+  const int k0 = (kWide ? blockIdx.x >> 1 : blockIdx.x) * 64;
+  const int ntiles = (Nq + BQ - 1) / BQ;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      lfb::mbar_init(&full[s], 32);            // the producer warp's lanes
+      lfb::mbar_init(&empty[s], 8);            // the consumer warps
+    }
+    lfb::mbar_init(kvbar, 1);
+    if (kWide)
+      for (int i = 0; i < 4; ++i) {
+        lfb::mbar_init(&recv[i], 128);         // the peer group's threads
+        lfb::mbar_init(&freed[i], 128);
+      }
+    lfb::mbar_init_fence();
+  }
+  if constexpr (kWide)
+    lfb::cluster_sync();
+  else
+    __syncthreads();
+
+  if (wg == 2) {
+    lfb::reg_dealloc<40>();
+    // ---- producer: warp 8 ----
+    if (tid >> 5 != 8) return;
+    const int lane = tid & 31;
+    if (lane == 0) {
+      lfb::mbar_arrive_expect_tx(kvbar, 2 * D::kKvBytes);
+      for (int p = 0; p < 4; ++p) {
+        lfb::tma_load_3d(sk + p * 64 * 128, &tk, kvbar, c_lo + 64 * p, k0, b);
+        lfb::tma_load_3d(sv + p * 64 * 128, &tv, kvbar, c_lo + 64 * p, k0, b);
+      }
+    }
+    const size_t qoff = (size_t)b * Nq;
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % kStages;
+      lfb::mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+      float* L = stat + s * 2 * BQ;
+      for (int i = lane; i < BQ; i += 32) {
+        const int r = t * BQ + i;
+        L[i] = r < Nq ? lse[qoff + r] * kLog2e : CUDART_INF_F;
+        L[BQ + i] = r < Nq ? delta[qoff + r] : 0.f;
+      }
+      if (lane == 0) {
+        lfb::mbar_arrive_expect_tx(&full[s], 2 * D::kTileBytes);
+        const uint32_t dst = sst + s * 2 * D::kTileBytes;
+        for (int p = 0; p < 4; ++p) {
+          lfb::tma_load_3d(dst + p * BQ * 128, &tq, &full[s], c_lo + 64 * p,
+                           t * BQ, b);
+          lfb::tma_load_3d(dst + D::kTileBytes + p * BQ * 128, &tdo, &full[s],
+                           c_lo + 64 * p, t * BQ, b);
+        }
+      } else {
+        lfb::mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    lfb::reg_alloc<232>();
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int i128 = tid & 127;
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t sa = wg == 0 ? sk : sv;    // A of S^T (K) or dP^T (V)
+    float acc[128];   // dV (group 0) or dK (group 1); unset, as the forward's O
+    // kWide: this group's two slots for the peer's parts, and the same
+    // slots in the peer CTA, where this group's parts go.
+    const float4* part = ex + (2 + 2 * wg) * kPart4;
+    uint32_t part_peer = 0;
+    if constexpr (kWide)
+      part_peer = lfb::map_to_rank(lfb::smem_addr(part), rank ^ 1);
+    lfb::mbar_wait(kvbar, 0);
+
+    uint32_t f[BQ / 16][4];        // P^T or dS^T as A fragments
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % kStages;
+      lfb::mbar_wait(&full[st], (t / kStages) & 1);
+      const uint32_t tq_addr = sst + st * 2 * D::kTileBytes;
+      const uint32_t tdo_addr = tq_addr + D::kTileBytes;
+      // S^T (group 0) or dP^T (group 1), into an accumulator fresh each
+      // tile (see the forward kernel).
+      const uint32_t sb = wg == 0 ? tq_addr : tdo_addr;
+      float x[BQ / 2];
+      lfb::wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          lfb::wgmma_ss<BQ>(x, lfb::desc_sw128(sa + p * 64 * 128 + 32 * j, 16),
+                            lfb::desc_sw128(sb + p * BQ * 128 + 32 * j, 16),
+                            (p | j) != 0);
+      lfb::wgmma_commit();
+      lfb::wgmma_wait<0>();        // this product, and the last dV / dK
+      lfb::fence_operand(x);
+      lfb::fence_operand(acc);
+      __syncwarp();
+      if (t > 0 && lane == 0) lfb::mbar_arrive(&empty[(t - 1) % kStages]);
+      if constexpr (kWide) {
+        // Swap parts with the same group of the peer CTA (slot t % 2):
+        // write ours into its slot once it has read what was there, signal,
+        // wait for its part, add (the same sum in both CTAs), free the slot.
+        const int slot = t & 1;
+        uint64_t* got = &recv[2 * wg + slot];
+        uint64_t* gone = &freed[2 * wg + slot];
+        if (t >= 2) lfb::mbar_wait_cluster(gone, ((t >> 1) & 1) ^ 1);
+        const uint32_t dst = part_peer + slot * D::kPartBytes;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+          lfb::st_cluster(dst + (j * 128 + i128) * 16,
+                          make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2],
+                                      x[4 * j + 3]));
+        lfb::mbar_arrive_cluster(
+            lfb::map_to_rank(lfb::smem_addr(got), rank ^ 1));
+        lfb::mbar_wait_cluster(got, (t >> 1) & 1);
+        const float4* theirs = part + slot * kPart4;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float4 y = theirs[j * 128 + i128];
+          x[4 * j] += y.x;
+          x[4 * j + 1] += y.y;
+          x[4 * j + 2] += y.z;
+          x[4 * j + 3] += y.w;
+        }
+        if (t + 2 < ntiles)
+          lfb::mbar_arrive_cluster(
+              lfb::map_to_rank(lfb::smem_addr(gone), rank ^ 1));
+      }
+      // Element e of the accumulator is key row 16 warp + lane / 4 (+ 8)
+      // and query column 8 (e / 4) + 2 (lane % 4) + e % 2 of the tile.
+      const float* L = stat + st * 2 * BQ;
+      const int col0 = (lane & 3) * 2;
+      float4* slot = ex + (t & 1) * kPart4;
+      if (wg == 0) {
+#pragma unroll
+        for (int e = 0; e < BQ / 2; ++e)
+          x[e] = lfb::fast_exp2(x[e] * scale_log2 -
+                                L[8 * (e >> 2) + col0 + (e & 1)]);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+          slot[j * 128 + i128] =
+              make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      }
+      lfb::named_bar_sync(1, 256);
+      if (wg == 1) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float4 p4 = slot[j * 128 + i128];
+          const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = 4 * j + u;
+            x[e] = pj[u] * (x[e] - L[BQ + 8 * j + col0 + (u & 1)]);
+          }
+        }
+      }
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) lfb::acc_to_a(f[kc], x, kc);
+
+      // dV += P^T dO (group 0), dK += dS^T q (group 1), over the CTA's
+      // channels.
+      const uint32_t sb2 = wg == 0 ? tdo_addr : tq_addr;
+      lfb::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        lfb::Wgmma<256>::rs_t(acc, f[kc],
+                              lfb::desc_sw128(sb2 + kc * 16 * 128, BQ * 128),
+                              t > 0 || kc > 0);
+      lfb::wgmma_commit();
+    }
+    lfb::wgmma_wait<0>();
+    lfb::fence_operand(acc);
+
+    float* out = wg == 0 ? dv : dk;
+    const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = k0 + 16 * warp + (lane >> 2) + 8 * hh;
+      if (key >= Nk) continue;
+      float* row = out + ((size_t)b * Nk + key) * C + c_lo + (lane & 3) * 2;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (c_lo + 8 * i < C)
+          *reinterpret_cast<float2*>(row + 8 * i) = make_float2(
+              mul * acc[4 * i + 2 * hh], mul * acc[4 * i + 2 * hh + 1]);
+    }
+  }
 }
 
-// Shared memory: the resident tiles (K and V, or q and dO, of the CTA's 16
-// nrg rows), `stages` streamed tiles, and the bf16 P^T and dS^T (or dS)
-// tiles the column groups share.
-__host__ __device__ inline size_t dkdv_fixed_bytes(int C, int nrg) {
-  return 2 * (size_t)16 * nrg * (C + 8) * sizeof(lfb::bf16);
-}
-__host__ __device__ inline size_t dkdv_stage_bytes(int C, int bq) {
-  return 2 * (size_t)bq * (C + 8) * sizeof(lfb::bf16) +      // q, dO
-         2 * bq * sizeof(float);                             // lse, delta
-}
-__host__ __device__ inline size_t dkdv_shared_bytes(int nrg, int bq) {
-  return 2 * (size_t)16 * nrg * (bq + 8) * sizeof(lfb::bf16);  // P^T, dS^T
-}
-__host__ __device__ inline size_t dq_fixed_bytes(int C, int nrg) {
-  return 2 * (size_t)16 * nrg * (C + 8) * sizeof(lfb::bf16);
-}
-__host__ __device__ inline size_t dq_stage_bytes(int C) {      // K, V
-  return 2 * (size_t)kDqBK * (C + 8) * sizeof(lfb::bf16);
-}
-__host__ __device__ inline size_t dq_shared_bytes(int nrg) {    // dS
-  return (size_t)16 * nrg * kLdP * sizeof(lfb::bf16);
-}
-
-// Warp (rg, cg) of the dk/dv launch owns keys 16 rg.. of the CTA's tile and
-// dk/dv columns 128 cg...  Per query tile (dkdv_bq rows) it computes S^T and
-// dP^T for its keys over the full C on the query n-tiles n with n % ncg ==
-// cg (so the column groups split that work rather than repeat it), writes
-// P^T and dS^T as bf16 to shared memory, and after a barrier reads back the
-// A fragments of the whole tile for dV += P^T dO and dK += dS^T Q over its
-// columns.
-// CC > 0 fixes C (and so ncg) at compile time, as in the forward: with the
-// loops unrolled the res3 backward of a train step went from 3.72 to
-// 2.45 ms (H100 SXM, 700 W); CC = 0 takes them from the arguments.
-template <int CC>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-attn_bwd_dkdv_mma_kernel(const lfb::bf16* __restrict__ q,
-                         const lfb::bf16* __restrict__ k,
-                         const lfb::bf16* __restrict__ v,
-                         const lfb::bf16* __restrict__ dout,
+// Per key tile (from the producer's ring: K, V by TMA) a group forms S = q
+// K^T and dP = dO V^T over the full C (q, dO resident K-major A operands;
+// K, V K-major B operands): kWide false, both for its own 64 rows; kWide
+// true, group 0 S and group 1 dP for the CTA's 64 rows, swapped through
+// shared memory (f32, in accumulator order).  Then P = exp2(S scale log2 e
+// - lse log2 e) (0 for keys past Nk), dS = P (dP - delta), and dQ += dS K
+// over the group's columns, dS the A operand from registers and K the
+// MN-major B operand.  Query rows past Nq are zero rows with p = 0 that are
+// not stored.
+template <bool kWide>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int Nq, int Nk, int C_arg, float scale, int ncg_arg,
-                         int stages) {
-  using lfb::bf16;
-  const int C = CC > 0 ? CC : C_arg;
-  const int ncg = CC > 0 ? (CC + kDkvCols - 1) / kDkvCols : ncg_arg;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nrg = (blockDim.x >> 5) / ncg;
-  const int rg = warp % nrg;
-  const int cg = warp / nrg;
-  const int keys = 16 * nrg;
+                         float* __restrict__ dq, int Nq, int Nk, int C,
+                         float scale) {
+  using D = Dq<kWide>;
+  constexpr int BK = D::BK, BR = D::BR;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const uint32_t sq = lfb::smem_addr(base);
+  const uint32_t sdo = sq + D::kQBytes;
+  const uint32_t skv = sdo + D::kQBytes;     // stage s: K at 2 s tiles, V after
+  float4* ex = reinterpret_cast<float4*>(base + 2 * D::kQBytes +
+                                         2 * kStages * D::kTileBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + D::kBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int b = blockIdx.y;
-  const int k0 = blockIdx.x * keys;
-  const int c_lo = cg * kDkvCols;
-  const int nc = min(kDkvCols, C - c_lo);    // a multiple of 32
-  const int ld = C + 8;
-  const float scale_log2 = scale * kLog2e;
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // keys x ld
-  bf16* sV = sK + keys * ld;                       // keys x ld
-  constexpr int BQ = dkdv_bq(CC);
-  constexpr int NT = BQ / 8;                       // query n-tiles per tile
-  constexpr int ldp = BQ + 8;
-  bf16* sP = sV + keys * ld;                       // keys x ldp  P^T
-  bf16* sDS = sP + keys * ldp;                     // keys x ldp  dS^T
-  unsigned char* stage0 = smem_raw + dkdv_fixed_bytes(C, nrg) +
-                          dkdv_shared_bytes(nrg, BQ);
-  const size_t stage_bytes = dkdv_stage_bytes(C, BQ);
-  const size_t qoff = (size_t)b * Nq;
-
-  // A stage: q tile, dO tile (BQ x ld each), lse * log2(e), delta.
-  auto tile_q = [&](int buf) {
-    return reinterpret_cast<bf16*>(stage0 + buf * stage_bytes);
-  };
-  auto tile_o = [&](int buf) { return tile_q(buf) + BQ * ld; };
-  auto tile_l = [&](int buf) {
-    return reinterpret_cast<float*>(tile_o(buf) + BQ * ld);
-  };
-  auto load_q = [&](int tile, int buf) {
-    const int r0 = tile * BQ;
-    lfb::load_tile_async(tile_q(buf), ld, q + qoff * C, C, r0, BQ, Nq, 0, C);
-    lfb::load_tile_async(tile_o(buf), ld, dout + qoff * C, C, r0, BQ, Nq, 0, C);
-    float* sL = tile_l(buf);
-    const int i = threadIdx.x;
-    if (i < BQ) {
-      const bool ok = r0 + i < Nq;
-      sL[i] = ok ? lse[qoff + r0 + i] * kLog2e : CUDART_INF_F;
-      sL[BQ + i] = ok ? delta[qoff + r0 + i] : 0.f;
+  const int q0 = blockIdx.x * BR;
+  const int ntiles = (Nk + BK - 1) / BK;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      lfb::mbar_init(&full[s], 1);
+      lfb::mbar_init(&empty[s], 8);
     }
-  };
-  lfb::load_tile_async(sK, ld, k + (size_t)b * Nk * C, C, k0, keys, Nk, 0, C);
-  lfb::load_tile_async(sV, ld, v + (size_t)b * Nk * C, C, k0, keys, Nk, 0, C);
-  load_q(0, 0);
-  lfb::cp_async_commit();
-
-  float acc_k[kDkvCols / 8][4], acc_v[kDkvCols / 8][4];
-#pragma unroll
-  for (int n = 0; n < kDkvCols / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-
-  const int ntiles = (Nq + BQ - 1) / BQ;
-  // This warp's query n-tiles: n = cg + j ncg for j < nj (and n < NT).
-  const int nj = (NT + ncg - 1) / ncg;
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = stages == 2 ? (t & 1) : 0;
-    if (stages == 2 && t + 1 < ntiles) {
-      load_q(t + 1, buf ^ 1);
-      lfb::cp_async_commit();
-      lfb::cp_async_wait<1>();
-    } else {
-      lfb::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* tQ = tile_q(buf);
-    const bf16* tO = tile_o(buf);
-    const float* tL = tile_l(buf);
-
-    // S^T = K Q^T and dP^T = V dO^T on this warp's query n-tiles.
-    float st[NT][4], dpt[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < C; kk += 16) {
-      uint32_t ak[4], av[4];
-      lfb::ldsm_x4(ak, lfb::a_frag(sK, ld, rg * 16, kk, lane));
-      lfb::ldsm_x4(av, lfb::a_frag(sV, ld, rg * 16, kk, lane));
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = cg + j * ncg;
-        if (j < nj && n < NT) {
-          uint32_t bq[2], bo[2];
-          lfb::ldsm_x2(bq, lfb::b1_frag(tQ, ld, n * 8, kk, lane));
-          lfb::ldsm_x2(bo, lfb::b1_frag(tO, ld, n * 8, kk, lane));
-          lfb::mma_16816(st[j], ak, bq[0], bq[1]);
-          lfb::mma_16816(dpt[j], av, bo[0], bo[1]);
-        }
-      }
-    }
-    // P^T and dS^T (the query of (n, e) is n * 8 + 2t + (e & 1)) to the
-    // shared tiles, as bf16.
-    {
-      const int r = rg * 16 + (lane >> 2);
-      const int c = (lane & 3) * 2;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = cg + j * ncg;
-        if (j < nj && n < NT) {
-          float p[4], d[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = n * 8 + c + (e & 1);
-            p[e] = exp2f(st[j][e] * scale_log2 - tL[i]);
-            d[e] = p[e] * (dpt[j][e] - tL[BQ + i]);
-          }
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int off = (r + 8 * h) * ldp + n * 8 + c;
-            *reinterpret_cast<uint32_t*>(sP + off) =
-                lfb::pack_bf16(p[2 * h], p[2 * h + 1]);
-            *reinterpret_cast<uint32_t*>(sDS + off) =
-                lfb::pack_bf16(d[2 * h], d[2 * h + 1]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-    // dV += P^T dO and dK += dS^T Q over this warp's columns.
-#pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      uint32_t pa[4], da[4];
-      lfb::ldsm_x4(pa, lfb::a_frag(sP, ldp, rg * 16, kc * 16, lane));
-      lfb::ldsm_x4(da, lfb::a_frag(sDS, ldp, rg * 16, kc * 16, lane));
-#pragma unroll
-      for (int np = 0; np < kDkvCols / 16; ++np) {
-        if (np * 16 < nc) {
-          uint32_t bo[4], bq[4];
-          lfb::ldsm_x4_trans(bo, lfb::bt_frag(tO, ld, kc * 16, c_lo + np * 16,
-                                              lane));
-          lfb::ldsm_x4_trans(bq, lfb::bt_frag(tQ, ld, kc * 16, c_lo + np * 16,
-                                              lane));
-          lfb::mma_16816(acc_v[2 * np], pa, bo[0], bo[1]);
-          lfb::mma_16816(acc_v[2 * np + 1], pa, bo[2], bo[3]);
-          lfb::mma_16816(acc_k[2 * np], da, bq[0], bq[1]);
-          lfb::mma_16816(acc_k[2 * np + 1], da, bq[2], bq[3]);
-        }
-      }
-    }
-    __syncthreads();                   // before this stage and sP are rewritten
-    if (stages == 1 && t + 1 < ntiles) {
-      load_q(t + 1, 0);
-      lfb::cp_async_commit();
-    }
+    lfb::mbar_init(qbar, 1);
+    lfb::mbar_init_fence();
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + rg * 16 + (lane >> 2) + 8 * h;
-    if (key >= Nk) continue;
-    float* dkr = dk + ((size_t)b * Nk + key) * C + c_lo + (lane & 3) * 2;
-    float* dvr = dv + ((size_t)b * Nk + key) * C + c_lo + (lane & 3) * 2;
-#pragma unroll
-    for (int n = 0; n < kDkvCols / 8; ++n) {
-      if (n * 8 < nc) {
-        *reinterpret_cast<float2*>(dkr + n * 8) =
-            make_float2(scale * acc_k[n][2 * h], scale * acc_k[n][2 * h + 1]);
-        *reinterpret_cast<float2*>(dvr + n * 8) =
-            make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+  if (wg == 2) {
+    lfb::reg_dealloc<40>();
+    // ---- producer ----
+    if (tid == 256) {
+      lfb::mbar_arrive_expect_tx(qbar, 2 * D::kQBytes);
+      for (int p = 0; p < D::NP; ++p) {
+        lfb::tma_load_3d(sq + p * BR * 128, &tq, qbar, 64 * p, q0, b);
+        lfb::tma_load_3d(sdo + p * BR * 128, &tdo, qbar, 64 * p, q0, b);
       }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kStages;
+        lfb::mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        lfb::mbar_arrive_expect_tx(&full[s], 2 * D::kTileBytes);
+        const uint32_t dst = skv + s * 2 * D::kTileBytes;
+        for (int p = 0; p < D::NP; ++p) {
+          lfb::tma_load_3d(dst + p * BK * 128, &tk, &full[s], 64 * p, t * BK,
+                           b);
+          lfb::tma_load_3d(dst + D::kTileBytes + p * BK * 128, &tv, &full[s],
+                           64 * p, t * BK, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    lfb::reg_alloc<232>();
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int i128 = tid & 127;
+    const float scale_log2 = scale * kLog2e;
+    const size_t qoff = (size_t)b * Nq;
+    const int row0 = kWide ? 0 : 64 * wg;     // the group's first row
+    const int po = kWide ? 4 * wg : 0;        // its first panel of dq
+    // Rows g and g + 8 of this warp's 16.
+    float row_l[2], row_d[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = q0 + row0 + 16 * warp + (lane >> 2) + 8 * hh;
+      row_l[hh] = r < Nq ? lse[qoff + r] * kLog2e : CUDART_INF_F;
+      row_d[hh] = r < Nq ? delta[qoff + r] : 0.f;
+    }
+    float acc[128];   // unset, as the forward's O
+    uint32_t xa[BK / 16][4];
+    lfb::mbar_wait(qbar, 0);
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % kStages;
+      lfb::mbar_wait(&full[st], (t / kStages) & 1);
+      const uint32_t tk_addr = skv + st * 2 * D::kTileBytes;
+      const uint32_t tv_addr = tk_addr + D::kTileBytes;
+      // Fresh accumulators each tile: see the forward kernel.
+      float s[BK / 2], dp[BK / 2];
+      lfb::wgmma_fence();
+      if constexpr (!kWide) {
+#pragma unroll
+        for (int p = 0; p < D::NP; ++p)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            lfb::wgmma_ss<BK>(
+                s, lfb::desc_sw128(sq + p * BR * 128 + row0 * 128 + 32 * j, 16),
+                lfb::desc_sw128(tk_addr + p * BK * 128 + 32 * j, 16),
+                (p | j) != 0);
+            lfb::wgmma_ss<BK>(
+                dp,
+                lfb::desc_sw128(sdo + p * BR * 128 + row0 * 128 + 32 * j, 16),
+                lfb::desc_sw128(tv_addr + p * BK * 128 + 32 * j, 16),
+                (p | j) != 0);
+          }
+      } else {
+        const uint32_t sa = wg == 0 ? sq : sdo;
+        const uint32_t sb = wg == 0 ? tk_addr : tv_addr;
+#pragma unroll
+        for (int p = 0; p < D::NP; ++p)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            lfb::wgmma_ss<BK>(s,
+                              lfb::desc_sw128(sa + p * BR * 128 + 32 * j, 16),
+                              lfb::desc_sw128(sb + p * BK * 128 + 32 * j, 16),
+                              (p | j) != 0);
+      }
+      lfb::wgmma_commit();
+      lfb::wgmma_wait<0>();                // these products, and the last dQ
+      lfb::fence_operand(s);
+      if constexpr (!kWide) lfb::fence_operand(dp);
+      lfb::fence_operand(acc);
+      __syncwarp();
+      if (t > 0 && lane == 0) lfb::mbar_arrive(&empty[(t - 1) % kStages]);
+      if constexpr (kWide) {
+        // Group 0 holds S, group 1 dP: swap them (slot t % 2).
+        float4* mine = ex + ((t & 1) * 2 + wg) * (BK / 8) * 128;
+        const float4* theirs = ex + ((t & 1) * 2 + (wg ^ 1)) * (BK / 8) * 128;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+          mine[j * 128 + i128] =
+              make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+        lfb::named_bar_sync(1, 256);
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const float4 y4 = theirs[j * 128 + i128];
+          const float y[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = 4 * j + u;
+            const float mine_v = s[e];
+            s[e] = wg == 0 ? mine_v : y[u];
+            dp[e] = wg == 0 ? y[u] : mine_v;
+          }
+        }
+      }
+      // Element e: query row 16 warp + lane / 4 (+ 8 for (e / 2) odd), key
+      // column 8 (e / 4) + 2 (lane % 4) + e % 2 of the tile.
+      const int key0 = t * BK + (lane & 3) * 2;
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int hh = (e >> 1) & 1;
+        const float p = key0 + 8 * (e >> 2) + (e & 1) < Nk
+                            ? lfb::fast_exp2(s[e] * scale_log2 - row_l[hh])
+                            : 0.f;
+        s[e] = p * (dp[e] - row_d[hh]);
+      }
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) lfb::acc_to_a(xa[kc], s, kc);
+
+      // dQ += dS K over the group's columns.
+      const uint32_t sb2 = tk_addr + po * BK * 128;
+      lfb::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        lfb::Wgmma<256>::rs_t(acc, xa[kc],
+                              lfb::desc_sw128(sb2 + kc * 16 * 128, BK * 128),
+                              t > 0 || kc > 0);
+      lfb::wgmma_commit();
+    }
+    lfb::wgmma_wait<0>();
+    lfb::fence_operand(acc);
+
+    const int c0 = 64 * po;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = q0 + row0 + 16 * warp + (lane >> 2) + 8 * hh;
+      if (r >= Nq) continue;
+      float* row = dq + (qoff + r) * C + c0 + (lane & 3) * 2;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (c0 + 8 * i < C)
+          *reinterpret_cast<float2*>(row + 8 * i) = make_float2(
+              scale * acc[4 * i + 2 * hh], scale * acc[4 * i + 2 * hh + 1]);
     }
   }
 }
 
-// Warp (rg, cg) of the dq launch owns query rows 16 rg.. of the CTA's tile
-// and dq columns 256 cg...  Per 32-key tile it computes S = Q K^T and
-// dP = dO V^T for its rows on the key n-tiles n with n % ncg == cg, writes
-// dS as bf16 to shared memory, and after a barrier reads back the A
-// fragments of all 32 keys for dQ += dS K over its columns (K through
-// ldmatrix.trans).
-template <int CC>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-attn_bwd_dq_mma_kernel(const lfb::bf16* __restrict__ q,
-                       const lfb::bf16* __restrict__ k,
-                       const lfb::bf16* __restrict__ v,
-                       const lfb::bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, float* __restrict__ dq,
-                       int Nq, int Nk, int C_arg, float scale, int ncg_arg,
-                       int stages) {
-  using lfb::bf16;
-  const int C = CC > 0 ? CC : C_arg;
-  const int ncg = CC > 0 ? (CC + kDqCols - 1) / kDqCols : ncg_arg;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nrg = (blockDim.x >> 5) / ncg;
-  const int rg = warp % nrg;
-  const int cg = warp / nrg;
-  const int rows = 16 * nrg;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * rows;
-  const int c_lo = cg * kDqCols;
-  const int nc = min(kDqCols, C - c_lo);     // a multiple of 32
-  const int ld = C + 8;
-  const float scale_log2 = scale * kLog2e;
-  const size_t qoff = (size_t)b * Nq;
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // rows x ld
-  bf16* sO = sQ + rows * ld;                       // rows x ld  (dO)
-  bf16* sDS = sO + rows * ld;                      // rows x kLdP  dS
-  bf16* sKV = sDS + rows * kLdP;                   // stages x (K, V) tiles
-  const bf16* kb = k + (size_t)b * Nk * C;
-  const bf16* vb = v + (size_t)b * Nk * C;
-  auto tile_k = [&](int buf) { return sKV + buf * 2 * kDqBK * ld; };
-  auto tile_v = [&](int buf) { return tile_k(buf) + kDqBK * ld; };
-  auto load_kv = [&](int tile, int buf) {
-    lfb::load_tile_async(tile_k(buf), ld, kb, C, tile * kDqBK, kDqBK, Nk, 0, C);
-    lfb::load_tile_async(tile_v(buf), ld, vb, C, tile * kDqBK, kDqBK, Nk, 0, C);
-  };
-  lfb::load_tile_async(sQ, ld, q + qoff * C, C, q0, rows, Nq, 0, C);
-  lfb::load_tile_async(sO, ld, dout + qoff * C, C, q0, rows, Nq, 0, C);
-  load_kv(0, 0);
-  lfb::cp_async_commit();
-
-  // Rows g and g + 8 of this warp's 16.
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + rg * 16 + (lane >> 2) + 8 * h;
-    row_lse[h] = r < Nq ? lse[qoff + r] * kLog2e : CUDART_INF_F;
-    row_delta[h] = r < Nq ? delta[qoff + r] : 0.f;
-  }
-  float acc[kDqCols / 8][4];
-#pragma unroll
-  for (int n = 0; n < kDqCols / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  constexpr int NT = kDqBK / 8;                    // key n-tiles per tile
-  const int ntiles = (Nk + kDqBK - 1) / kDqBK;
-  // This warp's key n-tiles: n = cg + j ncg for j < nj (and n < NT).
-  const int nj = (NT + ncg - 1) / ncg;
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = stages == 2 ? (t & 1) : 0;
-    if (stages == 2 && t + 1 < ntiles) {
-      load_kv(t + 1, buf ^ 1);
-      lfb::cp_async_commit();
-      lfb::cp_async_wait<1>();
-    } else {
-      lfb::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* tK = tile_k(buf);
-    const bf16* tV = tile_v(buf);
-
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < C; kk += 16) {
-      uint32_t aq[4], ao[4];
-      lfb::ldsm_x4(aq, lfb::a_frag(sQ, ld, rg * 16, kk, lane));
-      lfb::ldsm_x4(ao, lfb::a_frag(sO, ld, rg * 16, kk, lane));
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = cg + j * ncg;
-        if (j < nj && n < NT) {
-          uint32_t bk[2], bv[2];
-          lfb::ldsm_x2(bk, lfb::b1_frag(tK, ld, n * 8, kk, lane));
-          lfb::ldsm_x2(bv, lfb::b1_frag(tV, ld, n * 8, kk, lane));
-          lfb::mma_16816(s[j], aq, bk[0], bk[1]);
-          lfb::mma_16816(dp[j], ao, bv[0], bv[1]);
-        }
-      }
-    }
-    // dS to the shared tile; keys past Nk get p = 0.
-    {
-      const int r = rg * 16 + (lane >> 2);
-      const int c = (lane & 3) * 2;
-      const int key0 = t * kDqBK + c;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = cg + j * ncg;
-        if (j < nj && n < NT) {
-          float d[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = (key0 + n * 8 + (e & 1) < Nk)
-                                ? exp2f(s[j][e] * scale_log2 - row_lse[e >> 1])
-                                : 0.f;
-            d[e] = p * (dp[j][e] - row_delta[e >> 1]);
-          }
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<uint32_t*>(sDS + (r + 8 * h) * kLdP + n * 8 + c) =
-                lfb::pack_bf16(d[2 * h], d[2 * h + 1]);
-        }
-      }
-    }
-    __syncthreads();
-    // dQ += dS K over this warp's columns.
-#pragma unroll
-    for (int kc = 0; kc < kDqBK / 16; ++kc) {
-      uint32_t da[4];
-      lfb::ldsm_x4(da, lfb::a_frag(sDS, kLdP, rg * 16, kc * 16, lane));
-#pragma unroll
-      for (int np = 0; np < kDqCols / 16; ++np) {
-        if (np * 16 < nc) {
-          uint32_t bk[4];
-          lfb::ldsm_x4_trans(bk, lfb::bt_frag(tK, ld, kc * 16, c_lo + np * 16,
-                                              lane));
-          lfb::mma_16816(acc[2 * np], da, bk[0], bk[1]);
-          lfb::mma_16816(acc[2 * np + 1], da, bk[2], bk[3]);
-        }
-      }
-    }
-    __syncthreads();                  // before this stage and sDS are rewritten
-    if (stages == 1 && t + 1 < ntiles) {
-      load_kv(t + 1, 0);
-      lfb::cp_async_commit();
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + rg * 16 + (lane >> 2) + 8 * h;
-    if (r >= Nq) continue;
-    float* out = dq + (qoff + r) * C + c_lo + (lane & 3) * 2;
-#pragma unroll
-    for (int n = 0; n < kDqCols / 8; ++n) {
-      if (n * 8 < nc)
-        *reinterpret_cast<float2*>(out + n * 8) =
-            make_float2(scale * acc[n][2 * h], scale * acc[n][2 * h + 1]);
-    }
-  }
-}
-
-cudaError_t launch_mma(const lfb::bf16* q, const lfb::bf16* k,
-                       const lfb::bf16* v, const lfb::bf16* dout,
-                       const float* lse, const float* delta, float* dq,
-                       float* dk, float* dv, int B, int Nq, int Nk, int C,
-                       float scale, cudaStream_t stream) {
-  // Two cp.async stages where they fit beside the resident tiles, else one.
-  Split sp = dkdv_split(C);
-  const int bq = dkdv_bq(C);
-  size_t fixed = dkdv_fixed_bytes(C, sp.nrg) + dkdv_shared_bytes(sp.nrg, bq);
-  int stages = fixed + 2 * dkdv_stage_bytes(C, bq) <= kMaxSmem ? 2 : 1;
-  size_t smem = fixed + stages * dkdv_stage_bytes(C, bq);
-  // The model's widths compiled in, any other C at run time.
-  auto dkdv = C == 256   ? attn_bwd_dkdv_mma_kernel<256>
-              : C == 512 ? attn_bwd_dkdv_mma_kernel<512>
-                         : attn_bwd_dkdv_mma_kernel<0>;
-  cudaError_t err = lfb::allow_smem(dkdv, smem);
+template <bool kWide>
+cudaError_t launch_wgmma(const lfb::bf16* q, const lfb::bf16* k,
+                         const lfb::bf16* v, const lfb::bf16* dout,
+                         const float* lse, const float* delta, float* dq,
+                         float* dk, float* dv, int B, int Nq, int Nk, int C,
+                         float scale, cudaStream_t stream) {
+  using K1 = Dkdv<kWide>;
+  using K2 = Dq<kWide>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = lfb::tma_map_bf16(&tq, q, B, Nq, C, K1::BQ);
+  if (err == cudaSuccess) err = lfb::tma_map_bf16(&tdo, dout, B, Nq, C, K1::BQ);
+  if (err == cudaSuccess) err = lfb::tma_map_bf16(&tk, k, B, Nk, C, 64);
+  if (err == cudaSuccess) err = lfb::tma_map_bf16(&tv, v, B, Nk, C, 64);
+  if (err == cudaSuccess)
+    err = lfb::allow_smem(attn_bwd_dkdv_wgmma_kernel<kWide>, K1::kSmem);
   if (err != cudaSuccess) return err;
-  const int keys = 16 * sp.nrg;
-  dkdv<<<dim3((Nk + keys - 1) / keys, B),
-                             32 * sp.nrg * sp.ncg, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Nq, Nk, C, scale, sp.ncg, stages);
-  err = cudaGetLastError();
+  const int key_tiles = (Nk + 63) / 64;
+  if constexpr (kWide) {
+    // Clusters of two CTAs, one per half of the channels.
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(2 * key_tiles, B);
+    cfg.blockDim = dim3(kWgThreads);
+    cfg.dynamicSmemBytes = K1::kSmem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 2;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, attn_bwd_dkdv_wgmma_kernel<true>, tq, tk,
+                             tv, tdo, lse, delta, dk, dv, Nq, Nk, C, scale);
+  } else {
+    attn_bwd_dkdv_wgmma_kernel<false>
+        <<<dim3(key_tiles, B), kWgThreads, K1::kSmem, stream>>>(
+            tq, tk, tv, tdo, lse, delta, dk, dv, Nq, Nk, C, scale);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) err = lfb::tma_map_bf16(&tq, q, B, Nq, C, K2::BR);
+  if (err == cudaSuccess) err = lfb::tma_map_bf16(&tdo, dout, B, Nq, C, K2::BR);
+  if (err == cudaSuccess) err = lfb::tma_map_bf16(&tk, k, B, Nk, C, K2::BK);
+  if (err == cudaSuccess) err = lfb::tma_map_bf16(&tv, v, B, Nk, C, K2::BK);
+  if (err == cudaSuccess)
+    err = lfb::allow_smem(attn_bwd_dq_wgmma_kernel<kWide>, K2::kSmem);
   if (err != cudaSuccess) return err;
-  sp = dq_split(C);
-  fixed = dq_fixed_bytes(C, sp.nrg) + dq_shared_bytes(sp.nrg);
-  stages = fixed + 2 * dq_stage_bytes(C) <= kMaxSmem ? 2 : 1;
-  smem = fixed + stages * dq_stage_bytes(C);
-  auto dqk = C == 256 ? attn_bwd_dq_mma_kernel<256>
-             : C == 512 ? attn_bwd_dq_mma_kernel<512>
-                        : attn_bwd_dq_mma_kernel<0>;
-  err = lfb::allow_smem(dqk, smem);
-  if (err != cudaSuccess) return err;
-  const int rows = 16 * sp.nrg;
-  dqk<<<dim3((Nq + rows - 1) / rows, B),
-                           32 * sp.nrg * sp.ncg, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, Nq, Nk, C, scale, sp.ncg, stages);
+  attn_bwd_dq_wgmma_kernel<kWide>
+      <<<dim3((Nq + K2::BR - 1) / K2::BR, B), kWgThreads, K2::kSmem, stream>>>(
+          tq, tk, tv, tdo, lse, delta, dq, Nq, Nk, C, scale);
   return cudaGetLastError();
 }
 
@@ -845,8 +916,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     return cudaGetLastError();
   }
   if constexpr (std::is_same<T, lfb::bf16>::value) {
-    return launch_mma(qp, kp, vp, op, lp, dp, dqp, dkp, dvp, B, Nq, Nk, C,
-                      scale, stream);
+    if (C <= 256)
+      return launch_wgmma<false>(qp, kp, vp, op, lp, dp, dqp, dkp, dvp, B, Nq,
+                                 Nk, C, scale, stream);
+    return launch_wgmma<true>(qp, kp, vp, op, lp, dp, dqp, dkp, dvp, B, Nq, Nk,
+                              C, scale, stream);
   } else {
     const size_t smem_kv =
         ((size_t)(2 * kKvTK + 2 * kKvTQ) * (C + 4) + 2 * kKvTQ * kKvTK +

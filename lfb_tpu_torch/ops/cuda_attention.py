@@ -12,15 +12,18 @@ What bounds it on an H100: the in-backbone non-local calls are matmul-sized
 (a phase-B forward at B = 16: res3 64 x 4096 x 1024 x 256, res4 16 x 4096 x
 1024 x 512; a train step at B = 8: res3 32 x 3136 x 784 x 256, res4 8 x 3136
 x 784 x 512, all bf16), so the limit is the tensor cores.  In bf16 both
-directions run on ``mma.sync`` m16n8k16 (bf16 operands, f32 sums): the
-forward is FlashAttention-style, one CTA per query tile streaming K/V
-tiles through a cp.async ring with an online softmax, so the (Nq, Nk)
-affinity never reaches device memory, and p rounded to bf16 before p.V as
-lfb_tpu's XLA reference rounds it.  The backward recomputes p from the lse
-instead of storing it, and splits the TPU kernel's cross-tile dk/dv sum
-into a K/V-major launch (dk, dv) and a Q-major launch (dq), so no sum
-crosses CTAs.  In f32 (the whole-model parity checks) both run on the FMA
-units, as TF32 would not hold 2e-3 through the model.  The FBO-NL calls
+directions run on Hopper's ``wgmma`` (bf16 operands, f32 sums) with their
+streamed tiles brought into shared memory by TMA: the forward is
+FlashAttention-style, one CTA per query tile streaming K/V tiles with an
+online softmax, so the (Nq, Nk) affinity never reaches device memory, and
+p rounded to bf16 before p.V as lfb_tpu's XLA reference rounds it.  The
+backward recomputes p from the lse instead of storing it, and splits the
+TPU kernel's cross-tile dk/dv sum into a K/V-major launch (dk, dv) and a
+Q-major launch (dq), so no sum crosses CTAs and no atomics run: two calls
+give bitwise the same result.  The tensor maps take a 16-byte aligned start
+and rows a multiple of 16 bytes, which the wrapper checks.  In f32 (the
+whole-model parity checks) both run on the FMA units, as TF32 would not
+hold 2e-3 through the model.  The FBO-NL calls
 (Nq = 1, Nk = 300, C = 512, f32) are bound by reading K and V once; they get
 their own launch shape, one CTA per box, in both directions.
 
@@ -193,10 +196,12 @@ def _check(q, k, v, do=None, lse=None, delta=None) -> None:
         if t.dim() != 3 or not t.is_contiguous():
             raise ValueError('fused_attention: {} must be a contiguous '
                              '(B, N, C) tensor'.format(name))
-        if t.dtype == torch.bfloat16 and q.shape[1] > 1 and t.data_ptr() % 16:
+        if t.dtype == torch.bfloat16 and q.shape[1] > 1 and (
+                t.data_ptr() % 16 or t.shape[-1] * t.element_size() % 16):
             raise ValueError('fused_attention: bf16 {} must start on a '
-                             '16-byte boundary (the tensor-core kernels copy '
-                             '16-byte chunks)'.format(name))
+                             '16-byte boundary, its rows a multiple of 16 '
+                             'bytes (the TMA tensor maps of the tensor-core '
+                             'kernels take nothing else)'.format(name))
     B, Nq, C = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[2] != C or (
             do is not None and do.shape != q.shape):

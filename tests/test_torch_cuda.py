@@ -254,6 +254,73 @@ def test_attention_lse_matches_logsumexp(dev, B, Nq, Nk, C):
     assert_close(lse, ref, 1e-5)
 
 
+# The bf16 kernels' tiles: query rows in 128-row (C <= 256, forward) and
+# 64-row tiles, keys in 64-, 32- and 16-key tiles; these shapes leave a
+# ragged tile at each, and C 32 and 96 leave channel panels part-empty.
+@pytest.mark.parametrize('C', [32, 64, 96, 256, 512])
+@pytest.mark.parametrize('Nq,Nk', [(3136, 784), (100, 65), (37, 19), (37, 1)])
+def test_attention_kernels_on_ragged_tiles(dev, Nq, Nk, C):
+    q, k, v, do = (rand((1, n, C), dev, seed, torch.bfloat16)
+                   for seed, n in ((0, Nq), (1, Nk), (2, Nk), (3, Nq)))
+    scale = C ** -0.5
+    out, lse = cuda_attention.fused_attention_lse(q, k, v, scale=scale)
+    assert_close(out, cuda_attention.attention_plain(q, k, v, scale), 1e-2)
+    assert_close(lse, torch.logsumexp(
+        q.float() @ k.float().transpose(1, 2) * scale, -1), 1e-5)
+    delta = (do.float() * out.float()).sum(-1)
+    got = cuda_attention.fused_attention_bwd(q, k, v, do, lse, delta,
+                                             scale=scale)
+    ref = cuda_attention.attention_bwd_plain(q, k, v, do, lse, delta, scale)
+    # With one key dq and dk are zero up to rounding (as above).
+    for name, a, b in zip(('dq', 'dk', 'dv'), got, ref):
+        assert_close(a, b, 1e-2, floor=1.0 if Nk == 1 else 1e-30, name=name)
+
+
+@pytest.mark.parametrize('B,Nq,Nk,C', [(2, 100, 65, 256), (1, 100, 65, 512),
+                                       (1, 3136, 784, 256),
+                                       (1, 3136, 784, 512)])
+def test_attention_kernels_are_deterministic(dev, B, Nq, Nk, C):
+    """No atomics and a fixed order of sums: two calls of the bf16 forward
+    (out, lse) and backward (dq, dk, dv) on the same inputs are bitwise
+    equal."""
+    q, k, v, do = (rand((B, n, C), dev, seed, torch.bfloat16)
+                   for seed, n in ((0, Nq), (1, Nk), (2, Nk), (3, Nq)))
+    first = cuda_attention.fused_attention_lse(q, k, v, scale=C ** -0.5)
+    second = cuda_attention.fused_attention_lse(q, k, v, scale=C ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    out, lse = first
+    delta = (do.float() * out.float()).sum(-1)
+    grads = [cuda_attention.fused_attention_bwd(q, k, v, do, lse, delta,
+                                                scale=C ** -0.5)
+             for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.parametrize('which', ['q', 'k', 'v', 'do'])
+def test_attention_wrappers_refuse_what_tma_cannot_take(dev, which):
+    """bf16 inputs of the tensor-core kernels go through TMA tensor maps,
+    which take a 16-byte aligned start and rows a multiple of 16 bytes."""
+    B, N, C = 2, 8, 64
+
+    def tensor(name, seed):
+        if name != which:
+            return rand((B, N, C), dev, seed, torch.bfloat16)
+        base = rand((B * N * C + 8,), dev, seed, torch.bfloat16)
+        return base[1:1 + B * N * C].view(B, N, C)   # 2 bytes past
+
+    q, k, v, do = (tensor(name, i) for i, name in enumerate(('q', 'k', 'v',
+                                                              'do')))
+    lse = delta = torch.zeros((B, N), device=dev)
+    if which != 'do':
+        with pytest.raises(ValueError):
+            cuda_attention.fused_attention(q, k, v)
+    with pytest.raises(ValueError):
+        cuda_attention.fused_attention_bwd(q, k, v, do, lse, delta, scale=1.0)
+    q = rand((B, N, 36), dev, dtype=torch.bfloat16)   # rows of 72 bytes
+    with pytest.raises(ValueError):
+        cuda_attention.fused_attention(q, q, q)
+
+
 def test_attention_wrapper_refuses_unaligned_bf16(dev):
     base = rand((2 * 8 * 64 + 8,), dev, dtype=torch.bfloat16)
     q = base[1:1 + 2 * 8 * 64].view(2, 8, 64)       # 2 bytes past a boundary
