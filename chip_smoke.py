@@ -473,9 +473,10 @@ def host_record():
 # wgmma (its notes C7510-C7520).
 MMA_KERNELS = ('attn_fwd_wgmma_kernel', 'attn_bwd_dkdv_wgmma_kernel',
                'attn_bwd_dq_wgmma_kernel', 'stem_conv_wgmma_kernel',
-               'stem_dw_mma_kernel', 'fused_bottleneck_mma_kernel')
+               'stem_dw_wgmma_kernel', 'fused_bottleneck_wgmma_kernel')
 WGMMA_KERNELS = ('attn_fwd_wgmma_kernel', 'attn_bwd_dkdv_wgmma_kernel',
-                 'attn_bwd_dq_wgmma_kernel', 'stem_conv_wgmma_kernel')
+                 'attn_bwd_dq_wgmma_kernel', 'stem_conv_wgmma_kernel',
+                 'stem_dw_wgmma_kernel', 'fused_bottleneck_wgmma_kernel')
 
 
 def check_tensor_cores(lib_path):
@@ -968,40 +969,60 @@ def check_bottleneck(g, iters):
     to bf16) at each identity-block shape of R101 at crop 256.  Bound 1e-2
     of max |plain|: both sides round h1, h2 and the output to bf16 (2^-8).
     Beside it, the same block as the default bf16 path runs it
-    (:func:`unfused_block`), timed in the same turns."""
+    (:func:`unfused_block`), timed in the same turns; each shape's device
+    ms, TFLOP/s and share of the bf16 peak are logged beside the unfused
+    block's, and two calls must give the same bits."""
     import torch
     from lfb_tpu_torch.ops import cuda_bottleneck as cb
-    err, totals = 0.0, {'flagship': [0.0, 0.0, 0.0, 0.0],
-                        'Charades': [0.0, 0.0, 0.0, 0.0]}
+    err, totals = 0.0, {'flagship': [0.0] * 5, 'Charades': [0.0] * 5}
     parts = []
     for label, shape, ci, kt, d, n_ava, n_charades in BLOCKS:
         x = torch.relu(torch.randn(shape, generator=g, device=g.device))
         x = x.to(torch.bfloat16)
         p = bottleneck_params(shape[-1], ci, kt, g)
         unfused = unfused_block(shape, ci, kt, d, p)
+
+        def fused():
+            return cb.fused_identity_bottleneck(
+                x, *p, temporal_pad=kt // 2, dilation=d)
+
         r = compare(
             'fused_bottleneck {} x{} Ci {} bf16'.format(label, shape, ci),
-            lambda: cb.fused_identity_bottleneck(x, *p, temporal_pad=kt // 2,
-                                                 dilation=d),
-            lambda: cb.fused_identity_bottleneck_plain(
+            fused, lambda: cb.fused_identity_bottleneck_plain(
                 x, *p, temporal_pad=kt // 2, dilation=d), 1e-2, iters,
             lambda: unfused(x), 'unfused bf16 block')
         err = max(err, r['err'])
         for name, n in (('flagship', n_ava), ('Charades', n_charades)):
-            totals[name][0] += n * r['ms']
-            totals[name][1] += n * r['plain_ms']
-            totals[name][2] += n * r['library_ms']
-            totals[name][3] += n * r['device_ms']
+            for i, key in enumerate(('ms', 'plain_ms', 'library_ms',
+                                     'device_ms', 'library_device_ms')):
+                totals[name][i] += n * r[key]
         pixels, c = x.numel() // shape[-1], shape[-1]
-        ms, by = least_ms(2 * pixels * (c * ci * kt + 9 * ci * ci + ci * c),
-                          2 * nbytes(x) + 2 * (c * ci * kt + 9 * ci * ci
-                                               + ci * c), 'bfloat16')
+        flops = 2 * pixels * (c * ci * kt + 9 * ci * ci + ci * c)
+        ms, by = least_ms(flops, 2 * nbytes(x) + 2 * (c * ci * kt + 9 * ci
+                                                      * ci + ci * c),
+                          'bfloat16')
+        rate = flops / (r['device_ms'] * 1e-3) / 1e12
+        same = torch.equal(fused(), fused())
+        log('  {}: kernel device {:.4f} ms, {:.1f} TFLOP/s ({:.1f}% of the '
+            'bf16 peak; bound {:.4f} ms, {}); unfused bf16 block device '
+            '{:.4f} ms ({:.3f}x the kernel); two calls bitwise equal: {}; '
+            '{}'.format(label, r['device_ms'], rate,
+                        100 * rate * 1e12 / PEAK_FLOPS['bfloat16'], ms, by,
+                        r['library_device_ms'],
+                        r['library_device_ms'] / r['device_ms'], same,
+                        card_line()))
+        if not same:
+            raise AssertionError('fused_bottleneck {}: two calls '
+                                 'differ'.format(label))
         parts.append((n_ava * ms, by))
         del x
-    for name, (ms, plain_ms, unfused_ms, dev_ms) in totals.items():
+    for name, (ms, plain_ms, unfused_ms, dev_ms, unfused_dev) in (
+            totals.items()):
         log('fused_bottleneck, the 29 launches of one {} forward: kernel '
             '{:.3f} ms (device {:.3f} ms), plain {:.3f} ms, the unfused bf16 '
-            'blocks {:.3f} ms'.format(name, ms, dev_ms, plain_ms, unfused_ms))
+            'blocks {:.3f} ms (device {:.3f} ms); device kernel / unfused '
+            '{:.3f}'.format(name, ms, dev_ms, plain_ms, unfused_ms,
+                            unfused_dev, dev_ms / unfused_dev))
     return add_bound({'err': err, 'ms': totals['flagship'][0],
                       'device_ms': totals['flagship'][3],
                       'plain_ms': totals['flagship'][1], 'library_ms': None,
@@ -1825,6 +1846,19 @@ def check_backward_at(n_clips, iters):
         r, tolerance='1e-2',
         library='torch.nn.grad.conv3d_weight (cuDNN, bf16)'), [least_ms(
         2 * dy.numel() * 735, nbytes(x, dy) + 64 * 735 * 4, 'bfloat16')])
+    # Its rate: the direct conv's operations (kT x 147 multiply-adds per
+    # output gradient element) and those of the packed product it runs.
+    direct, packed = 2 * dy.numel() * 5 * 147, 2 * dy.numel() * 5 * 256
+    rate = direct / (r['device_ms'] * 1e-3) / 1e12
+    log('  stem_conv_dw at B = {}: kernel device {:.4f} ms, {:.1f} TFLOP/s '
+        'of the direct conv ({:.1f}% of the bf16 peak), {:.1f} of the '
+        'packed product; cuDNN wgrad device {:.4f} ms; device kernel / cuDNN '
+        '{:.3f}; {}'.format(n_clips, r['device_ms'], rate,
+                            100 * rate * 1e12 / PEAK_FLOPS['bfloat16'],
+                            packed / (r['device_ms'] * 1e-3) / 1e12,
+                            r['library_device_ms'],
+                            r['device_ms'] / r['library_device_ms'],
+                            card_line()))
     del x, dy, x_cl, dy_cl
 
     fmap = torch.relu(torch.randn((n_clips, 14, 14, 2048), generator=g,

@@ -15,8 +15,9 @@
 // the Ci-wide intermediates out of device memory, as the TPU kernel does,
 // reads x once (plus the residual) and writes the output once.  The TPU
 // design (a ring of whole input frames in a 32 MB VMEM, DMA prefetch) does
-// not fit a 227 KB block and is not carried over.  Both instantiations run
-// one CTA per (clip, frame, band of output rows):
+// not fit a 227 KB block and is not carried over.  Both paths run one CTA
+// per (clip, frame, band of output rows; in bf16 a band of one residue's
+// sub-image, below):
 //   1. branch2a for the band and its halo rows that lie in the image -> h1
 //      in shared memory (input type).  Temporal taps outside [0, T) are
 //      skipped (their product is the conv's temporal zero padding).
@@ -24,49 +25,57 @@
 //      image read 0 (branch2b's spatial zero padding, not relu(b2a)).
 //   3. branch2c, + b2c, + x, relu, one write.
 //
-// bf16 (fused_bottleneck_mma_kernel): the three stages are GEMMs on
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate).  A band is R rows of one
-// residue mod d (rows p, p + d, ...): a tap of dilation d then moves one
-// band row, so h1 needs one halo row on each side whatever d (res5 at d = 2
-// needs 6 rows of h1 for 4 output rows, not 8).  16 warps in two groups of
-// 8; each warp owns a 32 x 32 tile (2 x 4 MMA tiles) of a 64 x 128 CTA tile
-// (128 x 64 when Ci <= 64).  The weights stay in the wrapper's (K, N)
-// row-major layout and stream in 64-deep k chunks through a 3-stage
-// cp.async ring; B fragments come through ldmatrix.trans (k along rows, as
-// V in P V).  In stages 1 and 2 the two groups split each chunk's k16 steps
-// and group 1 hands its sums to group 0 through the ring at the end of the
-// tile (a fixed order: no atomics, the same bits every run).  A operands:
-//   * stage 1: x rows of the band, 64 channels of one temporal tap per
-//     chunk, streamed by cp.async beside the weights (into the h2 buffer,
-//     free until stage 2).  h1 holds only rows inside the image.
-//   * stage 2: h1 through ldmatrix with a row address per lane: the pixel
-//     shifted by (dh d, dw d), or a zero row in shared memory where the
-//     shift leaves the image.
-//   * stage 3: h2.  K = Ci is short here, so the groups take the two halves
-//     of a 64 x 256 tile instead, and all n-tiles' 32-deep chunks run
-//     through the ring as one stream, so the next n-tile's loads overlap
-//     this one's epilogue (with the split-K exchange and a cold ring at
-//     every tile, stage 3 was the slowest stage per FLOP at res2-res4).
-// Stages 2 and 3 run per 64-pixel tile: branch2b writes the tile's h2 (all
-// Ci channels) and branch2c reads it, so h2 is one tile and the rest of
-// shared memory goes to h1, i.e. to taller bands.  Each epilogue works on
-// the C fragments: + bias, relu, bf16 pairs into h1 / h2, or + bias +
-// residual, relu, one bf16 pair store.  Rows of h1, h2 and the ring are
-// padded by 8 bf16 (conflict-free ldmatrix).  R is chosen at launch: of the
-// band heights whose buffers fit the block's shared memory, the one with
-// the least MMA work (tiles padded to the CTA tile, halo recompute counted)
-// times the waves of CTAs over the SMs: at crop 256, whole frames at res4,
-// 8 rows at res2 and res3, 4 at res5.
-//
-// What bounds it: instruction issue as much as the tensor cores.  A chunk
-// gives each warp only 16 MMAs between two barriers, so the chunk loops do
-// no division: each thread's cp.async offsets are fixed per tile
-// (ChunkCopy) and the tap / channel counters step.  With the divisions of
-// a generic tile loader and per-chunk address arithmetic in them (600+
-// instructions per 16 MMAs in the SASS), the 29 launches of a forward took
-// 1.5x as long (PERF.md, PR 5).  8 warps of 64 x 32 tiles, 32-deep
-// chunks, 4-row bands with two CTAs an SM and a 16-warp layout without
-// split-K were all slower on the H100 than this layout.
+// bf16 (fused_bottleneck_wgmma_kernel): the three stages are GEMMs on wgmma
+// (bf16 in, f32 accumulate), fed by a producer warpgroup through a ring of
+// 16 KB shared-memory slots under full / empty mbarriers (one producer
+// thread issues the TMA loads; the two consumer warpgroups hand each slot
+// back once their products that read it have finished).
+//  * Sub-images.  A 3 x 3 tap of dilation d links only pixels of one
+//    residue (h mod d, w mod d), so the block runs per residue on that
+//    sub-image, where the taps are undilated: at res5 d 2 each 16 x 16
+//    frame is four 8 x 8 sub-images with no halo between them.  A CTA takes
+//    a band of R rows of one sub-image of one frame; h1 holds the band and
+//    one row on each side that lies in the image (res4: the whole frame,
+//    128 KB; the band height is chosen at launch, as below).
+//  * Tilings.  Ci <= 256: each consumer warpgroup owns 64 of a pass's 128
+//    pixel rows and all Cp channels (Ci rounded up to 64, 128 or 256: up to
+//    128 f32 accumulators a thread).  Ci > 256 (res5): the warpgroups share
+//    64 rows and split each 256 channels.
+//  * Stage 1 (h1 = x w2a): x rows are the K-major A operand in shared
+//    memory (TMA, 128-byte swizzle; where d > 1 the producer copies the
+//    residue's pixels by cp.async in the same layout), w2a's rows the
+//    MN-major B operand (the wrapper's (K, N) matrices as they are: rows of
+//    a chunk past C or Ci meet zero x or h1 channels, columns past the
+//    matrix read zero).  Temporal taps outside [0, T) are skipped.
+//  * Stage 2 (the 3 x 3 taps over h1): A from registers by ldmatrix at
+//    pixel rows shifted by the tap (h1's 16-byte chunks XOR-swizzled by
+//    row), with the fragment rows whose tap leaves the image set to zero
+//    (branch2b's zero padding, not relu(b2a)); a shift of a few pixels does
+//    not fit a descriptor's 8-row core matrices.
+//  * Stage 3 (h2 w2c): where Ci <= 256 h2 goes from the stage-2
+//    accumulators straight to bf16 A fragments (acc_to_a); at Ci > 256
+//    through shared memory (64 rows x Cp, the 128-byte swizzle).  The
+//    output's C is walked in chunks of 64 or 128 columns (256 at Ci > 256);
+//    each chunk's residual x and b2c are loaded into registers before its
+//    products, so their latency runs under them, and the output pairs are
+//    stored after.
+//  * Every product's scale-d is an immediate and every descriptor is
+//    formed after the waits before it (lfb::desc_add), so ptxas serialises
+//    no wgmma (C7510-C7520); the accumulators are zeroed when no product
+//    is in flight.  Each slot's products are waited for (wgmma_wait<0>)
+//    before the slot goes back; the other warpgroup's products keep the
+//    tensor cores busy meanwhile.
+//  * What bounds it: at res4 a pass's weight chunk feeds 128 rows (128
+//    FLOP a byte from L2 for the weights alone), and stage 1 streams x
+//    beside it; a CTA's loads and handshakes, not the tensor cores, set
+//    its pace (PERF.md).  Sharing each weight slot between the two CTAs of
+//    a cluster by TMA multicast, and two m64 tiles a warpgroup at Ci <= 128,
+//    were both slower on the H100 (the pair's slots go back at the slower
+//    CTA's pace; the extra tiles spill) and are not kept.
+//  * The band height R is chosen at launch: of those whose h1, h2 and at
+//    least 4 ring slots fit the block's shared memory, the least (rows
+//    padded to passes) x (products a row) x (waves of CTAs) x max(1, 6 /
+//    slots).  No atomics: every output is written once by one thread.
 //
 // f32 (fused_bottleneck_kernel): the parity checks run the model in f32 and
 // hold it to the CPU at 2e-3, which TF32 would break, so f32 stays on the
@@ -78,8 +87,13 @@
 // count.  R is chosen so that a band has about 16384 / Ci pixels and at
 // least 4 rows, then cut until the buffers fit the block's shared memory;
 // halo rows outside the image are written to h1 as 0.
+#include <limits.h>
+#include <stdint.h>
+
+#include <algorithm>
+
 #include "common.cuh"
-#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -410,485 +424,615 @@ cudaError_t launch(const void* x, const void* w2a, const void* b2a,
   }
 }
 
-// ---- bf16: tensor cores ----------------------------------------------------
+// ---- bf16: wgmma, x and weights streamed by TMA ----------------------------
 
 using lfb::bf16;
 
-constexpr int kMmaThreads = 512;   // 2 groups of 8 warps, each a 32 x 32 tile
-constexpr int kGroups = 2;
-constexpr int kMmaKC = 64;         // reduction depth of one ring stage
-constexpr int kStages = 3;
-constexpr int kALd = kMmaKC + 8;   // row stride of a staged x chunk
-constexpr int kRedFloats = 8 * 32 * 32;   // one group's accumulators
+constexpr int kFbThreads = 384;       // two consumer warpgroups, a producer
+constexpr int kSlot = 16384;          // a ring slot
+constexpr int kMaxSlots = 12;
+constexpr int kBarBytes = 2 * kMaxSlots * 8;
 
-// WM warps of a group along the pixels, 8 / WM along the channels.
-template <int WM>
-struct MmaTile {
-  static constexpr int TM = 32 * WM;        // pixels
-  static constexpr int TN = 32 * (8 / WM);  // channels
-  static constexpr int BLd = TN + 8;        // row stride of a weight chunk
-  // The weight ring, which also holds the split-K exchange.
-  static constexpr int RING = kStages * kMmaKC * BLd > 2 * kRedFloats
-                                  ? kStages * kMmaKC * BLd
-                                  : 2 * kRedFloats;
+// The two tilings.  kSplitN false (Ci <= 256): consumer warpgroup wg owns
+// rows 64 wg .. 64 wg + 63 of a pass's 128 pixel rows and all Cp = kNW
+// channels of h1 and h2 (up to 128 f32 accumulators a thread), and
+// branch2c takes h2 straight from its accumulators as the register A
+// operand.  kSplitN true (Ci > 256): the warpgroups share a pass's 64 rows
+// and split each 256 channels of h1 and h2, 128 each; h2 goes through
+// shared memory (64 rows x Cp) to branch2c, whose 256-column chunks they
+// split the same way.  A chunk is 64 deep (64 channels of x, h1 or h2); x
+// comes in slots of PR rows, the weights in 16 KB slots of WR (WR3) rows
+// of the chunk's NP (N3) columns, in 64-column panels.
+template <int kNW, bool kSplitN>
+struct Fb {
+  static constexpr int PR = kSplitN ? 64 : 128;      // pixel rows of a pass
+  static constexpr int NP = kSplitN ? 2 * kNW : kNW; // h1 / h2 columns a pass
+  static constexpr int N3 = kSplitN ? 2 * kNW : (kNW == 256 ? 64 : 128);
+  static constexpr int NW3 = kSplitN ? kNW : N3;     // of them, a group's
+  static constexpr int WR = NP * 128 > kSlot ? kSlot / (2 * NP) : 64;
+  static constexpr int WR3 = N3 * 128 > kSlot ? kSlot / (2 * N3) : 64;
 };
 
-// Shared memory (bf16 elements) for h1_rows rows of h1: the weight ring,
-// the zero row, h1 and the h2 tile (which holds the x ring during stage 1).
-template <int WM>
-size_t mma_smem_elems(int h1_rows, int W, int Ci) {
-  using Tl = MmaTile<WM>;
-  const size_t pitch = Ci + 8;
-  const size_t h2 = pitch > (size_t)kStages * kALd ? pitch : kStages * kALd;
-  return (size_t)Tl::RING + pitch + (size_t)h1_rows * W * pitch + Tl::TM * h2;
+struct FbArgs {
+  const bf16* x;
+  const bf16* b2a;
+  const bf16* b2b;
+  const bf16* b2c;
+  bf16* out;
+  int Tn, H, W, C, Ci, Cp, Cq, kT, d, R, bands, nslot, h1_off, h2_off;
+};
+
+// The CTA's band: rows j0 .. j0 + rows - 1 of the sub-image of residue
+// (ph, pw) mod d (frame pixel (ph + d i, pw + d j) is its pixel (i, j); a
+// 3 x 3 tap of dilation d moves (i, j) by one), with h1 over rows s_lo ..
+// s_lo + M1 / Wq - 1: the band and one row on each side, inside the image.
+struct FbBand {
+  int ph, pw, Hq, Wq, j0, rows, s_lo, M1, M2;
+};
+
+__device__ __forceinline__ FbBand fb_band(const FbArgs& p) {
+  FbBand u;
+  const int res = blockIdx.x / p.bands;
+  u.ph = res / p.d;
+  u.pw = res - u.ph * p.d;
+  u.Hq = (p.H - u.ph + p.d - 1) / p.d;
+  u.Wq = (p.W - u.pw + p.d - 1) / p.d;
+  u.j0 = (blockIdx.x - res * p.bands) * p.R;
+  u.rows = min(p.R, u.Hq - u.j0);
+  u.s_lo = max(0, u.j0 - 1);
+  u.M1 = (min(u.Hq, u.j0 + u.rows + 1) - u.s_lo) * u.Wq;
+  u.M2 = u.rows * u.Wq;
+  return u;
 }
 
-// One thread's share of the cp.async copies of a chunk: a rows x cols
-// (cols a multiple of 8) piece of a row-major matrix with row stride ld_g
-// into a tile with row stride ld_s, as at most kCopies 16-byte copies at
-// offsets fixed for the whole tile, so the chunk loop does no division.
-struct ChunkCopy {
-  static constexpr int kCopies = 2;   // rows * cols / 8 <= 2 * kMmaThreads
-  int s_off[kCopies], g_off[kCopies], row[kCopies];
+// Frame pixel index of sub-image pixel (i, j).
+__device__ __forceinline__ int fb_pixel(const FbArgs& p, const FbBand& u,
+                                        int i, int j) {
+  return (u.ph + p.d * i) * p.W + u.pw + p.d * j;
+}
 
-  __device__ void init(int rows, int cols, int ld_s, int ld_g) {
-    const int cpr = cols >> 3;
+// Byte offset in h1 (rows of Cp bf16, 16-byte chunks XOR-swizzled by the
+// row's low 3 bits, so the 8 rows an ldmatrix reads fall in distinct banks)
+// of row m, column c.
+__device__ __forceinline__ uint32_t h1_byte(int m, int c, int Cp) {
+  const int ch = c >> 3;
+  return (uint32_t)m * Cp * 2 + (((ch & ~7) | ((ch ^ m) & 7)) << 4) +
+         (c & 7) * 2;
+}
+
+// Byte offset in h2 (64 rows x Cp, 64-column panels of 128-byte rows with
+// the 128-byte swizzle: a K-major wgmma operand) of row r, column c.
+__device__ __forceinline__ uint32_t h2_byte(int r, int c) {
+  return (uint32_t)(c >> 6) * 8192 + r * 128 +
+         ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+__device__ __forceinline__ float2 bias_pair(const bf16* b, int c, int n) {
+  return c < n ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                     b + c))
+               : make_float2(0.f, 0.f);
+}
+
+// Two bf16 (low, high) as floats.
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16),
+                     __uint_as_float(v & 0xffff0000u));
+}
+
+// acc (64 x 2 N, the accumulator layout) = relu(acc + b): thread (g, tq)
+// holds columns c + 8 i (c = its first) and c + 8 i + 1; b reads as zero
+// from column n on.  Registers only, so the bias loads all overlap (a
+// store between them would keep each load behind it).
+template <int N>
+__device__ __forceinline__ void bias_relu(float (&acc)[N], const bf16* b,
+                                          int c, int n) {
 #pragma unroll
-    for (int q = 0; q < kCopies; ++q) {
-      const int e = threadIdx.x + q * kMmaThreads;
-      const int r = e / cpr;
-      row[q] = r < rows ? r : 1 << 30;
-      s_off[q] = r * ld_s + (e - r * cpr) * 8;
-      g_off[q] = r * ld_g + (e - r * cpr) * 8;
+  for (int i = 0; i < N / 4; ++i) {
+    const float2 bias = bias_pair(b, c + 8 * i, n);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      acc[4 * i + 2 * h] = fmaxf(acc[4 * i + 2 * h] + bias.x, 0.f);
+      acc[4 * i + 2 * h + 1] = fmaxf(acc[4 * i + 2 * h + 1] + bias.y, 0.f);
     }
   }
+}
 
-  // The rows below `valid`, from src (the piece's first element) to dst.
-  __device__ void issue(bf16* dst, const bf16* src, int valid) const {
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
-    for (int q = 0; q < kCopies; ++q)
-      if (row[q] < valid) lfb::cp_async_16(dst + s_off[q], src + g_off[q], true);
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// Branch2c's epilogue for a warpgroup's 64 rows, in two halves so that its
+// loads run under the chunk's products: out_load, before them, reads the
+// residual x and b2c of this thread's accumulator elements (thread (g, tq)
+// holds columns c0 + 8 i + 2 tq, + 1 of rows g and g + 8) into registers,
+// all loads together; out_store, after them, writes relu(acc + b2c + x) as
+// bf16 at output rows o_row (~0: not stored), columns past C not stored.
+template <int N>
+struct OutTile {
+  uint32_t res[N / 8][2], bias[N / 8];
+};
+
+template <int N>
+__device__ __forceinline__ void out_load(const FbArgs& p, OutTile<N>& o,
+                                         const size_t (&o_row)[2], int c0,
+                                         int tq) {
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const int c = c0 + 8 * i + 2 * tq;
+    const bool c_ok = c < p.C;
+    o.bias[i] = c_ok ? *reinterpret_cast<const uint32_t*>(p.b2c + c) : 0u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      o.res[i][h] = c_ok && o_row[h] != ~(size_t)0
+                        ? __ldg(reinterpret_cast<const unsigned int*>(
+                              p.x + o_row[h] + c))
+                        : 0u;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void out_store(const FbArgs& p,
+                                          const OutTile<N>& o,
+                                          const float (&acc)[N / 2],
+                                          const size_t (&o_row)[2], int c0,
+                                          int tq) {
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const int c = c0 + 8 * i + 2 * tq;
+    const float2 b2 = unpack2(o.bias[i]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (c >= p.C || o_row[h] == ~(size_t)0) continue;
+      const float2 r2 = unpack2(o.res[i][h]);
+      *reinterpret_cast<uint32_t*>(p.out + o_row[h] + c) = lfb::pack_bf16(
+          fmaxf(acc[4 * i + 2 * h] + b2.x + r2.x, 0.f),
+          fmaxf(acc[4 * i + 2 * h + 1] + b2.y + r2.y, 0.f));
+    }
+  }
+}
+
+// The ring of slots: the producer fills them in order, the consumers take
+// them in the same order.
+struct Ring {
+  int slot, n;
+  uint32_t phase;
+  __device__ void next() {
+    if (++slot == n) {
+      slot = 0;
+      phase ^= 1;
+    }
   }
 };
 
-__device__ __forceinline__ int wrap_stage(int s) {
-  return s + 1 == kStages ? 0 : s + 1;
-}
-
-// acc = A (TM x K) . B (K x TN) over n chunks of up to kMmaKC.  issue(s)
-// issues the next chunk's cp.async copies (chunks in order) into ring
-// stage s (the weights at ring + s * kMmaKC * BLd); for the chunk being
-// computed, klen() is its depth (a multiple of 16), afrag(s, mt) this
-// lane's ldmatrix address of the A fragment of m-tile mt at its depth 0,
-// and next() moves on to the following chunk.  Group g takes the k16 steps
-// 2 j + g of each chunk; at the end group 1 hands its sums to group 0
-// through the ring, so only group 0's acc holds the tile (in a fixed
-// order: the result does not change from run to run).  Ends with the ring
-// free.
-template <int WM, typename Issue, typename KLen, typename AFrag, typename Next>
-__device__ __forceinline__ void gemm_tile(float (&acc)[2][4][4], int n,
-                                          Issue& issue, const KLen& klen,
-                                          const AFrag& afrag, Next& next,
-                                          bf16* ring, int lane, int warp) {
-  using Tl = MmaTile<WM>;
-  const int group = warp >> 3;
-  // This lane's B fragment rows and columns (lfb::bt_frag at depth 0).
-  const bf16* b_lane =
-      lfb::bt_frag(ring, Tl::BLd, 0, (warp & 7) / WM * 32, lane);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-  int s_ld = 0;
-#pragma unroll
-  for (int q = 0; q < kStages - 1; ++q) {
-    if (q < n) issue(s_ld);
-    lfb::cp_async_commit();
-    s_ld = wrap_stage(s_ld);
-  }
-  int s = 0;
-  for (int i = 0; i < n; ++i) {
-    lfb::cp_async_wait<kStages - 2>();
-    __syncthreads();   // chunk i landed; every warp is done with chunk i - 1
-    if (i + kStages - 1 < n) issue(s_ld);
-    lfb::cp_async_commit();
-    s_ld = wrap_stage(s_ld);
-    const bf16* sB = b_lane + s * kMmaKC * Tl::BLd;
-    const int kl = klen();
-    const bf16* a0 = afrag(s, 0);
-    const bf16* a1 = afrag(s, 1);
-#pragma unroll
-    for (int step = 0; step < kMmaKC / (16 * kGroups); ++step) {
-      const int kk = 16 * kGroups * step + 16 * group;
-      if (kk < kl) {
-        uint32_t a[2][4];
-        lfb::ldsm_x4(a[0], a0 + kk);
-        lfb::ldsm_x4(a[1], a1 + kk);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t bb[4];
-          lfb::ldsm_x4_trans(bb, sB + kk * Tl::BLd + np * 16);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            lfb::mma_16816(acc[mt][2 * np], a[mt], bb[0], bb[1]);
-            lfb::mma_16816(acc[mt][2 * np + 1], a[mt], bb[2], bb[3]);
-          }
-        }
-      }
+template <int kNW, bool kSplitN>
+__global__ void __launch_bounds__(kFbThreads, 1)
+fused_bottleneck_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                              const __grid_constant__ CUtensorMap tw2a,
+                              const __grid_constant__ CUtensorMap tw2b,
+                              const __grid_constant__ CUtensorMap tw2c,
+                              const FbArgs p) {
+  using F = Fb<kNW, kSplitN>;
+  constexpr int PR = F::PR, NP = F::NP, N3 = F::N3, NW3 = F::NW3;
+  constexpr int WR = F::WR, WR3 = F::WR3;
+  const FbBand u = fb_band(p);
+  if (u.j0 >= u.Hq) return;                 // a residue with fewer rows
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sbase = lfb::smem_addr(base);
+  const uint32_t sh1 = sbase + p.h1_off;
+  const uint32_t sh2 = sbase + p.h2_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + p.h2_off +
+                                               (kSplitN ? 64 * p.Cp * 2 : 0));
+  uint64_t* empty = full + kMaxSlots;
+  const int tid = threadIdx.x;
+  // The warpgroup, warp-uniform as the compiler sees it (wgmma in a branch
+  // it cannot prove uniform is serialised).
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (tid == 0) {
+    for (int s = 0; s < p.nslot; ++s) {
+      lfb::mbar_init(&full[s], 1);          // the producer's thread 0
+      lfb::mbar_init(&empty[s], 8);         // the consumer warps
     }
-    next();
-    s = wrap_stage(s);
-  }
-  lfb::cp_async_wait<0>();
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(ring) + (warp & 7) * 32 * 32 + lane;
-  if (group == 1) {
-#pragma unroll
-    for (int e = 0; e < 32; ++e) red[e * 32] = acc[e >> 4][(e >> 2) & 3][e & 3];
+    lfb::mbar_init_fence();
   }
   __syncthreads();
-  if (group == 0) {
-#pragma unroll
-    for (int e = 0; e < 32; ++e) acc[e >> 4][(e >> 2) & 3][e & 3] += red[e * 32];
-  }
-  __syncthreads();
-}
 
-// f(row, col, v0, v1) for each accumulator pair of a group-0 warp: row and
-// (even) col in the CTA tile.
-template <int WM, typename F>
-__device__ __forceinline__ void for_each_pair(const float (&acc)[2][4][4],
-                                              int lane, int warp, const F& f) {
-  if (warp >= 8) return;
-  const int wm = warp % WM;
-  const int wn = warp / WM;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f(wm * 32 + mt * 16 + (lane >> 2) + 8 * h,
-          wn * 32 + nt * 8 + (lane & 3) * 2, acc[mt][nt][2 * h],
-          acc[mt][nt][2 * h + 1]);
-}
-
-__device__ __forceinline__ float2 bf16_pair(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void store_relu(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) =
-      __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-}
-
-// A band is R sub-rows of one residue p mod d: image rows p + d j for
-// j0 <= j < j0 + R.  A 3 x 3 tap of dilation d moves j by one, so h1 needs
-// one sub-row of halo on each side, whatever d.
-template <int WM>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-fused_bottleneck_mma_kernel(const bf16* __restrict__ x,
-                            const bf16* __restrict__ w2a,
-                            const bf16* __restrict__ b2a,
-                            const bf16* __restrict__ w2b,
-                            const bf16* __restrict__ b2b,
-                            const bf16* __restrict__ w2c,
-                            const bf16* __restrict__ b2c,
-                            bf16* __restrict__ out, int Tn, int H, int W,
-                            int C, int Ci, int kT, int d, int R) {
-  using Tl = MmaTile<WM>;
-  constexpr int TM = Tl::TM;
-  constexpr int TN = Tl::TN;
-  constexpr int kKC3 = kMmaKC / kGroups;    // stage 3: 32-deep chunks
-  constexpr int TN3 = kGroups * TN;         // of 2 TN weight columns
-  constexpr int kBLd3 = TN3 + 8;
-  static_assert(kStages * kKC3 * kBLd3 <= Tl::RING, "stage 3 ring");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int bands = ((H + d - 1) / d + R - 1) / R;   // per residue
-  const int p = blockIdx.x / bands;
-  const int Hp = (H - p + d - 1) / d;       // rows of residue p
-  const int j0 = (blockIdx.x - p * bands) * R;
-  if (j0 >= Hp) return;                     // uniform over the CTA
-  const int rows = min(R, Hp - j0);
-  const int s_lo = max(0, j0 - 1);          // h1 holds sub-rows s_lo..s_hi-1
-  const int s_hi = min(Hp, j0 + rows + 1);
-  const int M1 = (s_hi - s_lo) * W;
-  const int M2 = rows * W;
-  const int pitch = Ci + 8;
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  bf16* zero = ring + Tl::RING;
-  bf16* h1 = zero + pitch;
-  bf16* h2 = h1 + (size_t)M1 * pitch;       // TM rows; the x ring in stage 1
   const int t = blockIdx.y;
   const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp & 7) % WM;
-  const int pt = kT / 2;
-  const size_t frame = (size_t)H * W * C;
-  for (int i = threadIdx.x; i < pitch; i += kMmaThreads)
-    zero[i] = __float2bfloat16(0.f);
-  float acc[2][4][4];
-  ChunkCopy wcopy;
+  const int pt = p.kT / 2;
+  const int tap_lo = max(0, pt - t);        // temporal taps inside [0, T)
+  const int tap_hi = min(p.kT, p.Tn + pt - t);
+  const int m1_passes = (u.M1 + PR - 1) / PR;
+  const int m2_passes = (u.M2 + PR - 1) / PR;
+  const int n_passes = p.Cp / NP;
+  const size_t HW = (size_t)p.H * p.W;
+  Ring ring{0, p.nslot, 0};
 
-  // 1. branch2a over h1's rows: chunks of 64 channels of one temporal tap.
-  const int tap_lo = max(0, pt - t);
-  const int n1 = (min(kT, Tn + pt - t) - tap_lo) * ((C + kMmaKC - 1) / kMmaKC);
-  const bf16* xb = x + (size_t)b * Tn * frame;
-  // This lane's A row in the x ring, at depth 0.
-  const int a_x = (wm * 32 + (lane & 15)) * kALd + (lane >> 4) * 8;
-  for (int m0 = 0; m0 < M1; m0 += TM) {
-    // This thread's 16-byte pieces of an x chunk: tile row e / 8, pixel
-    // offsets fixed for the tile; rows past M1 read as 0.
-    int x_off[ChunkCopy::kCopies], x_s[ChunkCopy::kCopies];
-    bool x_ok[ChunkCopy::kCopies];
+  if (wg == 2) {
+    // ---- producer: x by TMA (cp.async where d > 1), weights by TMA ----
+    lfb::reg_dealloc<56>();
+    const int ptid = tid - 256;
+    const int piece = ptid & 7;             // this thread's 16 bytes of a row
+    auto take = [&]() {
+      lfb::mbar_wait(&empty[ring.slot], ring.phase ^ 1);
+      return sbase + ring.slot * kSlot;
+    };
+    // `rows` rows of a (K, N) weight matrix from row `row`, `panels`
+    // 64-column panels from column `col`, into the next slot.
+    auto weights = [&](const CUtensorMap* map, int panels, int rows, int col,
+                       int row) {
+      if (ptid == 0) {
+        const uint32_t dst = take();
+        lfb::mbar_arrive_expect_tx(&full[ring.slot], panels * rows * 128);
+        for (int q = 0; q < panels; ++q)
+          lfb::tma_load_3d(dst + q * rows * 128, map, &full[ring.slot],
+                           col + 64 * q, row, 0);
+      }
+      ring.next();
+    };
+    // 1. branch2a: per pass of PR h1 rows, per temporal tap inside [0, T)
+    // and 64 input channels, a slot of x (zeros past C and past the tensor;
+    // rows past h1's are not stored) and the 64 rows of w2a.
+    for (int mp = 0; mp < m1_passes; ++mp) {
+      int off[PR / 16];                     // frame pixel of each row, or -1
 #pragma unroll
-    for (int q = 0; q < ChunkCopy::kCopies; ++q) {
-      const int e = threadIdx.x + q * kMmaThreads;
-      const int m = m0 + (e >> 3);
-      x_ok[q] = e < TM * 8 && m < M1;
-      x_off[q] = x_ok[q] ? ((p + d * (s_lo + m / W)) * W + m % W) * C +
-                               (e & 7) * 8
-                         : 0;
-      x_s[q] = (e >> 3) * kALd + (e & 7) * 8;
-    }
-    for (int n0 = 0; n0 < Ci; n0 += TN) {
-      wcopy.init(kMmaKC, min(TN, Ci - n0), Tl::BLd, Ci);
-      int ld_tap = tap_lo, ld_c0 = 0, cp_c0 = 0;
-      auto issue = [&](int s) {
-        const bf16* xf = xb + (size_t)(t + ld_tap - pt) * frame + ld_c0;
-        bf16* dst = h2 + s * TM * kALd;
+      for (int q = 0; q < PR / 16; ++q) {
+        const int m = mp * PR + (ptid >> 3) + 16 * q;
+        off[q] = m < u.M1 ? fb_pixel(p, u, u.s_lo + m / u.Wq, m % u.Wq) : -1;
+      }
+      for (int np = 0; np < n_passes; ++np)
+        for (int tap = tap_lo; tap < tap_hi; ++tap) {
+          const int fin = b * p.Tn + t + tap - pt;
+          const bf16* xf = p.x + (size_t)fin * HW * p.C;
+          for (int c0 = 0; c0 < p.Cq; c0 += 64) {
+            if (p.d == 1) {                 // h1's rows are contiguous in x
+              if (ptid == 0) {
+                const uint32_t sx = take();
+                lfb::mbar_arrive_expect_tx(&full[ring.slot], PR * 128);
+                lfb::tma_load_3d(sx, &tx, &full[ring.slot], c0,
+                                 u.s_lo * p.W + mp * PR, fin);
+              }
+            } else {
+              const uint32_t sx = take();
+              const bool c_ok = c0 + 8 * piece < p.C;
 #pragma unroll
-        for (int q = 0; q < ChunkCopy::kCopies; ++q)
-          if (threadIdx.x + q * kMmaThreads < TM * 8)
-            lfb::cp_async_16(dst + x_s[q], xf + x_off[q], x_ok[q]);
-        wcopy.issue(ring + s * kMmaKC * Tl::BLd,
-                    w2a + (size_t)(ld_tap * C + ld_c0) * Ci + n0,
-                    min(kMmaKC, C - ld_c0));
-        ld_c0 += kMmaKC;
-        if (ld_c0 >= C) {
-          ld_c0 = 0;
-          ++ld_tap;
+              for (int q = 0; q < PR / 16; ++q) {
+                const int r = (ptid >> 3) + 16 * q;
+                const bool ok = c_ok && off[q] >= 0;
+                const bf16* src =
+                    ok ? xf + (size_t)off[q] * p.C + c0 + 8 * piece : p.x;
+                asm volatile(
+                    "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                        sx + r * 128 + ((piece ^ (r & 7)) << 4)),
+                    "l"(src), "r"(ok ? 16 : 0));
+              }
+              // Every thread's copies hold the phase open; then thread 0
+              // makes the barrier's one arrival.
+              lfb::cp_async_arrive_inc(&full[ring.slot]);
+              lfb::named_bar_sync(3, 128);
+              if (ptid == 0) lfb::mbar_arrive(&full[ring.slot]);
+            }
+            ring.next();
+            for (int k = 0; k < 64; k += WR)
+              weights(&tw2a, NP / 64, WR, np * NP, tap * p.C + c0 + k);
+          }
         }
-      };
-      auto next = [&]() {
-        cp_c0 += kMmaKC;
-        if (cp_c0 >= C) cp_c0 = 0;
-      };
-      gemm_tile<WM>(
-          acc, n1, issue, [&]() { return min(kMmaKC, C - cp_c0); },
-          [&](int s, int mt) { return h2 + s * TM * kALd + a_x + mt * 16 * kALd; },
-          next, ring, lane, warp);
-      for_each_pair<WM>(acc, lane, warp, [&](int r, int c, float v0, float v1) {
-        const int m = m0 + r;
-        const int n = n0 + c;
-        if (m < M1 && n < Ci) {
-          const float2 bias = bf16_pair(b2a + n);
-          store_relu(h1 + (size_t)m * pitch + n, v0 + bias.x, v1 + bias.y);
-        }
-      });
     }
+    // 2 and 3, per pass of PR output pixels: w2b chunks (9 taps x 64
+    // channels), then w2c chunks (64 rows x N3 columns).
+    for (int op = 0; op < m2_passes; ++op) {
+      for (int np = 0; np < n_passes; ++np)
+        for (int tap = 0; tap < 9; ++tap)
+          for (int c0 = 0; c0 < p.Cp; c0 += 64)
+            for (int k = 0; k < 64; k += WR)
+              weights(&tw2b, NP / 64, WR, np * NP, tap * p.Ci + c0 + k);
+      for (int n3 = 0; n3 < p.C; n3 += N3)
+        for (int k0 = 0; k0 < p.Cp; k0 += WR3)
+          weights(&tw2c, N3 / 64, WR3, n3, k0);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");   // before exiting
+    return;
   }
 
-  // 2 and 3, per tile of TM band pixels.
-  const int wn3 = warp / WM;                // stage 3: 32 of the TN3 columns
-  for (int m0 = 0; m0 < M2; m0 += TM) {
-    // The sub-row and column of this lane's A row in each m-tile (far
-    // outside the image past the band).
-    int pj[2], pc[2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int m = m0 + wm * 32 + mt * 16 + (lane & 15);
-      pj[mt] = m < M2 ? j0 + m / W : -(1 << 20);
-      pc[mt] = m % W;
+  // ---- consumers ----
+  lfb::reg_alloc<224>();
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  // This warpgroup's first pixel row of a pass, its first column of a
+  // pass's N, and those columns' panel in a weight slot of `rows` rows.
+  const int row0 = kSplitN ? 0 : 64 * wg;
+  const int col0 = kSplitN ? 128 * wg : 0;
+  auto bpan = [&](int rows) { return kSplitN ? 2 * wg * rows * 128 : 0; };
+  auto next_full = [&]() {
+    lfb::mbar_wait(&full[ring.slot], ring.phase);
+    const uint32_t a = sbase + ring.slot * kSlot;
+    ring.next();
+    return a;
+  };
+  // Hand back the last n slots taken (their products have finished).
+  auto release = [&](int n) {
+    __syncwarp();
+    if (lane == 0) {
+      int s = ring.slot;
+      for (int i = 0; i < n; ++i) {
+        s = s == 0 ? ring.n - 1 : s - 1;
+        lfb::mbar_arrive(&empty[s]);
+      }
     }
-    // branch2b: 9 taps x chunks of 64 channels -> h2 (TM x Ci).
-    for (int n0 = 0; n0 < Ci; n0 += TN) {
-      wcopy.init(kMmaKC, min(TN, Ci - n0), Tl::BLd, Ci);
-      int ld_k0 = 0, ld_c0 = 0, cp_c0 = 0, dh = -1, dw = -1;
-      const bf16* rowp[2];
-      auto tap_rows = [&]() {   // this lane's h1 rows of tap (dh, dw)
+  };
+  // The B descriptor of k16 step j of a 64-deep chunk whose weights sit in
+  // the slots w[0 ..], `rows` rows each (MN-major, panels of 64 columns
+  // `rows` * 128 bytes apart).  Formed by desc_add after the slots' waits,
+  // so no register of a running product is rewritten.
+  auto bdesc = [&](const uint32_t* w, int rows, int pan, int j) {
+    const int e = j / (rows / 16), jj = j % (rows / 16);
+    return lfb::desc_add(lfb::desc_sw128(w[e] + pan, rows * 128),
+                         jj * (2048 >> 4));
+  };
+  float acc[kNW / 2];
+
+  // 1. branch2a -> h1.
+  for (int mp = 0; mp < m1_passes; ++mp)
+    for (int np = 0; np < n_passes; ++np) {
+      zero(acc);
+      for (int tap = tap_lo; tap < tap_hi; ++tap)
+        for (int c0 = 0; c0 < p.Cq; c0 += 64) {
+          const uint32_t sx = next_full();
+          uint32_t w[64 / WR];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int jj = pj[mt] + dh;
-          const int cc = pc[mt] + dw * d;
-          rowp[mt] = (jj >= 0 && jj < Hp && cc >= 0 && cc < W)
-                         ? h1 + ((jj - s_lo) * W + cc) * pitch
-                         : zero;
-        }
-      };
-      tap_rows();
-      auto issue = [&](int s) {
-        wcopy.issue(ring + s * kMmaKC * Tl::BLd, w2b + (size_t)ld_k0 * Ci + n0,
-                    min(kMmaKC, Ci - ld_c0));
-        ld_k0 += kMmaKC;
-        ld_c0 += kMmaKC;
-        if (ld_c0 >= Ci) {   // the next tap's rows start at a multiple of Ci
-          ld_k0 += Ci - ld_c0;
-          ld_c0 = 0;
-        }
-      };
-      auto next = [&]() {
-        cp_c0 += kMmaKC;
-        if (cp_c0 >= Ci) {
-          cp_c0 = 0;
-          if (++dw == 2) {
-            dw = -1;
-            ++dh;
-          }
-          tap_rows();
-        }
-      };
-      gemm_tile<WM>(
-          acc, 9 * ((Ci + kMmaKC - 1) / kMmaKC), issue,
-          [&]() { return min(kMmaKC, Ci - cp_c0); },
-          [&](int, int mt) { return rowp[mt] + cp_c0 + (lane >> 4) * 8; },
-          next, ring, lane, warp);
-      for_each_pair<WM>(acc, lane, warp, [&](int r, int c, float v0, float v1) {
-        const int n = n0 + c;
-        if (n < Ci) {
-          const float2 bias = bf16_pair(b2b + n);
-          store_relu(h2 + (size_t)r * pitch + n, v0 + bias.x, v1 + bias.y);
-        }
-      });
-    }
-    // branch2c + b2c + x, relu -> out.  K = Ci is short, so the two groups
-    // take the two halves of a TM x 2 TN tile instead of splitting K, and
-    // the n-tiles' 32-deep chunks run through the ring as one stream: the
-    // loads of the next n-tile overlap this one's epilogue.
-    size_t o_row[2][2];   // this thread's output rows (SIZE_MAX past M2)
+          for (int e = 0; e < 64 / WR; ++e) w[e] = next_full();
+          if (p.d != 1) lfb::fence_proxy_async();   // x came by cp.async
+          const uint64_t da =
+              lfb::desc_add(lfb::desc_sw128(sx + row0 * 128, 16), 0);
+          lfb::wgmma_fence();
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+          for (int j = 0; j < 4; ++j)
+            lfb::Wgmma<kNW>::template ss_t<1>(acc, da + 2 * j,
+                                              bdesc(w, WR, bpan(WR), j));
+          lfb::wgmma_commit();
+          lfb::wgmma_wait<0>();
+          release(1 + 64 / WR);
+        }
+      lfb::fence_operand(acc);
+      // + b2a, relu, bf16 -> h1 (rows past M1 are not stored).
+      bias_relu(acc, p.b2a, np * NP + col0 + 2 * tq, p.Ci);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 32 + mt * 16 + (lane >> 2) + 8 * h;
-        o_row[mt][h] =
-            m < M2 ? ((((size_t)b * Tn + t) * H + p + d * (j0 + m / W)) * W +
-                      m % W) * C
-                   : ~(size_t)0;
-      }
-    const int cpi3 = (Ci + kKC3 - 1) / kKC3;
-    const int total = (C + TN3 - 1) / TN3 * cpi3;
-    int ld_n0 = 0, ld_c0 = 0, s_ld = 0;
-    wcopy.init(kKC3, min(TN3, C), kBLd3, C);
-    auto issue3 = [&]() {
-      wcopy.issue(ring + s_ld * kKC3 * kBLd3, w2c + (size_t)ld_c0 * C + ld_n0,
-                  min(kKC3, Ci - ld_c0));
-      s_ld = wrap_stage(s_ld);
-      ld_c0 += kKC3;
-      if (ld_c0 >= Ci) {
-        ld_c0 = 0;
-        ld_n0 += TN3;
-        if (ld_n0 < C) wcopy.init(kKC3, min(TN3, C - ld_n0), kBLd3, C);
-      }
-    };
+        const int m = mp * PR + row0 + 16 * warp + g + 8 * h;
+        if (m >= u.M1) continue;
 #pragma unroll
-    for (int q = 0; q < kStages - 1; ++q) {
-      if (q < total) issue3();
-      lfb::cp_async_commit();
+        for (int i = 0; i < kNW / 8; ++i)
+          *reinterpret_cast<uint32_t*>(
+              base + p.h1_off +
+              h1_byte(m, np * NP + col0 + 8 * i + 2 * tq, p.Cp)) =
+              lfb::pack_bf16(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+      }
     }
-    const bf16* a3 = h2 + (wm * 32 + (lane & 15)) * pitch + (lane >> 4) * 8;
-    const bf16* b3 = lfb::bt_frag(ring, kBLd3, 0, wn3 * 32, lane);
-    int s = 0, n0 = 0, c0 = 0;
-    for (int i = 0; i < total; ++i) {
-      lfb::cp_async_wait<kStages - 2>();
-      __syncthreads();
-      if (i + kStages - 1 < total) issue3();
-      lfb::cp_async_commit();
-      if (c0 == 0) {
+  lfb::named_bar_sync(1, 256);              // h1 complete
+
+  // 2 and 3, per pass of output pixels.
+  const int hoff = (u.j0 - u.s_lo) * u.Wq;  // h1 row of the band's pixel 0
+  // The taps (dh, dw) at which output pixel m reads a pixel of h1 (not
+  // branch2b's zero padding); none past the band.
+  auto taps_ok = [&](int m) {
+    if (m >= u.M2) return 0;
+    const int i = u.j0 + m / u.Wq, j = m % u.Wq;
+    int ok = 0;
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ii = i + tap / 3 - 1, jj = j + tap % 3 - 1;
+      if (ii >= 0 && ii < u.Hq && jj >= 0 && jj < u.Wq) ok |= 1 << tap;
+    }
+    return ok;
+  };
+  for (int op = 0; op < m2_passes; ++op) {
+    // This lane's ldmatrix row (its h1 row at tap (0, 0), and the taps at
+    // which it reads a pixel) and the two rows of its fragments.
+    const int mw = op * PR + row0 + 16 * warp;
+    const int ml = mw + (lane & 15);
+    const int lrow = ml < u.M2 ? ml + hoff : 0;
+    const int lane_ok = taps_ok(ml);
+    const int frag_ok0 = taps_ok(mw + g), frag_ok1 = taps_ok(mw + g + 8);
+    const uint32_t khalf = lane >> 4;
+
+    if constexpr (kSplitN)
+      lfb::named_bar_sync(2, 256);          // the last pass's h2 is read
+    uint32_t h2a[kSplitN ? 1 : kNW / 16][4];
+    for (int np = 0; np < n_passes; ++np) {
+      zero(acc);
+      for (int tap = 0; tap < 9; ++tap) {
+        const int row = ((lane_ok >> tap) & 1)
+                            ? lrow + (tap / 3 - 1) * u.Wq + tap % 3 - 1
+                            : lrow;
+        const uint32_t arow = sh1 + (uint32_t)row * p.Cp * 2;
+        const bool fo0 = (frag_ok0 >> tap) & 1, fo1 = (frag_ok1 >> tap) & 1;
+        for (int c0 = 0; c0 < p.Cp; c0 += 64) {
+          uint32_t w[64 / WR];
 #pragma unroll
-          for (int n = 0; n < 4; ++n)
-            acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
-      }
-      const bf16* sB = b3 + s * kKC3 * kBLd3;
+          for (int e = 0; e < 64 / WR; ++e) w[e] = next_full();
+          uint32_t a[4][4];
 #pragma unroll
-      for (int kk = 0; kk < kKC3; kk += 16) {
-        if (c0 + kk < Ci) {
-          uint32_t a[2][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            lfb::ldsm_x4(a[mt], a3 + mt * 16 * pitch + c0 + kk);
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            uint32_t bb[4];
-            lfb::ldsm_x4_trans(bb, sB + kk * kBLd3 + np * 16);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              lfb::mma_16816(acc[mt][2 * np], a[mt], bb[0], bb[1]);
-              lfb::mma_16816(acc[mt][2 * np + 1], a[mt], bb[2], bb[3]);
-            }
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t lc = (c0 >> 3) + 2 * j + khalf;
+            asm volatile(
+                "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+                "[%4];\n"
+                : "=r"(a[j][0]), "=r"(a[j][1]), "=r"(a[j][2]), "=r"(a[j][3])
+                : "r"(arow + (((lc & ~7u) | ((lc ^ row) & 7)) << 4)));
+            // branch2b's zero padding where the tap leaves the image.
+            a[j][0] = fo0 ? a[j][0] : 0u;
+            a[j][2] = fo0 ? a[j][2] : 0u;
+            a[j][1] = fo1 ? a[j][1] : 0u;
+            a[j][3] = fo1 ? a[j][3] : 0u;
           }
+          lfb::wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            lfb::Wgmma<kNW>::template rs_t<1>(acc, a[j],
+                                              bdesc(w, WR, bpan(WR), j));
+          lfb::wgmma_commit();
+          lfb::wgmma_wait<0>();
+          release(64 / WR);
         }
       }
-      s = wrap_stage(s);
-      c0 += kKC3;
-      if (c0 >= Ci) {   // the n-tile is done: its epilogue
+      lfb::fence_operand(acc);
+      // + b2b, relu: h2, rounded to bf16 as it is stored or packed.
+      bias_relu(acc, p.b2b, np * NP + col0 + 2 * tq, p.Ci);
+      if constexpr (kSplitN) {
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const int c = n0 + wn3 * 32 + n * 8 + (lane & 3) * 2;
-          if (c >= C) continue;
-          const float2 bias = bf16_pair(b2c + c);
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * warp + g + 8 * h;
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              if (o_row[mt][h] == ~(size_t)0) continue;
-              const size_t o = o_row[mt][h] + c;
-              const float2 res = bf16_pair(x + o);
-              store_relu(out + o, acc[mt][n][2 * h] + bias.x + res.x,
-                         acc[mt][n][2 * h + 1] + bias.y + res.y);
-            }
+          for (int i = 0; i < kNW / 8; ++i)
+            *reinterpret_cast<uint32_t*>(
+                base + p.h2_off + h2_byte(r, np * NP + col0 + 8 * i + 2 * tq)) =
+                lfb::pack_bf16(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
         }
-        c0 = 0;
-        n0 += TN3;
+      } else {
+#pragma unroll
+        for (int kc = 0; kc < kNW / 16; ++kc) lfb::acc_to_a(h2a[kc], acc, kc);
       }
     }
-    lfb::cp_async_wait<0>();
-    __syncthreads();
+    if constexpr (kSplitN) {
+      lfb::fence_proxy_async();             // h2 is read by wgmma
+      lfb::named_bar_sync(1, 256);
+    }
+
+    // 3. branch2c + b2c + x, relu -> out, N3 columns a chunk.
+    size_t o_row[2];                        // this thread's output rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = mw + g + 8 * h;
+      o_row[h] = m < u.M2 ? (((size_t)b * p.Tn + t) * HW +
+                             fb_pixel(p, u, u.j0 + m / u.Wq, m % u.Wq)) *
+                                p.C
+                          : ~(size_t)0;
+    }
+    float acc3[NW3 / 2];
+    for (int n3 = 0; n3 < p.C; n3 += N3) {
+      OutTile<NW3> ot;
+      out_load<NW3>(p, ot, o_row, n3 + col0, tq);
+      zero(acc3);
+      if constexpr (kSplitN) {
+        for (int k0 = 0; k0 < p.Cp; k0 += 64) {
+          uint32_t w[64 / WR3];
+#pragma unroll
+          for (int e = 0; e < 64 / WR3; ++e) w[e] = next_full();
+          const uint64_t da = lfb::desc_add(
+              lfb::desc_sw128(sh2 + (k0 >> 6) * 8192, 16), 0);
+          lfb::wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            lfb::Wgmma<NW3>::template ss_t<1>(acc3, da + 2 * j,
+                                              bdesc(w, WR3, bpan(WR3), j));
+          lfb::wgmma_commit();
+          lfb::wgmma_wait<0>();
+          release(64 / WR3);
+        }
+      } else {
+#pragma unroll
+        for (int kc = 0; kc < kNW / 64; ++kc) {
+          uint32_t w[64 / WR3];
+#pragma unroll
+          for (int e = 0; e < 64 / WR3; ++e) w[e] = next_full();
+          lfb::wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            lfb::Wgmma<NW3>::template rs_t<1>(acc3, h2a[4 * kc + j],
+                                              bdesc(w, WR3, 0, j));
+          lfb::wgmma_commit();
+          lfb::wgmma_wait<0>();
+          release(64 / WR3);
+        }
+      }
+      lfb::fence_operand(acc3);
+      out_store<NW3>(p, ot, acc3, o_row, n3 + col0, tq);
+    }
   }
 }
 
-template <int WM>
-cudaError_t launch_mma(const bf16* x, const bf16* w2a, const bf16* b2a,
-                       const bf16* w2b, const bf16* b2b, const bf16* w2c,
-                       const bf16* b2c, bf16* out, int B, int Tn, int H, int W,
-                       int C, int Ci, int kT, int d, int max_smem, int sms,
-                       cudaStream_t stream) {
-  using Tl = MmaTile<WM>;
-  // The band height (in sub-rows): of those whose buffers fit, the least
-  // (MMA tiles of the tallest band, padded to the CTA tile) x (waves of
-  // CTAs over the SMs).
-  auto tiles = [](int n, int t) { return (double)((n + t - 1) / t) * t; };
-  const double k1 = (double)kT * C * tiles(Ci, Tl::TN);
-  const double k23 = 9.0 * Ci * tiles(Ci, Tl::TN) + (double)Ci * tiles(C, Tl::TN);
-  const int Hs = (H + d - 1) / d;           // sub-rows of residue 0
-  int R = 0;
+template <int kNW, bool kSplitN>
+cudaError_t launch_wgmma(const void* x, const void* w2a, const void* b2a,
+                         const void* w2b, const void* b2b, const void* w2c,
+                         const void* b2c, void* out, int B, int Tn, int H,
+                         int W, int C, int Ci, int kT, int d, int max_smem,
+                         int sms, cudaStream_t stream) {
+  using F = Fb<kNW, kSplitN>;
+  FbArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.b2a = static_cast<const bf16*>(b2a);
+  a.b2b = static_cast<const bf16*>(b2b);
+  a.b2c = static_cast<const bf16*>(b2c);
+  a.out = static_cast<bf16*>(out);
+  a.Tn = Tn;
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.Ci = Ci;
+  a.Cp = kSplitN ? (Ci + 255) / 256 * 256 : kNW;
+  a.Cq = (C + 63) / 64 * 64;
+  a.kT = kT;
+  a.d = d;
+  // The band height (rows of a residue's sub-image): of those whose h1
+  // (band + 2 rows), h2 and at least 4 ring slots fit, the least (pixel
+  // rows padded to passes of PR) x (products a row) x (waves of CTAs over
+  // the SMs) x max(1, 6 / slots) (a ring of fewer slots hides less of the
+  // loads' latency).
+  const int Hq = (H + d - 1) / d, Wq = (W + d - 1) / d;
+  const size_t h2_bytes = kSplitN ? (size_t)64 * a.Cp * 2 : 0;
+  const double k1 = (double)kT * a.Cq * a.Cp;
+  const double k23 =
+      9.0 * a.Cp * a.Cp + (double)a.Cp * ((C + F::N3 - 1) / F::N3 * F::N3);
   double best = 0;
-  for (int bands = 1; bands <= Hs; ++bands) {
-    const int r = (Hs + bands - 1) / bands;
-    if ((Hs + r - 1) / r != bands) continue;    // one height per band count
-    const int h1_rows = min(Hs, r + 2);
-    if (mma_smem_elems<WM>(h1_rows, W, Ci) * sizeof(bf16) > (size_t)max_smem)
-      continue;
-    const long long ctas = (long long)d * bands * Tn * B;
+  a.R = 0;
+  size_t h1_bytes = 0;
+  for (int bands = 1; bands <= Hq; ++bands) {
+    const int r = (Hq + bands - 1) / bands;
+    if ((Hq + r - 1) / r != bands) continue;   // one height per band count
+    const long long m1 = (long long)std::min(Hq, r + 2) * Wq;
+    const long long m2 = (long long)r * Wq;
+    const size_t h1 = ((size_t)m1 * a.Cp * 2 + 1023) & ~(size_t)1023;
+    const size_t fixed = 1024 + h1 + h2_bytes + kBarBytes;
+    if (fixed + 4 * (size_t)kSlot > (size_t)max_smem) continue;
+    const int slots =
+        (int)std::min<size_t>(kMaxSlots, (max_smem - fixed) / kSlot);
+    const long long ctas = (long long)d * d * bands * Tn * B;
     const double cost = (double)((ctas + sms - 1) / sms) *
-                        (tiles(h1_rows * W, Tl::TM) * k1 +
-                         tiles(r * W, Tl::TM) * k23);
-    if (R == 0 || cost < best) {
-      R = r;
+                        ((double)((m1 + F::PR - 1) / F::PR) * k1 +
+                         (double)((m2 + F::PR - 1) / F::PR) * k23) *
+                        std::max(1.0, 6.0 / slots);
+    if (a.R == 0 || cost < best) {
+      a.R = r;
+      a.bands = bands;
+      a.nslot = slots;
+      h1_bytes = h1;
       best = cost;
     }
   }
-  if (R == 0) return cudaErrorInvalidValue;
-  const size_t smem = mma_smem_elems<WM>(min(Hs, R + 2), W, Ci) * sizeof(bf16);
-  cudaError_t err = lfb::allow_smem(fused_bottleneck_mma_kernel<WM>, smem);
+  if (a.R == 0 || (long long)d * d * a.bands > INT_MAX)
+    return cudaErrorInvalidValue;
+  a.h1_off = a.nslot * kSlot;
+  a.h2_off = a.h1_off + (int)h1_bytes;
+  const size_t smem = 1024 + (size_t)a.h2_off + h2_bytes + kBarBytes;
+  CUtensorMap tx, tw2a, tw2b, tw2c;
+  cudaError_t err = lfb::tma_map_bf16(&tx, x, B * Tn, H * W, C, F::PR);
+  if (err == cudaSuccess)
+    err = lfb::tma_map_bf16(&tw2a, w2a, 1, kT * C, Ci, F::WR);
+  if (err == cudaSuccess)
+    err = lfb::tma_map_bf16(&tw2b, w2b, 1, 9 * Ci, Ci, F::WR);
+  if (err == cudaSuccess)
+    err = lfb::tma_map_bf16(&tw2c, w2c, 1, Ci, C, F::WR3);
+  if (err == cudaSuccess)
+    err = lfb::allow_smem(fused_bottleneck_wgmma_kernel<kNW, kSplitN>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(d * ((Hs + R - 1) / R), Tn, B);
-  fused_bottleneck_mma_kernel<WM><<<grid, kMmaThreads, smem, stream>>>(
-      x, w2a, b2a, w2b, b2b, w2c, b2c, out, Tn, H, W, C, Ci, kT, d, R);
+  const dim3 grid(d * d * a.bands, Tn, B);
+  fused_bottleneck_wgmma_kernel<kNW, kSplitN>
+      <<<grid, kFbThreads, smem, stream>>>(tx, tw2a, tw2b, tw2c, a);
   return cudaGetLastError();
 }
 
@@ -900,15 +1044,25 @@ cudaError_t launch_bf16(const void* x, const void* w2a, const void* b2a,
   int max_smem = 0, sms = 0;
   cudaError_t err = check_shape(B, Tn, H, W, C, Ci, kT, d, &max_smem, &sms);
   if (err != cudaSuccess) return err;
+  // x and the weights are read by TMA (and x by 16-byte cp.async), the
+  // biases as bf16 pairs.
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w2a) |
+       reinterpret_cast<uintptr_t>(w2b) | reinterpret_cast<uintptr_t>(w2c)) &
+          15 ||
+      (reinterpret_cast<uintptr_t>(b2a) | reinterpret_cast<uintptr_t>(b2b) |
+       reinterpret_cast<uintptr_t>(b2c) | reinterpret_cast<uintptr_t>(out)) &
+          3)
+    return cudaErrorMisalignedAddress;
+  if ((long long)B * Tn > INT_MAX || (long long)H * W > INT_MAX)
+    return cudaErrorInvalidValue;
   auto args = [&](auto launcher) {
-    return launcher(static_cast<const bf16*>(x), static_cast<const bf16*>(w2a),
-                    static_cast<const bf16*>(b2a), static_cast<const bf16*>(w2b),
-                    static_cast<const bf16*>(b2b), static_cast<const bf16*>(w2c),
-                    static_cast<const bf16*>(b2c), static_cast<bf16*>(out), B,
-                    Tn, H, W, C, Ci, kT, d, max_smem, sms, stream);
+    return launcher(x, w2a, b2a, w2b, b2b, w2c, b2c, out, B, Tn, H, W, C, Ci,
+                    kT, d, max_smem, sms, stream);
   };
-  // 128 x 64 CTA tiles where Ci <= 64 (res2), else 64 x 128.
-  return Ci <= 64 ? args(launch_mma<4>) : args(launch_mma<2>);
+  if (Ci <= 64) return args(launch_wgmma<64, false>);
+  if (Ci <= 128) return args(launch_wgmma<128, false>);
+  if (Ci <= 256) return args(launch_wgmma<256, false>);
+  return args(launch_wgmma<128, true>);
 }
 
 }  // namespace

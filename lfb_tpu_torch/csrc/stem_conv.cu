@@ -74,6 +74,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "stem_s2d.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -203,12 +204,15 @@ cudaError_t launch_f32(const void* x, const void* w, void* out, int B, int Tn,
 // ---- bf16: wgmma over the space-to-depth packing ---------------------------
 
 using lfb::bf16;
+using lfb::cp_async_arrive;
+using lfb::s2d::kPixBytes;
+using lfb::s2d::pack_pixel;
+using lfb::s2d::swizzle;
 
 constexpr int kWg = 128;                        // threads of a warpgroup
 constexpr int kConsumerWgs = 2;
 constexpr int kWgmmaThreads = (kConsumerWgs + 1) * kWg;   // + the producer
 constexpr int kBlockPix = 256;                  // output pixels of a block
-constexpr int kPixBytes = 32;                   // a packed pixel: 16 bf16
 constexpr int kTapBytes = 16 * kCout * 2;       // one (dh, dw) tap's weights
 constexpr int kKtBytes = 16 * kTapBytes;        // one temporal tap's
 constexpr int kMaxStages = 4;
@@ -219,83 +223,6 @@ constexpr int kOutStageBytes = kConsumerWgs * 4 * 16 * kCout * 2;
 // the two k halves of a channel group, and the 8 groups of 8 channels.
 constexpr uint32_t kLeadBytes = 128;
 constexpr uint32_t kStrideBytes = 256;
-
-// Byte `b` of a packed band (pixel p at 32 p, half h at + 16 h) as stored:
-// the halves swap every fourth pixel (bit 7 of b flips bit 4).
-__device__ __forceinline__ uint32_t swizzle(uint32_t b) {
-  return b ^ ((b >> 3) & 16);
-}
-
-// 4 bytes global -> shared, zero-filled when !valid (src must still be a
-// valid address).
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-// The mbarrier's next arrival of this thread happens once all its earlier
-// cp.async copies have landed (counted against the barrier's count).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
-                   lfb::smem_addr(bar))
-               : "memory");
-}
-
-// Packed pixel (lr, pc) of a band whose first packed row is r0, from frame
-// xf (H x W x 3): x rows 2 (r0 + lr) - 4 + hp, columns 2 pc - 4 + wp, 3
-// channels each, in (hp, wp, ci) order: 12 values, the first 8 in the
-// pixel's first half, the rest at the start of its second; outside the
-// frame reads zero.  Channels 12-15 are never written: the stages start
-// zeroed.
-//
-// `words` (W even, x 4-byte aligned: every (row, even column) pixel starts
-// on a 4-byte boundary): the 6 values of a row are 3 aligned words, copied
-// by cp.async, which the band's full barrier waits for.  Else by 2-byte
-// loads and two stores.
-__device__ __forceinline__ void pack_pixel(uint32_t sx, int lr, int pc, int Wp,
-                                           const bf16* xf, int r0, int H,
-                                           int W, bool words) {
-  const uint32_t dst = sx + swizzle((uint32_t)(lr * Wp + pc) * kPixBytes);
-  const int ih = 2 * (r0 + lr) - 4, iw = 2 * pc - 4;
-  uint32_t v[6];
-#pragma unroll
-  for (int hp = 0; hp < 2; ++hp) {
-    const int h = ih + hp;
-    const bool row_ok = h >= 0 && h < H;
-    if (words) {
-      const bool ok = row_ok && iw >= 0 && iw + 1 < W;
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(
-          ok ? xf + ((size_t)h * W + iw) * kCin : xf);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const int word = 3 * hp + k;      // of the pixel's 6
-        cp_async_4((word < 4 ? dst : dst ^ 16) + (word & 3) * 4,
-                   src + (ok ? k : 0), ok);
-      }
-    } else {
-      const uint16_t* src = reinterpret_cast<const uint16_t*>(xf);
-      uint32_t e[6];
-#pragma unroll
-      for (int wp = 0; wp < 2; ++wp) {
-        const int c = iw + wp;
-        const bool ok = row_ok && c >= 0 && c < W;
-#pragma unroll
-        for (int ci = 0; ci < kCin; ++ci)
-          e[3 * wp + ci] = ok ? src[((size_t)h * W + c) * kCin + ci] : 0u;
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        v[3 * hp + k] = e[2 * k] | (e[2 * k + 1] << 16);
-    }
-  }
-  if (!words) {
-    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
-                 "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]));
-    asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(dst ^ 16),
-                 "r"(v[4]), "r"(v[5]));
-  }
-}
 
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 stem_conv_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w4,

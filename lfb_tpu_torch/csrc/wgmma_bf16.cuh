@@ -102,6 +102,23 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                : "memory");
 }
 
+// The mbarrier's next arrival of this thread happens once all its earlier
+// cp.async copies have landed (counted against the barrier's count).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// As cp_async_arrive, but the barrier's pending count is first raised by
+// one, so the arrival needs no place in its count: it holds the phase open
+// until this thread's copies have landed.
+__device__ __forceinline__ void cp_async_arrive_inc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
 // Orders this thread's earlier ordinary shared-memory stores before later
 // accesses by the async proxy (wgmma's shared operands, TMA stores).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -317,6 +334,18 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
          (1ull << 62);
 }
 
+// desc moved by `units` of 16 bytes, computed in an asm volatile statement
+// so that it stays after the wgmma_wait before it: a descriptor register
+// rewritten while a product that read it may still run makes ptxas
+// serialise all of the function's wgmma (C7513).
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, int units) {
+  uint64_t d;
+  asm volatile("add.s64 %0, %1, %2;\n"
+               : "=l"(d)
+               : "l"(desc), "l"((int64_t)units));
+  return d;
+}
+
 // The A fragment of k16 step kc from an m64nN f32 accumulator d (its
 // columns 16 kc .. 16 kc + 15 as the k of the next product), rounded to
 // bf16: the accumulator's and the A operand's register layouts agree, so a
@@ -331,15 +360,23 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N],
 }
 
 // m64nNk16 with f32 sums of bf16 products: ss (A and B from shared memory,
-// both K-major) for N in {16, 32, 64}, the score tiles, and rs_t (A from
-// registers, B MN-major) for N = 256, the sums over 256 channels.  d holds
-// N / 2 floats a thread, in the layout above.  A product that adds to d
+// both K-major) for N in {16, 32, 64}, the score tiles; rs_t (A from
+// registers, B MN-major) for N = 256 with a run-time scale-d, attention's
+// sums over 256 channels, and for N in {64, 128, 256} with an immediate
+// one, the stem's weight gradient and the bottleneck's branch2b and
+// branch2c; ss_t (A K-major and B MN-major, both in shared memory, an
+// immediate scale-d) for N in {64, 128, 256}, the bottleneck's branch2a
+// and branch2c at Ci > 256.  d holds N / 2 floats a thread, in the layout
+// above.  A product that adds to d
 // (scale-d) reads it; where ordinary instructions write (or read) the
 // accumulator of a product that another one in flight shares a pipeline
 // stage with, ptxas serialises all of the function's wgmma (C7515, C7514).
 // So a sum that runs across tiles starts unset and its first product does
 // not add (acc false) rather than being zeroed, and score tiles are fresh
-// arrays each tile.
+// arrays each tile.  The stem dW and bottleneck kernels zero their sums
+// while no product is in flight instead, and every product adds (an
+// immediate scale-d: a flag register rewritten while a product that read
+// it still runs serialises the wgmma too, C7513).
 template <int N>
 struct Wgmma;
 
@@ -418,6 +455,149 @@ struct Wgmma<64> {
         "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "n"(kAcc));
   }
+
+  // d (64 x 64) = a (64 x 16, registers) . B (16 x 64, shared memory at
+  // db, MN-major: the descriptor's transpose bit), plus d if kAcc
+  // (an immediate: no register of the product changes while it runs).
+  template <int kAcc>
+  static __device__ __forceinline__ void rs_t(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "},"
+        " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+        "}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(kAcc));
+  }
+
+  // d (64 x 64) = A (64 x 16, shared memory at da, K-major) . B (16 x 64,
+  // shared memory at db, MN-major: the transpose bit), plus d if kAcc
+  // (an immediate: no register of the product changes while it runs).
+  template <int kAcc>
+  static __device__ __forceinline__ void ss_t(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "},"
+        " %32, %33, p, 1, 1, 0, 1;\n"
+        "}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "n"(kAcc));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d (64 x 128) = a (64 x 16, registers) . B (16 x 128, shared memory at
+  // db, MN-major: the descriptor's transpose bit), plus d if kAcc
+  // (an immediate: no register of the product changes while it runs).
+  template <int kAcc>
+  static __device__ __forceinline__ void rs_t(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "},"
+        " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+        "}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(kAcc));
+  }
+
+  // d (64 x 128) = A (64 x 16, shared memory at da, K-major) . B (16 x 128,
+  // shared memory at db, MN-major: the transpose bit), plus d if kAcc
+  // (an immediate: no register of the product changes while it runs).
+  template <int kAcc>
+  static __device__ __forceinline__ void ss_t(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "},"
+        " %64, %65, p, 1, 1, 0, 1;\n"
+        "}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "n"(kAcc));
+  }
 };
 
 template <>
@@ -476,6 +656,121 @@ struct Wgmma<256> {
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(acc));
+  }
+
+  // d (64 x 256) = a (64 x 16, registers) . B (16 x 256, shared memory at
+  // db, MN-major: the descriptor's transpose bit), plus d if kAcc
+  // (an immediate: no register of the product changes while it runs).
+  template <int kAcc>
+  static __device__ __forceinline__ void rs_t(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89,"
+        "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99,"
+        "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109,"
+        "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127},"
+        " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+        "}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "n"(kAcc));
+  }
+  // d (64 x 256) = A (64 x 16, shared memory at da, K-major) . B (16 x 256,
+  // shared memory at db, MN-major: the transpose bit), plus d if kAcc
+  // (an immediate: no register of the product changes while it runs).
+  template <int kAcc>
+  static __device__ __forceinline__ void ss_t(float (&d)[128], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89,"
+        "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99,"
+        "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109,"
+        "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "},"
+        " %128, %129, p, 1, 1, 0, 1;\n"
+        "}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "n"(kAcc));
   }
 };
 

@@ -13,11 +13,13 @@ folded into the weights it is
     out = relu(conv_{1 x 1 x 1}(h2) + b2c + x)
 
 and the kernel runs it per (clip, frame, band of rows) with h1 and h2 in
-shared memory: x is read once (and again for the residual), the output
-written once, and the Ci-wide intermediates never reach device memory.  On
-the H100 the block is bound by arithmetic: in bf16 its three stages are
-GEMMs on the tensor cores, with the weights in the (K, N) layouts of
-:func:`kernel_weights`; f32 stays on the FMA units (see the source).
+shared memory: x is read once per temporal tap (and again for the
+residual), the output written once, and the Ci-wide intermediates never
+reach device memory.  In bf16 its three stages are GEMMs on ``wgmma``, fed
+by TMA with the weights in the (K, N) layouts of :func:`kernel_weights`
+(read by TMA: x and those matrices must lie on 16-byte aligned addresses,
+which the wrapper checks for x); f32 stays on the FMA units (see the
+source).
 
 Rounding, as the TPU kernel's: weights and biases are cast to x's dtype,
 products accumulate in f32, h1 and h2 are rounded to x's dtype, the
@@ -103,6 +105,10 @@ def fused_identity_bottleneck(x, w2a, b2a, w2b, b2b, w2c, b2c, *,
             tuple(bc.shape) != (C,):
         raise ValueError('fused_identity_bottleneck: biases must be ({0},), '
                          '({0},), ({1},)'.format(Ci, C))
+    if dt == torch.bfloat16 and x.data_ptr() % 16:
+        raise ValueError('fused_identity_bottleneck: the bf16 kernel reads x '
+                         'in 16-byte pieces, which takes a 16-byte aligned '
+                         'address (x at {:#x})'.format(x.data_ptr()))
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         cuda_build.launch(_LAUNCHERS[dt], x.data_ptr(), wa.data_ptr(),

@@ -22,11 +22,13 @@ stay on the FMA units (the f32 paths are held to the CPU at 1e-4, which
 TF32 would break): a direct conv per (clip, frame, band of output rows).
 
 The weight gradient is a product per frame and temporal tap, reduced over
-the frame's output pixels: one CTA per (frame, temporal tap) writes the
-frame's partial dW and a second launch sums the partials in frame order, so
-no sum crosses CTAs and the result does not change from run to run.  In
-bf16 it runs on ``mma.sync`` over x packed by :func:`pack_x_s2d` in the
-wrapper.
+the frames' output pixels.  In bf16 it runs on ``wgmma``: persistent CTAs,
+each one temporal tap over a share of the frames, pack x inside the kernel
+(the layout of :func:`pack_x_s2d`), take g by TMA and keep their sums in
+registers; each writes one partial and a second launch sums the partials
+in a fixed order.  In f32 one CTA per (frame, temporal tap) writes a
+partial, summed the same way.  No sum crosses CTAs by atomics, so the
+result does not change from run to run.
 """
 
 from __future__ import annotations
@@ -57,7 +59,9 @@ def pack_x_s2d(x: torch.Tensor) -> torch.Tensor:
     hp, wp in {0, 1}, channels ordered (hp, wp, ci) and zero-padded from 12
     to 16; input outside the image is 0.  The stride-2 7 x 7 stem conv is
     a stride-1 4 x 4 conv over this (taps padded to 8 x 8 with a leading
-    zero): output (ho, wo) reads packed pixel (ho + dh, wo + dw)."""
+    zero): output (ho, wo) reads packed pixel (ho + dh, wo + dw).  The bf16
+    kernels build this layout band by band in shared memory
+    (``csrc/stem_s2d.cuh``); here it is the reference of their arithmetic."""
     B, T, H, W, C = x.shape
     hp, wp = (H + 1) // 2 + 3, (W + 1) // 2 + 3
     xp = torch.nn.functional.pad(
@@ -158,13 +162,20 @@ def stem_conv_dw(x: torch.Tensor, g: torch.Tensor, kt: int) -> torch.Tensor:
         raise ValueError('stem_conv_dw: at most 65535 frames (got {})'.format(
             B * T))
     packed = x.dtype == torch.bfloat16
-    x_k = pack_x_s2d(x) if packed else x
-    tap_w = _S2D_TAP_W if packed else _TAP_W
-    partial = torch.empty((kt * B * T * tap_w,), dtype=torch.float32,
+    if packed and g.data_ptr() % 16:
+        raise ValueError('stem_conv_dw: the bf16 kernel reads g by TMA, which '
+                         'takes 16-byte aligned addresses (g at {:#x})'.format(
+                             g.data_ptr()))
+    if packed:   # one partial per persistent CTA: one an SM, one a tap
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        tap_w, parts = _S2D_TAP_W, max(kt, sms)
+    else:        # one per frame and tap
+        tap_w, parts = _TAP_W, kt * B * T
+    partial = torch.empty((parts * tap_w,), dtype=torch.float32,
                           device=x.device)
     dw_k = torch.empty((kt, tap_w), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        cuda_build.launch(_DW_LAUNCHERS[x.dtype], x_k.data_ptr(), g.data_ptr(),
+        cuda_build.launch(_DW_LAUNCHERS[x.dtype], x.data_ptr(), g.data_ptr(),
                           partial.data_ptr(), dw_k.data_ptr(), B, T, H, W, kt)
     global DW_LAUNCHES
     DW_LAUNCHES += 1

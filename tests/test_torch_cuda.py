@@ -490,6 +490,32 @@ def test_stem_dw_kernel_is_deterministic(dev, dtype):
     assert torch.equal(first, cuda_stem.stem_conv_dw(x, g, 5))
 
 
+@pytest.mark.parametrize('B,T,crop,kt', [
+    (7, 3, 40, 3),           # 21 frames: shares of unequal length
+    (1, 1, 16, 5),           # one frame: most taps' roles have none
+    (3, 5, 30, 5),           # ragged last band of 256 pixels
+    (1, 200, 16, 5)])        # more frames than CTAs
+def test_stem_dw_kernel_splits_frames_unevenly(dev, B, T, crop, kt):
+    """The bf16 kernel's persistent CTAs each take one temporal tap and a
+    share of its frames' bands, which need not divide evenly."""
+    x = rand((B, T, crop, crop + 2, 3), dev, dtype=torch.bfloat16)
+    ho, wo = (crop - 1) // 2 + 1, (crop + 1) // 2 + 1
+    g = rand((B, T, ho, wo, 64), dev, seed=1, dtype=torch.bfloat16)
+    got = cuda_stem.stem_conv_dw(x, g, kt)
+    assert_close(got, cuda_stem.stem_conv_dw_plain(x, g, kt), 1e-2)
+    assert torch.equal(got, cuda_stem.stem_conv_dw(x, g, kt))
+
+
+def test_stem_dw_wrapper_refuses_an_unaligned_bf16_gradient(dev):
+    """g is read by TMA, which takes 16-byte aligned addresses only."""
+    x = rand((1, 2, 16, 16, 3), dev, dtype=torch.bfloat16)
+    n = 2 * 8 * 8 * 64
+    g = rand((n + 1,), dev, dtype=torch.bfloat16)[1:].view(1, 2, 8, 8, 64)
+    with pytest.raises(ValueError, match='16-byte'):
+        cuda_stem.stem_conv_dw(x, g, 5)
+    cuda_stem.stem_conv_dw(x, g.contiguous().clone(), 5)
+
+
 def test_stem_dw_wrapper_refuses_what_the_kernel_does_not_take(dev):
     x = rand((1, 2, 16, 16, 3), dev)
     g = rand((1, 2, 8, 8, 64), dev)
@@ -628,6 +654,54 @@ def test_fused_bottleneck_matches_plain(dev, dtype, shape, ci, kt, d,
     ref = cuda_bottleneck.fused_identity_bottleneck_plain(
         x, *p, temporal_pad=kt // 2, dilation=d)
     assert_close(got, ref, 1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize('shape,ci,kt,d,b2a_shift', [
+    ((1, 3, 9, 13, 64), 16, 3, 1, 3.0),        # 117 pixels; C 64, Ci 16
+    ((2, 2, 11, 15, 64), 16, 1, 2, 3.0),       # ragged residues of d = 2
+    ((1, 3, 12, 11, 256), 64, 3, 1, 0.0),      # 132 pixels a frame
+    ((2, 1, 7, 9, 2048), 512, 3, 2, 3.0),      # C 2048, Ci 512 at d = 2
+    ((1, 2, 10, 10, 2048), 512, 1, 2, 0.0),    # 25-pixel residues
+    ((2, 1, 8, 8, 128), 32, 3, 1, 0.0),        # T 1, kT 3
+    ((1, 1, 6, 6, 512), 128, 3, 1, 3.0),       # T 1, the whole frame a band
+    ((1, 3, 5, 7, 96), 48, 3, 3, 1.0),         # C, Ci not multiples of 64
+    ((1, 2, 6, 6, 64), 320, 1, 1, 0.0),        # Ci past 256, not 512
+])
+def test_fused_bottleneck_bf16_on_ragged_tiles(dev, shape, ci, kt, d,
+                                                b2a_shift):
+    """Shapes ragged against the bf16 kernel's tiles: passes of 64 or 128
+    pixels, 64-channel chunks, 16 KB weight slots and residues of d."""
+    x = torch.relu(rand(shape, dev, seed=5)).to(torch.bfloat16)
+    p = bottleneck_params(shape[-1], ci, kt, dev, b2a_shift=b2a_shift)
+    got = cuda_bottleneck.fused_identity_bottleneck(
+        x, *p, temporal_pad=kt // 2, dilation=d)
+    ref = cuda_bottleneck.fused_identity_bottleneck_plain(
+        x, *p, temporal_pad=kt // 2, dilation=d)
+    assert_close(got, ref, 1e-2)
+
+
+@pytest.mark.parametrize('shape,ci,kt,d', [
+    ((2, 4, 16, 16, 1024), 256, 3, 1), ((1, 2, 16, 16, 2048), 512, 3, 2),
+    ((1, 4, 24, 24, 256), 64, 3, 1)])
+def test_fused_bottleneck_bf16_is_deterministic(dev, shape, ci, kt, d):
+    """No float atomics, a fixed order: two calls give the same bits."""
+    x = torch.relu(rand(shape, dev, seed=5)).to(torch.bfloat16)
+    p = bottleneck_params(shape[-1], ci, kt, dev)
+    first = cuda_bottleneck.fused_identity_bottleneck(
+        x, *p, temporal_pad=kt // 2, dilation=d)
+    assert torch.equal(first, cuda_bottleneck.fused_identity_bottleneck(
+        x, *p, temporal_pad=kt // 2, dilation=d))
+
+
+def test_fused_bottleneck_wrapper_refuses_an_unaligned_bf16_input(dev):
+    """x is read by TMA and 16-byte copies: 16-byte aligned addresses only."""
+    shape = (1, 2, 8, 8, 64)
+    n = 2 * 8 * 8 * 64
+    x = torch.relu(rand((n + 1,), dev)).to(torch.bfloat16)[1:].view(shape)
+    p = bottleneck_params(64, 16, 3, dev)
+    with pytest.raises(ValueError, match='16-byte'):
+        cuda_bottleneck.fused_identity_bottleneck(x, *p, temporal_pad=1)
+    cuda_bottleneck.fused_identity_bottleneck(x.clone(), *p, temporal_pad=1)
 
 
 def test_fused_bottleneck_wrapper_refuses_what_the_kernel_does_not_take(dev):

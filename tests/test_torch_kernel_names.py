@@ -51,6 +51,17 @@ def test_the_attention_kernels_are_held_to_wgmma(name):
     assert name in chip_smoke.WGMMA_KERNELS
 
 
+@pytest.mark.parametrize('name', ['stem_dw_wgmma_kernel',
+                                  'fused_bottleneck_wgmma_kernel'])
+def test_the_stem_dw_and_bottleneck_kernels_are_held_to_wgmma(name):
+    """The bf16 stem weight gradient and fused bottleneck run on wgmma: their
+    HGMMA is checked, and the mma.sync kernels they replaced are gone."""
+    assert name in chip_smoke.WGMMA_KERNELS
+    assert name in kernel_names()
+    assert not {'stem_dw_mma_kernel',
+                'fused_bottleneck_mma_kernel'} & kernel_names()
+
+
 def test_the_serialisation_note_is_found_by_kernel():
     log = '\n'.join([
         "ptxas info    : Compiling entry function "
