@@ -212,6 +212,25 @@ result):
     diagnostic, logged and not bounded: two f32 train steps from one state
     in a subprocess, as run and under deterministic algorithms, whether
     they agree bitwise and which ops have no deterministic implementation.
+18. The real-scale bank rehearsal (:func:`rehearsal_phase`, the functions
+    of ``lfb_tpu_torch.tools.bank_rehearsal`` in process, on its config:
+    the JAX tool's flagship, unfused): (a) AVA at 235 videos (3.2 GiB f32,
+    rows tiled by ``fast_fill``), the f32 and the bf16 bank built, each
+    with its inference ladder at T 32, crop 256 (``REHEARSAL_INFER``: the
+    top rung cannot fit on 80 GB and must run out of memory, the rungs
+    below find the largest batch that fits); with the f32 bank also the
+    extract ladder (phase A) and the train ladder (``REHEARSAL_TRAIN``,
+    ``TPU.REMAT ''``); (b) the bf16 bank's bytes exactly half the f32
+    bank's, and its prob on one batch within ``BF16_BANK_BOUND`` of the f32
+    bank's; (c) the f32 bank row-sharded in a one-rank NCCL group: the
+    inference ladder at the fitting batch, and (b)'s batch again, bitwise
+    the unsharded prob (else held at 1e-6); (d) Charades at the train
+    split's scale (9,800 videos, 4.1 GiB, every row drawn), a table width
+    of 600, its inference and train ladders.  After every rung that ran out
+    of memory the allocator must hold no more than ``REHEARSAL_OOM_SLACK``
+    over what it held before the rung; the launch counters of each fitting
+    rung, run alone, read its forwards exactly.  The reports are printed as the tool prints them, each headed
+    by the card's name and power limit.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so the plain
 versions the kernels are compared with compute in full f32.
@@ -3697,6 +3716,254 @@ def drift_steps():
     print(json.dumps(result))
 
 
+# Phase 18: the bank rehearsal (lfb_tpu_torch.tools.bank_rehearsal) at real
+# scale.  The inference ladder's top rung cannot fit on an 80 GB card (its
+# stem output alone is 16 GiB, and at B = 256 the forward asks for another
+# 16 GiB with about 63 GiB in use); the rungs below it find the largest batch
+# that fits.  Every rung's clips are a prefix of the top rung's draws, so the
+# rungs below cost no host time to draw.  The train ladder's top rung is
+# twice the released B = 16 step's peak (21.5 GiB) and more.  The bf16 bank's
+# prob is held to the f32 bank's within phase 4's bf16 bound; after an OOM
+# rung the allocator must hold no more than REHEARSAL_OOM_SLACK over what it
+# held before the rung.
+REHEARSAL_INFER = (256, 224, 192, 160, 128, 96, 64, 32, 16)
+REHEARSAL_TRAIN = (64, 48, 32, 16)
+REHEARSAL_ITERS = 2
+REHEARSAL_OOM_SLACK = 64 * 2 ** 20
+BF16_BANK_BOUND = 2e-2
+CHARADES_TRAIN_VIDEOS = 9800
+CHARADES_TABLE_WIDTH = 600
+# Launches per forward and per train step of the rehearsal's configs
+# (``bank_rehearsal.flagship_cfg``: the Charades one keeps the flagship's
+# backbone and 3 FBO layers, and has no RoI head).
+REHEARSAL_PER_FORWARD = {
+    'inference': PER_FORWARD['B'], 'extract': PER_FORWARD['A'],
+    'train': PER_FORWARD['train'],
+    'Charades inference': {**PER_FORWARD['B'], 'roi_align_maxpool': 0},
+    'Charades train': {**PER_FORWARD['train'], 'roi_align_maxpool': 0,
+                       'roi_align_maxpool_bwd': 0}}
+
+
+def rehearsal_ladder(label, run, batches, per_forward, totals,
+                     top_oom=False):
+    """Run one ladder of the rehearsal (``run(batches)`` returns its
+    results) with the launch counters at 0 before it.  Checks: no rung
+    stalled, the last rung fits, every earlier one ran out of memory (with
+    ``top_oom``, the first rung at least: a ladder whose top rung cannot
+    fit).  An OOM rung may finish forwards before the one the allocator
+    refuses (a batch whose first forward fits can fail on its second), so
+    its launches are read, not predicted: after a ladder with OOM rungs the
+    fitting rung runs again alone, its rate logged beside the first.  The
+    counters of a ladder without OOM rungs, or of that second run, must
+    read 1 + ``REHEARSAL_ITERS`` forwards (or steps) exactly.  Adds every
+    launch to ``totals``; returns the ladder's results."""
+    want = {k: n * (1 + REHEARSAL_ITERS) for k, n in per_forward.items()}
+
+    def ladder(rungs):
+        reset_launches()
+        results = run(rungs)
+        launches = read_launches()
+        ooms = sum(bool(r.get('oom')) for r in results)
+        fit = results[-1] if results else {}
+        if any(r.get('stall') for r in results) \
+                or 'clips_per_sec' not in fit or ooms != len(results) - 1 \
+                or not np.isfinite(fit['clips_per_sec']) \
+                or any(launches[k] < n for k, n in want.items()):
+            raise AssertionError('phase 18 {}: ladder {}, launches {}'.format(
+                label, results, launches))
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n
+        return results, launches, ooms
+
+    results, launches, ooms = ladder(batches)
+    log('phase 18 {}: {}; launches {}'.format(label, results, launches))
+    if top_oom and not ooms:
+        raise AssertionError('phase 18 {}: the top rung fit'.format(label))
+    if ooms:
+        again, launches, _ = ladder((results[-1]['batch'],))
+        log('phase 18 {}: the fitting rung again: {}; launches {}'.format(
+            label, again, launches))
+    if launches != want:
+        raise AssertionError('phase 18 {}: launches {} != {}'.format(
+            label, launches, want))
+    return results
+
+
+def rehearsal_phase():
+    """Phase 18: ``lfb_tpu_torch.tools.bank_rehearsal``'s functions at real
+    scale, in process.  (a) AVA, 235 videos: the host bank drawn once
+    (``synthesize_ava_host_bank``, rows tiled by ``fast_fill``), the f32
+    bank built
+    (``build_device_bank_timed``), the inference ladder
+    ``REHEARSAL_INFER`` (its top rung must run out of memory and give the
+    memory back), the extract ladder on the same rungs and the train ladder
+    ``REHEARSAL_TRAIN``; then the bf16 bank and its inference ladder.  (b)
+    The bf16 bank's feature bytes exactly half the f32 bank's, and one
+    batch of 16 clips through both, same params and window seed: prob
+    within ``BF16_BANK_BOUND``.  (c) ``--sharded``: in a one-rank NCCL
+    group, the f32 bank row-sharded (``shard_bank``), the inference ladder
+    at the fitting batch, and (b)'s batch again: prob bitwise equal to the
+    unsharded bank's (else held at 1e-6).  (d) Charades at the train
+    split's scale (9,800 videos): its f32 bank, a table width of 600, the
+    inference and train ladders.  Each ladder through
+    :func:`rehearsal_ladder`; the reports printed as the tool prints them,
+    each headed by the card's name and power limit.  Returns the
+    launches."""
+    import gc
+    import torch
+    from lfb_tpu_torch.bank.device_bank import shard_bank
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.tools import bank_rehearsal as br
+    from lfb_tpu_torch.tools.gpu_smoke import one_rank_group
+    from lfb_tpu_torch.train.steps import make_eval_step
+    dev = torch.device('cuda')
+    gc.collect()
+    torch.cuda.empty_cache()
+    oom_rungs = []
+    totals = {}
+    t0 = time.perf_counter()
+    log('phase 18: {:.2f} GiB allocated at the start'.format(
+        torch.cuda.memory_allocated() / 2 ** 30))
+
+    # (a) AVA at real scale, f32 then bf16; the rows tiled from one random
+    # block (the same shapes and bytes as every row drawn, which takes the
+    # card host's CPU 15 s).
+    host_bank, rows = br.synthesize_ava_host_bank(AVA_VIDEOS, fast_fill=True)
+    t1 = time.perf_counter()
+    report = {'dataset': 'ava', 'videos': AVA_VIDEOS, 'bank_rows': rows,
+              'sharded': False, 'runs': []}
+    banks = {}
+    for dtype in ('float32', 'bfloat16'):
+        cfg = br.flagship_cfg('ava', dtype, False)
+        bank, stats = br.build_device_bank_timed(cfg, host_bank, dev)
+        banks[dtype] = bank
+        run = {'bank_dtype': dtype, **stats}
+        run['inference'] = rehearsal_ladder(
+            'AVA {} inference'.format(dtype),
+            lambda bs: br.run_inference_ladder(cfg, bank, AVA_VIDEOS, bs,
+                                               REHEARSAL_ITERS, False, dev,
+                                               oom_rungs),
+            REHEARSAL_INFER, REHEARSAL_PER_FORWARD['inference'], totals,
+            top_oom=True)
+        if dtype == 'float32':
+            run['extract'] = rehearsal_ladder(
+                'AVA extract', lambda bs: br.run_extract(
+                    cfg, AVA_VIDEOS, bs, REHEARSAL_ITERS, dev, oom_rungs),
+                REHEARSAL_INFER, REHEARSAL_PER_FORWARD['extract'], totals)
+            run['train'] = rehearsal_ladder(
+                'AVA train', lambda bs: br.run_train_ladder(
+                    cfg, bank, AVA_VIDEOS, bs, REHEARSAL_ITERS, False, dev,
+                    oom_rungs),
+                REHEARSAL_TRAIN, REHEARSAL_PER_FORWARD['train'], totals)
+        report['runs'].append(run)
+        del bank
+    del host_bank
+    t2 = time.perf_counter()
+
+    # (b) The bf16 bank against the f32 bank on one batch.
+    nbytes = {k: b.feats.numel() * b.feats.element_size()
+              for k, b in banks.items()}
+    if 2 * nbytes['bfloat16'] != nbytes['float32']:
+        raise AssertionError('phase 18: bank bytes {}'.format(nbytes))
+    cfg = br.flagship_cfg('ava', 'float32', False)
+    spec = build_spec(cfg, 'test')
+    params = perturbed_params(spec, dev)
+    batch = br.make_batch(cfg, spec, B, AVA_VIDEOS, device=dev)
+    reset_launches()
+    prob = {k: make_eval_step(spec, bank=b, bank_seed=SEED)(params, batch)[
+        'prob'].float() for k, b in banks.items()}
+    launches = read_launches()
+    d_bf16 = (prob['bfloat16'] - prob['float32']).abs().max().item()
+    log('phase 18 (b): the bf16 bank {} bytes, the f32 bank {}; prob max '
+        '|diff| {:.3e} (bound {}) over {} boxes'.format(
+            nbytes['bfloat16'], nbytes['float32'], d_bf16, BF16_BANK_BOUND,
+            prob['float32'].shape[0]))
+    if not d_bf16 <= BF16_BANK_BOUND:
+        raise AssertionError('phase 18 (b): prob {:.3e}'.format(d_bf16))
+    del banks['bfloat16']
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The f32 bank row-sharded in a one-rank NCCL group.
+    fit_b = report['runs'][0]['inference'][-1]['batch']
+    cfg_s = br.flagship_cfg('ava', 'float32', True)
+    sharded = {**report, 'sharded': True, 'runs': [{
+        k: v for k, v in report['runs'][0].items()
+        if k not in ('inference', 'extract', 'train')}]}
+    with one_rank_group(dev):
+        sharded['runs'][0]['inference'] = rehearsal_ladder(
+            'AVA f32 sharded inference',
+            lambda bs: br.run_inference_ladder(cfg_s, banks['float32'],
+                                               AVA_VIDEOS, bs,
+                                               REHEARSAL_ITERS, True, dev),
+            (fit_b,), REHEARSAL_PER_FORWARD['inference'], totals)
+        reset_launches()
+        got = make_eval_step(spec, bank=shard_bank(banks['float32']),
+                             bank_seed=SEED)(params, batch)['prob'].float()
+        for k, n in read_launches().items():
+            launches[k] += n
+    d_shard = (got - prob['float32']).abs().max().item()
+    log('phase 18 (c): the sharded bank\'s prob {} the whole bank\'s (max '
+        '|diff| {:.3e}; bound 1e-6)'.format(
+            'bitwise equal to' if torch.equal(got, prob['float32'])
+            else 'differs from', d_shard))
+    if not d_shard <= 1e-6:
+        raise AssertionError('phase 18 (c): prob {:.3e}'.format(d_shard))
+    want = {k: 3 * n for k, n in REHEARSAL_PER_FORWARD['inference'].items()}
+    if launches != want:
+        raise AssertionError('phase 18 (b, c): launches {} != {}'.format(
+            launches, want))
+    for k, n in launches.items():
+        totals[k] += n
+    del banks, params, batch, prob, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+
+    # (d) Charades at the train split's scale.
+    host_bank, c_rows = br.synthesize_charades_host_bank(
+        CHARADES_TRAIN_VIDEOS)
+    cfg = br.flagship_cfg('charades', 'float32', False)
+    bank, stats = br.build_device_bank_timed(cfg, host_bank, dev)
+    del host_bank
+    if stats['table_width'] != CHARADES_TABLE_WIDTH:
+        raise AssertionError('phase 18 (d): table width {}'.format(
+            stats['table_width']))
+    charades = {'dataset': 'charades', 'videos': CHARADES_TRAIN_VIDEOS,
+                'bank_rows': c_rows, 'sharded': False, 'runs': [{
+                    'bank_dtype': 'float32', **stats}]}
+    charades['runs'][0]['inference'] = rehearsal_ladder(
+        'Charades inference', lambda bs: br.run_inference_ladder(
+            cfg, bank, CHARADES_TRAIN_VIDEOS, bs, REHEARSAL_ITERS, False,
+            dev, oom_rungs),
+        REHEARSAL_INFER, REHEARSAL_PER_FORWARD['Charades inference'], totals)
+    charades['runs'][0]['train'] = rehearsal_ladder(
+        'Charades train', lambda bs: br.run_train_ladder(
+            cfg, bank, CHARADES_TRAIN_VIDEOS, bs, REHEARSAL_ITERS, False,
+            dev, oom_rungs),
+        REHEARSAL_TRAIN, REHEARSAL_PER_FORWARD['Charades train'], totals)
+    del bank
+    br.forget_draws()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+
+    slack = [(r['ladder'], r['batch'],
+              r['allocated_after'] - r['allocated_before'])
+             for r in oom_rungs]
+    log('phase 18 OOM rungs (ladder, batch, bytes allocated after less '
+        'before): {}'.format(slack))
+    if not slack or any(d > REHEARSAL_OOM_SLACK for _, _, d in slack):
+        raise AssertionError('phase 18: OOM rungs {}'.format(slack))
+    for r in (report, sharded, charades):
+        print(card_line())
+        print(json.dumps(r))
+    log('phase 18: {:.1f} s (AVA host bank {:.1f}, AVA ladders {:.1f}, bf16 '
+        'and sharded checks {:.1f}, Charades {:.1f})'.format(
+            t4 - t0, t1 - t0, t2 - t1, t3 - t2, t4 - t3))
+    return totals
+
+
 def trace_window(label, run, count, out, stem):
     """Run ``run(i)`` for i < ``count`` on the host clock, then the same
     under torch.profiler; write the Chrome trace and the operator table to
@@ -3843,6 +4110,7 @@ def main():
     path_launches.append(true_bn_phase())
     path_launches.append(parity_dryrun_phase())
     path_launches.append(tools_phase())
+    path_launches.append(rehearsal_phase())
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -3856,7 +4124,7 @@ def main():
                         'library_device_ms': r.get('library_device_ms'),
                         'library': r.get('library'),
                         'tolerance': r['tolerance']})
-    log('chip_smoke: {:.1f} s in all, phases 1-17'.format(
+    log('chip_smoke: {:.1f} s in all, phases 1-18'.format(
         time.perf_counter() - t_start))
     print(card_line())
     print(json.dumps({'kernels': kernels}))

@@ -12,6 +12,11 @@ result:
   worker per rank, which meet over a ``FileStore`` in ``CHECKPOINT.DIR``.  On ``cuda`` the kernels are built
   here first, so the workers load one build.
 
+Every process that runs a rank turns TF32 off (:func:`full_f32`) before it
+calls ``fn``: PyTorch leaves it on for cuDNN convolutions, and under
+``TPU.COMPUTE_DTYPE float32`` the port is held to ``lfb_tpu`` in full f32.
+The flags belong to a process, so a spawned rank sets its own.
+
 Rank 0 logs at INFO on stdout; the other ranks log warnings only.
 """
 
@@ -51,6 +56,17 @@ def data_parallel_world(cfg, device) -> int:
     return n
 
 
+def full_f32(rank: int = 0) -> None:
+    """Turn TF32 off in this process, for matmuls and for cuDNN
+    convolutions, and log both flags for ``rank``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logger.info('rank %d: torch.backends.cuda.matmul.allow_tf32 %s, '
+                'torch.backends.cudnn.allow_tf32 %s', rank,
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+
 def _log_as(rank: int) -> None:
     logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
                         format=FORMAT, stream=sys.stdout, force=True)
@@ -59,6 +75,7 @@ def _log_as(rank: int) -> None:
 def _in_group(fn, cfg, device, world, rank, init_method, local_rank):
     """``fn(cfg, device)`` as rank ``rank`` of ``world``; leaves the group
     after."""
+    full_f32(rank)
     device = mesh.init_distributed(device, world=world, rank=rank,
                                    init_method=init_method,
                                    local_rank=local_rank)
@@ -90,6 +107,7 @@ def run(fn, cfg, device):
                          'env://', int(env.get('LOCAL_RANK', 0)))
     world = data_parallel_world(cfg, device)
     if world == 1:
+        full_f32()
         return fn(cfg, device)
     if torch.device(device).type == 'cuda':
         from lfb_tpu_torch.ops import cuda_build

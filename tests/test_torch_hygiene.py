@@ -21,9 +21,11 @@
 * ``python -m lfb_tpu_torch.tools.train_net --help`` and
   ``...tools.evaluate_actions --help`` load none of them, ``cv2`` included.
 * Importing ``train.precise_bn``, ``train.c2_manifest``,
-  ``tools.parity_eval``, ``utils.flops``, ``tools.mfu_probe`` or
-  ``tools.gpu_smoke`` alone loads none of them either, nor does ``python
-  -m lfb_tpu_torch.tools.{parity_eval,mfu_probe,gpu_smoke} --help``.
+  ``tools.parity_eval``, ``utils.flops``, ``tools.mfu_probe``,
+  ``tools.gpu_smoke`` or ``tools.bank_rehearsal`` alone loads none of them
+  either, nor ``__graft_entry__``, nor does ``python -m
+  lfb_tpu_torch.tools.{parity_eval,mfu_probe,gpu_smoke,bank_rehearsal}
+  --help``.
 """
 
 import json
@@ -185,23 +187,27 @@ print(json.dumps(sorted(m for m in sys.modules
 
 # The command lines among these modules, and a word their --help prints.
 HELP_WORDS = {'tools.parity_eval': '--dryrun', 'tools.mfu_probe': 'grid',
-              'tools.gpu_smoke': 'usage:'}
+              'tools.gpu_smoke': 'usage:',
+              'tools.bank_rehearsal': '--bank-dtype'}
 
 
 @pytest.mark.parametrize('module', ['train.precise_bn', 'train.c2_manifest',
                                     'tools.parity_eval', 'utils.flops',
-                                    'tools.mfu_probe', 'tools.gpu_smoke'])
+                                    'tools.mfu_probe', 'tools.gpu_smoke',
+                                    'tools.bank_rehearsal'])
 def test_module_alone_loads_nothing_forbidden(module):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
-        [sys.executable, '-c', IMPORT_SCRIPT % (FORBIDDEN,),
+        [sys.executable, '-c', IMPORT_SCRIPT % (FORBIDDEN + (
+            '__graft_entry__',),),
          'lfb_tpu_torch.' + module],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
     if module in HELP_WORDS:
         proc = subprocess.run(
-            [sys.executable, '-c', HELP_SCRIPT % (FORBIDDEN,),
+            [sys.executable, '-c', HELP_SCRIPT % (FORBIDDEN + (
+                '__graft_entry__',),),
              'lfb_tpu_torch.' + module],
             cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
         assert proc.returncode == 0, proc.stderr[-3000:]

@@ -20,7 +20,9 @@ Cases:
   ``compute_precise_bn_stats`` over the rank's shards of two global
   batches.
 
-``main`` runs the cases its caller names.
+``main`` runs the cases its caller names.  :func:`tf32_flags` is a rank's
+``fn`` under ``lfb_tpu_torch.parallel.launch.run``
+(``tests/test_torch_bank_rehearsal.py``).
 """
 
 import copy
@@ -189,6 +191,18 @@ def case_true_bn(inp):
 
 CASES = {'train': case_train, 'eval': case_eval, 'banks': case_banks,
          'true_bn': case_true_bn}
+
+
+def tf32_flags(cfg, device):
+    """Every rank's (``torch.backends.cuda.matmul.allow_tf32``,
+    ``torch.backends.cudnn.allow_tf32``), in rank order."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    if not mesh.distributed():
+        return [flags]
+    out = [None] * mesh.world_size()
+    torch.distributed.all_gather_object(out, flags)
+    return out
 
 
 def main(rank, world, root, cases):
