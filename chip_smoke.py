@@ -1126,7 +1126,7 @@ def reference_check(cfg):
     import torch
     from lfb_tpu_torch.config import charades_cfg, epic_verb_cfg, flagship_cfg
     from lfb_tpu_torch.models.spec import build_spec
-    from lfb_tpu_torch.ops import cuda_bottleneck
+    from lfb_tpu_torch.utils.profiling import counts
     f32 = {'NUM_GPUS': 1, 'TPU.COMPUTE_DTYPE': 'float32'}
     spec = build_spec(flagship_cfg(f32), 'test')
     batch = make_batch(spec, np.random.default_rng(SEED + 1), 'cuda',
@@ -1136,21 +1136,23 @@ def reference_check(cfg):
     spec = build_spec(charades_cfg({**f32, **FUSED}), 'test')
     batch = make_clip_batch(spec, np.random.default_rng(SEED + 8), 'cuda',
                             n_clips=1, with_lfb=True)
-    before = cuda_bottleneck.LAUNCHES
+    before = counts().get('kernel.bottleneck.fwd', 0)
     hold_card_against_cpu('Charades, fused bottleneck', spec, batch,
                           ('pool5', 'logits', 'prob'))
-    if cuda_bottleneck.LAUNCHES - before != _FUSED_LAUNCHES['fused_bottleneck']:
+    fused = counts().get('kernel.bottleneck.fwd', 0) - before
+    if fused != _FUSED_LAUNCHES['fused_bottleneck']:
         raise AssertionError('Charades reference: {} fused launches'.format(
-            cuda_bottleneck.LAUNCHES - before))
+            fused))
     spec = build_spec(epic_verb_cfg({**f32, **FUSED}), 'test')
     batch = make_clip_batch(spec, np.random.default_rng(SEED + 9), 'cuda',
                             n_clips=1, with_lfb=True)
-    before = cuda_bottleneck.LAUNCHES
+    before = counts().get('kernel.bottleneck.fwd', 0)
     hold_card_against_cpu('EPIC verb, fused bottleneck', spec, batch,
                           ('pool5', 'logits', 'prob'))
-    if cuda_bottleneck.LAUNCHES - before != 12:
+    fused = counts().get('kernel.bottleneck.fwd', 0) - before
+    if fused != 12:
         raise AssertionError('EPIC verb reference: {} fused launches'.format(
-            cuda_bottleneck.LAUNCHES - before))
+            fused))
 
 
 def hold_card_against_cpu(label, spec, batch, keys):
@@ -1229,27 +1231,30 @@ def timed(batches, stamps):
     stamps.append(time.perf_counter())
 
 
-def counters():
-    """Kernel name -> (wrapper module, name of its launch counter)."""
-    from lfb_tpu_torch.ops import (cuda_attention, cuda_bottleneck,
-                                   cuda_roi_align, cuda_stem)
-    return {'fused_bottleneck': (cuda_bottleneck, 'LAUNCHES'),
-            'stem_conv': (cuda_stem, 'LAUNCHES'),
-            'stem_conv_dw': (cuda_stem, 'DW_LAUNCHES'),
-            'roi_align_maxpool': (cuda_roi_align, 'LAUNCHES'),
-            'roi_align_maxpool_bwd': (cuda_roi_align, 'BWD_LAUNCHES'),
-            'attention': (cuda_attention, 'LAUNCHES'),
-            'attention_bwd': (cuda_attention, 'BWD_LAUNCHES')}
+# Kernel name -> its launch counter in the port's counter registry.
+COUNTERS = {'fused_bottleneck': 'kernel.bottleneck.fwd',
+            'stem_conv': 'kernel.stem.fwd',
+            'stem_conv_dw': 'kernel.stem.dw',
+            'roi_align_maxpool': 'kernel.roi_align.fwd',
+            'roi_align_maxpool_bwd': 'kernel.roi_align.bwd',
+            'attention': 'kernel.attention.fwd',
+            'attention_bwd': 'kernel.attention.bwd'}
+_LAUNCHES_AT_RESET = {}
 
 
 def reset_launches():
-    for module, counter in counters().values():
-        setattr(module, counter, 0)
+    """Count launches from here on (:func:`read_launches`)."""
+    from lfb_tpu_torch.utils.profiling import counts
+    _LAUNCHES_AT_RESET.clear()
+    _LAUNCHES_AT_RESET.update(counts())
 
 
 def read_launches():
-    return {name: getattr(module, counter)
-            for name, (module, counter) in counters().items()}
+    """Kernel name -> its launches since the last :func:`reset_launches`."""
+    from lfb_tpu_torch.utils.profiling import counts
+    now = counts()
+    return {name: now.get(key, 0) - _LAUNCHES_AT_RESET.get(key, 0)
+            for name, key in COUNTERS.items()}
 
 
 def run_phase(label, fn, batches, per_forward):

@@ -31,6 +31,11 @@ remat off, as ``lfb_tpu`` does: its batch statistics leave the regions
 through ``bn_updates``.  With ``MODEL.USE_AFFINE`` True and true-BN
 non-local blocks remat stays on, and the recompute derives the same batch
 statistics again.
+
+Under a profiler the stem and each stage are spans (``lfb.model.stem``,
+``lfb.model.res2`` .. ``res5``; a region's first run stays under its
+stage's) and each recompute in the backward is ``lfb.model.recompute``,
+counted in ``remat.regions`` (:mod:`lfb_tpu_torch.utils.profiling`).
 """
 
 from __future__ import annotations
@@ -51,8 +56,11 @@ from lfb_tpu_torch.ops.cuda_bottleneck import (fold_bottleneck_params,
                                                fused_identity_bottleneck)
 from lfb_tpu_torch.ops.cuda_stem import StemConv
 from lfb_tpu_torch.ops.pooling import max_pool_3d
+from lfb_tpu_torch.utils.profiling import count, span
 
 P = Mapping[str, torch.Tensor]
+_STAGE_SPANS = ('lfb.model.res2', 'lfb.model.res3', 'lfb.model.res4',
+                'lfb.model.res5')
 
 
 # --------------------------------------------------------------------------- #
@@ -262,22 +270,24 @@ class Backbone(nn.Module):
         """``bn_updates``: where true-BN layers record their batch
         statistics in training (``layers.apply_norm``)."""
         spec = self.spec
-        h = StemConv.apply(x, p['conv1_w'], self.temporal_pad)
-        h = apply_norm(p, 'res_conv1_bn', h, use_affine=spec.use_affine,
-                       epsilon=spec.bn_epsilon, train=train,
-                       bn_updates=bn_updates)
-        h = max_pool_3d(F.relu(h), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        with span('lfb.model.stem'):
+            h = StemConv.apply(x, p['conv1_w'], self.temporal_pad)
+            h = apply_norm(p, 'res_conv1_bn', h, use_affine=spec.use_affine,
+                           epsilon=spec.bn_epsilon, train=train,
+                           bn_updates=bn_updates)
+            h = max_pool_3d(F.relu(h), (1, 3, 3), (1, 2, 2), (0, 1, 1))
         # As ``lfb_tpu/models/backbone.py:143-148``: no remat in true-BN
         # training, whose statistics flow out through ``bn_updates``.
         remat = spec.remat if train and spec.use_affine else ''
         for stage_i, stage in enumerate(self.stages):
-            if stage_i == 1:
-                h = max_pool_3d(h, (2, 1, 1), (2, 1, 1))   # pool2: T/2
-            if remat == 'stage' or (remat == 'res2' and stage_i == 0):
-                h = _recomputed(self._stage, p, stage, h, train, False)
-            else:
-                h = self._stage(p, stage, h, train, remat == 'block',
-                                bn_updates)
+            with span(_STAGE_SPANS[stage_i]):
+                if stage_i == 1:
+                    h = max_pool_3d(h, (2, 1, 1), (2, 1, 1))   # pool2: T/2
+                if remat == 'stage' or (remat == 'res2' and stage_i == 0):
+                    h = _recomputed(self._stage, p, stage, h, train, False)
+                else:
+                    h = self._stage(p, stage, h, train, remat == 'block',
+                                    bn_updates)
         return h.detach() if spec.freeze_backbone else h
 
     @staticmethod
@@ -294,6 +304,16 @@ class Backbone(nn.Module):
 
 def _recomputed(fn, *args):
     """``fn(*args)``, run again in the backward instead of keeping what its
-    backward needs."""
-    return checkpoint(fn, *args, use_reentrant=False,
+    backward needs; each run after the first is ``lfb.model.recompute``."""
+    ran = []
+
+    def region(*region_args):
+        if not ran:
+            ran.append(True)
+            return fn(*region_args)
+        count('remat.regions')
+        with span('lfb.model.recompute'):
+            return fn(*region_args)
+
+    return checkpoint(region, *args, use_reentrant=False,
                       preserve_rng_state=False)

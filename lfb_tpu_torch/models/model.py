@@ -1,5 +1,11 @@
 """Full model: backbone -> head -> FBO -> classifier -> loss (port of
 ``lfb_tpu/models/model.py``; reference ``lib/models/resnet_video.py:133-351``).
+
+Under a profiler the head, the FBO (with the bank window's cast to f32),
+its backward and the classifier are the spans ``lfb.model.head``,
+``lfb.model.fbo``, ``lfb.model.fbo.backward`` and ``lfb.model.classifier``
+(:mod:`lfb_tpu_torch.utils.profiling`); the counter ``fbo.rows`` counts the
+rows through the FBO.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from lfb_tpu_torch.models.fbo import fbo_forward, init_fbo
 from lfb_tpu_torch.models.heads import RoIHead, basic_head
 from lfb_tpu_torch.models.layers import Params, dropout, gaussian_init
 from lfb_tpu_torch.models.spec import ModelSpec
+from lfb_tpu_torch.utils.profiling import backward_span, count, span
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -108,10 +115,11 @@ class LFBModel(nn.Module):
         bn_updates = {} if train and not spec.use_affine else None
 
         feats = self.backbone(p, x, train, bn_updates)
-        if self.roi_head is not None:
-            clip_feat = self.roi_head(feats, batch['proposals'])
-        else:
-            clip_feat = basic_head(spec, feats)
+        with span('lfb.model.head'):
+            if self.roi_head is not None:
+                clip_feat = self.roi_head(feats, batch['proposals'])
+            else:
+                clip_feat = basic_head(spec, feats)
 
         out = {'box_pooled' if self.roi_head is not None else 'pool5':
                clip_feat}
@@ -120,18 +128,24 @@ class LFBModel(nn.Module):
 
         head = clip_feat.float()
         if spec.fbo.enabled:
-            fbo_out = fbo_forward(spec, p, head, batch['lfb'].float(), train,
-                                  generator)
-            head = torch.cat([head, fbo_out.float()], dim=-1)
-        if spec.dropout_rate > 0 and train:
-            head = dropout(head, spec.dropout_rate, generator)
-        logits = head @ p['pred_w'].t() + p['pred_b']
-        out['logits'] = logits
-        out['prob'] = (torch.sigmoid(logits) if spec.multi_label
-                       else torch.softmax(logits, dim=-1))
-        if batch.get('labels') is not None:
-            out['loss'] = _loss(spec, logits, batch['labels'],
-                                batch.get('box_mask'))
+            with span('lfb.model.fbo'):
+                count('fbo.rows', head.shape[0])
+                marks = backward_span('lfb.model.fbo.backward')
+                fbo_out = marks.output(fbo_forward(
+                    spec, p, marks.input(head), batch['lfb'].float(), train,
+                    generator))
+        with span('lfb.model.classifier'):
+            if spec.fbo.enabled:
+                head = torch.cat([head, fbo_out.float()], dim=-1)
+            if spec.dropout_rate > 0 and train:
+                head = dropout(head, spec.dropout_rate, generator)
+            logits = head @ p['pred_w'].t() + p['pred_b']
+            out['logits'] = logits
+            out['prob'] = (torch.sigmoid(logits) if spec.multi_label
+                           else torch.softmax(logits, dim=-1))
+            if batch.get('labels') is not None:
+                out['loss'] = _loss(spec, logits, batch['labels'],
+                                    batch.get('box_mask'))
         if bn_updates:
             out['bn_updates'] = bn_updates
         return out

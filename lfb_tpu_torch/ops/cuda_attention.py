@@ -37,11 +37,7 @@ from __future__ import annotations
 import torch
 
 from lfb_tpu_torch.ops import attention, cuda_build
-
-# Launches of the CUDA kernels since the last reset (the chip smoke reads
-# them): one per forward call, one per backward call.
-LAUNCHES = 0
-BWD_LAUNCHES = 0
+from lfb_tpu_torch.utils.profiling import count
 
 MAX_C = 512
 _SMEM_BYTES = 227 * 1024
@@ -120,8 +116,7 @@ def _forward(q, k, v, scale, *, with_lse):
                           v.data_ptr(), out.data_ptr(),
                           lse.data_ptr() if with_lse else None, B, Nq, Nk, C,
                           scale)
-    global LAUNCHES
-    LAUNCHES += 1
+    count('kernel.attention.fwd')
     return out, lse
 
 
@@ -145,8 +140,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                           dv.data_ptr(), B, Nq, Nk, C, scale)
-    global BWD_LAUNCHES
-    BWD_LAUNCHES += 1
+    count('kernel.attention.bwd')
     return dq, dk, dv
 
 

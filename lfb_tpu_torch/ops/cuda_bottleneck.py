@@ -35,9 +35,7 @@ import torch.nn.functional as F
 
 from lfb_tpu_torch.ops import cuda_build
 from lfb_tpu_torch.ops.conv3d import conv3d
-
-# Launches of the CUDA kernel since the last reset (the chip smoke reads it).
-LAUNCHES = 0
+from lfb_tpu_torch.utils.profiling import count
 
 _LAUNCHERS = {torch.float32: 'lfb_fused_bottleneck_f32',
               torch.bfloat16: 'lfb_fused_bottleneck_bf16'}
@@ -115,8 +113,7 @@ def fused_identity_bottleneck(x, w2a, b2a, w2b, b2b, w2c, b2c, *,
                           ba.data_ptr(), wb.data_ptr(), bb.data_ptr(),
                           wc.data_ptr(), bc.data_ptr(), out.data_ptr(), B, T,
                           H, W, C, Ci, kt, dilation)
-    global LAUNCHES
-    LAUNCHES += 1
+    count('kernel.bottleneck.fwd')
     return out
 
 

@@ -31,11 +31,7 @@ import torch
 from lfb_tpu_torch.ops import cuda_build
 from lfb_tpu_torch.ops.pooling import max_pool_2d
 from lfb_tpu_torch.ops.roi_align import roi_align
-
-# Launches of the CUDA kernels since the last reset (the chip smoke reads
-# them).
-LAUNCHES = 0
-BWD_LAUNCHES = 0
+from lfb_tpu_torch.utils.profiling import count
 
 MAX_POOLED = 16
 # Channels per CTA, in order of preference.  Beside the map slice the 8
@@ -121,8 +117,7 @@ def roi_align_maxpool(features: torch.Tensor, rois: torch.Tensor, *,
                           rois.data_ptr(), out.data_ptr(), B, H, W, C, N,
                           pooled, float(spatial_scale), chunk,
                           _vec(features))
-    global LAUNCHES
-    LAUNCHES += 1
+    count('kernel.roi_align.fwd')
     return out
 
 
@@ -145,8 +140,7 @@ def roi_align_maxpool_bwd(features: torch.Tensor, rois: torch.Tensor,
                           rois.data_ptr(), dout.data_ptr(), dfmap.data_ptr(),
                           B, H, W, C, N, pooled, float(spatial_scale), chunk,
                           _vec(features))
-    global BWD_LAUNCHES
-    BWD_LAUNCHES += 1
+    count('kernel.roi_align.bwd')
     return dfmap
 
 

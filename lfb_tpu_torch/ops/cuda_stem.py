@@ -37,11 +37,7 @@ import torch
 
 from lfb_tpu_torch.ops import cuda_build
 from lfb_tpu_torch.ops.conv3d import conv3d
-
-# Launches of the CUDA kernels since the last reset (the chip smoke reads
-# them).
-LAUNCHES = 0
-DW_LAUNCHES = 0
+from lfb_tpu_torch.utils.profiling import count
 
 MAX_OUT_WIDTH = 256
 MAX_BF16_KT = 5           # the bf16 forward keeps every tap's weights resident
@@ -138,8 +134,7 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor, *,
     with torch.cuda.device(x.device):
         cuda_build.launch(_LAUNCHERS[x.dtype], x.data_ptr(), w_k.data_ptr(),
                           out.data_ptr(), B, T, H, W, kt)
-    global LAUNCHES
-    LAUNCHES += 1
+    count('kernel.stem.fwd')
     return out
 
 
@@ -177,8 +172,7 @@ def stem_conv_dw(x: torch.Tensor, g: torch.Tensor, kt: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         cuda_build.launch(_DW_LAUNCHERS[x.dtype], x.data_ptr(), g.data_ptr(),
                           partial.data_ptr(), dw_k.data_ptr(), B, T, H, W, kt)
-    global DW_LAUNCHES
-    DW_LAUNCHES += 1
+    count('kernel.stem.dw')
     dw_k = unpack_dw_s2d(dw_k) if packed else dw_k.view(kt, 7, 7, 3, 64)
     return dw_k.permute(4, 3, 0, 1, 2).contiguous()
 

@@ -22,6 +22,7 @@ from typing import Dict, Mapping, NamedTuple
 import torch
 
 from lfb_tpu_torch.train.lr_policy import get_lr_at_iter  # noqa: F401  (re-export)
+from lfb_tpu_torch.utils.profiling import count
 
 
 class SGDState(NamedTuple):
@@ -40,6 +41,7 @@ def apply_updates(params: Dict[str, torch.Tensor],
                   weight_decay: float, weight_decay_bn: float):
     """One momentum-SGD update of every parameter that has a momentum
     buffer, in place.  Returns (params, state)."""
+    count('optimizer.tensors', len(state.momentum))
     for name, v in state.momentum.items():
         p = params[name]
         g = grads[name].float()

@@ -9,6 +9,11 @@ denominator and the gradients are summed, the outputs gathered into the
 global batch's order.  Without a group the same code runs on one device and
 every exchange is the identity.  ``TPU.SHARD_MAP`` therefore changes
 nothing here: every rank always runs the per-device body.
+
+Under a profiler each step is the span ``lfb.step.eval`` or
+``lfb.step.train`` (:mod:`lfb_tpu_torch.utils.profiling`), with the bank
+gather (``lfb.bank.gather``) and, in training, the loss, the backward, the
+optimizer and the BN statistics' update as spans inside it.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from lfb_tpu_torch.models.model import forward, frozen_param_names, loss_parts
 from lfb_tpu_torch.models.spec import ModelSpec
 from lfb_tpu_torch.parallel import mesh
 from lfb_tpu_torch.train import optimizer as opt
+from lfb_tpu_torch.utils.profiling import count, span
 
 _OUTPUTS = ('prob', 'logits', 'pool5', 'box_pooled')
 
@@ -42,13 +48,17 @@ def _inject_device_bank_lfb(spec: ModelSpec, bank, batch,
     if bank is None or not spec.fbo.enabled or 'lfb' in batch:
         return batch
     batch = dict(batch)
-    if spec.head_type == 'roi':
-        meta = batch['metadata']
-        batch['lfb'] = bank.gather(meta[:, 0].long(), meta[:, 1].long(),
-                                   generator)
-    else:
-        batch['lfb'] = bank.gather_centers(batch['lfb_video_idx'],
-                                           batch['lfb_center'])
+    with span('lfb.bank.gather'):
+        if spec.head_type == 'roi':
+            meta = batch['metadata']
+            lfb = bank.gather(meta[:, 0].long(), meta[:, 1].long(),
+                              generator)
+        else:
+            lfb = bank.gather_centers(batch['lfb_video_idx'],
+                                      batch['lfb_center'])
+    count('bank.rows', lfb.shape[0] * lfb.shape[1])
+    count('bank.bytes', lfb.numel() * lfb.element_size())
+    batch['lfb'] = lfb
     return batch
 
 
@@ -111,31 +121,36 @@ def make_train_step(spec: ModelSpec, solver, bank=None):
              frozen: Dict[str, torch.Tensor], mstate: opt.SGDState,
              batch: Mapping[str, torch.Tensor], generator: torch.Generator,
              lr: float):
-        batch = _localize_proposals(batch)
-        batch = _inject_device_bank_lfb(spec, bank, batch, generator)
-        names = list(trainable)
-        # Aliases of the caller's tensors that record the graph; the update
-        # below writes through to the caller's tensors.
-        leaves = {k: trainable[k].detach().requires_grad_(True) for k in names}
-        out = forward(spec, {**leaves, **frozen},
-                      {k: v for k, v in batch.items() if k != 'labels'},
-                      train=True, generator=generator)
-        loss, _ = _loss(spec, out['logits'], batch)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
-        mesh.all_sum_flat(grads)
-        trainable, mstate = opt.apply_updates(
-            trainable, dict(zip(names, grads)), mstate, lr=lr,
-            momentum=momentum, nesterov=nesterov, weight_decay=wd,
-            weight_decay_bn=wd_bn)
-        with torch.no_grad():
-            for name, stats in out.get('bn_updates', {}).items():
-                for suffix, stat in zip(('_rm', '_riv'), stats):
-                    running = frozen[name + suffix]
-                    running.copy_(bn_momentum * running
-                                  + (1.0 - bn_momentum) * stat)
-        aux = {'loss': mesh.all_sum(loss.detach()),
-               'prob': mesh.gather_rows(out['prob'].detach())}
-        return trainable, frozen, mstate, aux
+        with span('lfb.step.train'):
+            batch = _localize_proposals(batch)
+            batch = _inject_device_bank_lfb(spec, bank, batch, generator)
+            names = list(trainable)
+            # Aliases of the caller's tensors that record the graph; the
+            # update below writes through to the caller's tensors.
+            leaves = {k: trainable[k].detach().requires_grad_(True)
+                      for k in names}
+            out = forward(spec, {**leaves, **frozen},
+                          {k: v for k, v in batch.items() if k != 'labels'},
+                          train=True, generator=generator)
+            with span('lfb.step.loss'):
+                loss, _ = _loss(spec, out['logits'], batch)
+            with span('lfb.step.backward'):
+                grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+                mesh.all_sum_flat(grads)
+            with span('lfb.train.optimizer'):
+                trainable, mstate = opt.apply_updates(
+                    trainable, dict(zip(names, grads)), mstate, lr=lr,
+                    momentum=momentum, nesterov=nesterov, weight_decay=wd,
+                    weight_decay_bn=wd_bn)
+            with span('lfb.step.bn_update'), torch.no_grad():
+                for name, stats in out.get('bn_updates', {}).items():
+                    for suffix, stat in zip(('_rm', '_riv'), stats):
+                        running = frozen[name + suffix]
+                        running.copy_(bn_momentum * running
+                                      + (1.0 - bn_momentum) * stat)
+            aux = {'loss': mesh.all_sum(loss.detach()),
+                   'prob': mesh.gather_rows(out['prob'].detach())}
+            return trainable, frozen, mstate, aux
 
     return step
 
@@ -151,19 +166,21 @@ def make_eval_step(spec: ModelSpec, bank=None, bank_seed: int = 0,
 
     def step(params: Mapping[str, torch.Tensor],
              batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        generator = None
-        if bank is not None:
-            generator = torch.Generator(device=bank.feats.device)
-            generator.manual_seed(bank_seed)
-        with torch.inference_mode():
-            batch = _localize_proposals(batch)
-            batch = _inject_device_bank_lfb(spec, bank, batch, generator)
-            out = forward(spec, params,
-                          {k: v for k, v in batch.items() if k != 'labels'})
-            keep = {k: mesh.gather_rows(out[k]) for k in _OUTPUTS if k in out}
-            if with_loss and 'labels' in batch:
-                keep['loss'] = _loss(spec, out['logits'], batch)[0]
-                mesh.all_sum(keep['loss'])
-        return keep
+        with span('lfb.step.eval'):
+            generator = None
+            if bank is not None:
+                generator = torch.Generator(device=bank.feats.device)
+                generator.manual_seed(bank_seed)
+            with torch.inference_mode():
+                batch = _localize_proposals(batch)
+                batch = _inject_device_bank_lfb(spec, bank, batch, generator)
+                out = forward(spec, params, {k: v for k, v in batch.items()
+                                             if k != 'labels'})
+                keep = {k: mesh.gather_rows(out[k]) for k in _OUTPUTS
+                        if k in out}
+                if with_loss and 'labels' in batch:
+                    keep['loss'] = _loss(spec, out['logits'], batch)[0]
+                    mesh.all_sum(keep['loss'])
+            return keep
 
     return step

@@ -38,6 +38,7 @@ from lfb_tpu_torch.convert import params_from_jax  # noqa: E402
 from lfb_tpu_torch.models.backbone import Bottleneck  # noqa: E402
 from lfb_tpu_torch.models.spec import build_spec  # noqa: E402
 from lfb_tpu_torch.ops import cuda_bottleneck  # noqa: E402
+from lfb_tpu_torch.utils.profiling import counts  # noqa: E402
 from tests.test_torch_model import TINY  # noqa: E402
 
 B, T, H, W, C, CI = 2, 4, 8, 8, 128, 32
@@ -88,11 +89,12 @@ def test_plain_matches_the_pallas_kernel(interpret, kt, d, b2a_shift):
                           ('w2a', 'b2a', 'w2b', 'b2b', 'w2c', 'b2c')),
         temporal_pad=kt // 2, dilation=d)
     assert ref is not None
-    before = cuda_bottleneck.LAUNCHES
+    before = counts().get('kernel.bottleneck.fwd', 0)
     out = cuda_bottleneck.fused_identity_bottleneck(
         torch.from_numpy(x), *port_layout(p), temporal_pad=kt // 2,
         dilation=d)
-    assert cuda_bottleneck.LAUNCHES == before == 0    # the CPU takes plain
+    # the CPU takes plain
+    assert counts().get('kernel.bottleneck.fwd', 0) == before == 0
     assert out.dtype == torch.float32 and out.shape == x.shape
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)

@@ -29,8 +29,14 @@ torch = pytest.importorskip('torch')
 from lfb_tpu_torch.ops import (cuda_attention, cuda_bottleneck,  # noqa: E402
                                cuda_roi_align, cuda_stem)
 from lfb_tpu_torch.ops.attention import _attention_plain  # noqa: E402
+from lfb_tpu_torch.utils.profiling import counts  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+
+def launches(kernel):
+    """The launch counter of ``kernel`` (``attention.fwd``, ...)."""
+    return counts().get('kernel.' + kernel, 0)
 
 
 @pytest.fixture
@@ -64,9 +70,9 @@ def assert_close(got, ref, bound, floor=1e-30, name=''):
 def test_attention_kernel_matches_plain(dev, dtype, B, Nq, Nk, C):
     q, k, v = (rand((B, n, C), dev, seed, dtype)
                for seed, n in ((0, Nq), (1, Nk), (2, Nk)))
-    before = cuda_attention.LAUNCHES
+    before = launches('attention.fwd')
     got = cuda_attention.fused_attention(q, k, v, scale=C ** -0.5)
-    assert cuda_attention.LAUNCHES == before + 1
+    assert launches('attention.fwd') == before + 1
     bound = 1e-5 if dtype == torch.float32 else 1e-2
     assert_close(got, cuda_attention.attention_plain(q, k, v, C ** -0.5), bound)
     assert_close(got, _attention_plain(q, k, v, scale=C ** -0.5, mask=None,
@@ -107,9 +113,9 @@ ROIS = np.array([[0, 3.0, 5.0, 120.0, 200.0],
 def test_roi_kernel_matches_plain(dev, size, C, pooled):
     fmap = rand((2, size, size, C), dev, seed=size)
     rois = torch.from_numpy(ROIS).to(dev)
-    before = cuda_roi_align.LAUNCHES
+    before = launches('roi_align.fwd')
     got = cuda_roi_align.roi_align_maxpool(fmap, rois, pooled=pooled)
-    assert cuda_roi_align.LAUNCHES == before + 1
+    assert launches('roi_align.fwd') == before + 1
     assert_close(got, cuda_roi_align.roi_align_maxpool_plain(
         fmap, rois, pooled=pooled), 1e-5)
 
@@ -135,9 +141,9 @@ def test_roi_wrapper_refuses_what_the_kernel_does_not_take(dev):
 def test_stem_kernel_matches_plain(dev, dtype, shape, kt):
     x = rand(shape, dev, dtype=dtype)
     w = rand((64, 3, kt, 7, 7), dev, seed=1) * (2 / (kt * 147)) ** 0.5
-    before = cuda_stem.LAUNCHES
+    before = launches('stem.fwd')
     got = cuda_stem.stem_conv(x, w, temporal_pad=kt // 2)
-    assert cuda_stem.LAUNCHES == before + 1
+    assert launches('stem.fwd') == before + 1
     bound = 1e-5 if dtype == torch.float32 else 1e-2
     assert_close(got, cuda_stem.stem_conv_plain(x, w, kt // 2), bound)
 
@@ -190,10 +196,10 @@ def test_attention_bwd_kernel_matches_plain(dev, dtype, B, Nq, Nk, C):
                               dim=-1)
     assert_close(lse, ref_lse, 1e-5)
     delta = (do.float() * out.float()).sum(-1)
-    before = cuda_attention.BWD_LAUNCHES
+    before = launches('attention.bwd')
     got = cuda_attention.fused_attention_bwd(q, k, v, do, lse, delta,
                                              scale=scale)
-    assert cuda_attention.BWD_LAUNCHES == before + 1
+    assert launches('attention.bwd') == before + 1
     ref = cuda_attention.attention_bwd_plain(q, k, v, do, lse, delta, scale)
     # With one key dq and dk are zero up to rounding: hold them to the scale
     # of the O(1) inputs.
@@ -350,10 +356,10 @@ def test_roi_bwd_kernel_matches_plain(dev, size, C, pooled, tie):
         fmap[..., ::2] = 0.0
     rois = torch.from_numpy(BWD_ROIS).to(dev)
     dout = rand((rois.shape[0], C), dev, seed=1)
-    before = cuda_roi_align.BWD_LAUNCHES
+    before = launches('roi_align.bwd')
     got = cuda_roi_align.roi_align_maxpool_bwd(fmap, rois, dout,
                                                pooled=pooled)
-    assert cuda_roi_align.BWD_LAUNCHES == before + 1
+    assert launches('roi_align.bwd') == before + 1
     assert_close(got, cuda_roi_align.roi_align_maxpool_bwd_plain(
         fmap, rois, dout, pooled), 1e-5)
 
@@ -473,9 +479,9 @@ def test_stem_dw_kernel_matches_plain(dev, dtype, B, T, crop, kt):
     x = rand((B, T, crop, crop + 2, 3), dev, dtype=dtype)
     ho, wo = (crop - 1) // 2 + 1, (crop + 1) // 2 + 1
     g = rand((B, T, ho, wo, 64), dev, seed=1, dtype=dtype)
-    before = cuda_stem.DW_LAUNCHES
+    before = launches('stem.dw')
     got = cuda_stem.stem_conv_dw(x, g, kt)
-    assert cuda_stem.DW_LAUNCHES == before + 1
+    assert launches('stem.dw') == before + 1
     assert got.shape == (64, 3, kt, 7, 7) and got.dtype == torch.float32
     assert_close(got, cuda_stem.stem_conv_dw_plain(x, g, kt),
                  1e-4 if dtype == torch.float32 else 1e-2)
@@ -646,10 +652,10 @@ def test_fused_bottleneck_matches_plain(dev, dtype, shape, ci, kt, d,
                                         b2a_shift):
     x = torch.relu(rand(shape, dev, seed=5)).to(dtype)
     p = bottleneck_params(shape[-1], ci, kt, dev, b2a_shift=b2a_shift)
-    before = cuda_bottleneck.LAUNCHES
+    before = launches('bottleneck.fwd')
     got = cuda_bottleneck.fused_identity_bottleneck(
         x, *p, temporal_pad=kt // 2, dilation=d)
-    assert cuda_bottleneck.LAUNCHES == before + 1
+    assert launches('bottleneck.fwd') == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     ref = cuda_bottleneck.fused_identity_bottleneck_plain(
         x, *p, temporal_pad=kt // 2, dilation=d)
@@ -745,9 +751,9 @@ def test_tiny_charades_forward_on_the_card_matches_the_cpu(dev):
                                    dtype=torch.uint8),
              'lfb': torch.randn((2, 4, 2048), generator=g)}
     cpu = forward(spec, params, batch)
-    before = cuda_bottleneck.LAUNCHES
+    before = launches('bottleneck.fwd')
     gpu = forward(spec, {k: v.to(dev) for k, v in params.items()},
                   {k: v.to(dev) for k, v in batch.items()})
-    assert cuda_bottleneck.LAUNCHES == before + 12
+    assert launches('bottleneck.fwd') == before + 12
     for key in ('pool5', 'logits', 'prob'):
         assert_close(gpu[key].cpu(), cpu[key], 1e-4)
