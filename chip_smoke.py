@@ -38,7 +38,9 @@ result):
    zero rows of clip 0: 512 rows a batch).  Each bf16 attention regime
    (res3, res4) logs the kernel's device ms and TFLOP/s beside SDPA's
    device ms, holds the row log-sum-exp to ``torch.logsumexp`` and checks
-   that two calls give bitwise the same out and lse.
+   that two calls give bitwise the same out and lse.  The frozen affine's
+   kernels are held bit for bit, forward and backward, at a main-path site
+   of each variant (:func:`check_affine`).
 3. Hold the full-width model on the card (f32, kernels) against the same
    model on the CPU (f32, plain versions) on one clip: the flagship,
    Charades with the fused bottleneck, and EPIC verb with it.
@@ -367,56 +369,86 @@ KERNELS = {
     'fused_bottleneck': dict(route='cuda',
                              source='lfb_tpu_torch/csrc/fused_bottleneck.cu',
                              replaces='lfb_tpu/ops/pallas_bottleneck.py:170'),
+    # No TPU kernel: XLA fuses the frozen affine into the conv's epilogue.
+    'affine_act': dict(route='cuda', source='lfb_tpu_torch/csrc/affine_act.cu',
+                       replaces=None),
 }
-_NO_BWD = {'stem_conv_dw': 0, 'roi_align_maxpool_bwd': 0, 'attention_bwd': 0}
+_NO_BWD = {'stem_conv_dw': 0, 'roi_align_maxpool_bwd': 0, 'attention_bwd': 0,
+           'affine_act_bwd': 0}
 # R101's identity blocks (2 + 3 + 22 + 2), each one fused launch.
 _FUSED_LAUNCHES = {'fused_bottleneck': 29}
+# Frozen-affine sites of a forward, one affine_act launch each: the stem, 3
+# an unfused block (2a, 2b, 2c with its shortcut) and 1 a non-local block; a
+# fused identity block has none.  R101 has 33 blocks, R50 16, 4 of them
+# projection blocks; both have 5 non-local blocks.
+R101_AFFINE, R50_AFFINE = 1 + 3 * 33 + 5, 1 + 3 * 16 + 5
+FUSED_AFFINE = 1 + 3 * 4 + 5
 # Kernel launches per forward of each phase, and per train step.
 PER_FORWARD = {'A': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 5,
-                     'fused_bottleneck': 0, **_NO_BWD},
+                     'fused_bottleneck': 0, 'affine_act': R101_AFFINE,
+                     **_NO_BWD},
                'B': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 8,
-                     'fused_bottleneck': 0, **_NO_BWD},
+                     'fused_bottleneck': 0, 'affine_act': R101_AFFINE,
+                     **_NO_BWD},
                'B fused': {'stem_conv': 1, 'roi_align_maxpool': 1,
-                           'attention': 8, **_FUSED_LAUNCHES, **_NO_BWD},
+                           'attention': 8, **_FUSED_LAUNCHES,
+                           'affine_act': FUSED_AFFINE, **_NO_BWD},
                'Charades A': {'stem_conv': 1, 'roi_align_maxpool': 0,
-                              'attention': 5, **_FUSED_LAUNCHES, **_NO_BWD},
+                              'attention': 5, **_FUSED_LAUNCHES,
+                              'affine_act': FUSED_AFFINE, **_NO_BWD},
                'Charades B': {'stem_conv': 1, 'roi_align_maxpool': 0,
-                              'attention': 7, **_FUSED_LAUNCHES, **_NO_BWD},
+                              'attention': 7, **_FUSED_LAUNCHES,
+                              'affine_act': FUSED_AFFINE, **_NO_BWD},
                # R50: 5 non-local blocks, 12 identity blocks (2 + 3 + 5 + 2).
                'EPIC verb A': {'stem_conv': 1, 'roi_align_maxpool': 0,
                                'attention': 5, 'fused_bottleneck': 12,
-                               **_NO_BWD},
+                               'affine_act': FUSED_AFFINE, **_NO_BWD},
                'EPIC verb B': {'stem_conv': 1, 'roi_align_maxpool': 0,
                                'attention': 7, 'fused_bottleneck': 12,
-                               **_NO_BWD},
+                               'affine_act': FUSED_AFFINE, **_NO_BWD},
                'EPIC noun B': {'stem_conv': 1, 'roi_align_maxpool': 0,
                                'attention': 7, 'fused_bottleneck': 0,
-                               **_NO_BWD},
+                               'affine_act': R50_AFFINE, **_NO_BWD},
+               # Every affine site's input needs a gradient: one backward
+               # launch a site.
                'train': {'stem_conv': 1, 'stem_conv_dw': 1,
                          'roi_align_maxpool': 1, 'roi_align_maxpool_bwd': 1,
                          'attention': 8, 'attention_bwd': 8,
-                         'fused_bottleneck': 0},
-               # TPU.REMAT 'stage' runs res3 and res4 again in the backward:
-               # their 5 non-local blocks' attention forwards (the stem is
-               # outside the stages, the FBO outside the backbone).
+                         'fused_bottleneck': 0, 'affine_act': R101_AFFINE,
+                         'affine_act_bwd': R101_AFFINE},
+               # TPU.REMAT 'stage' runs res2-res5 again in the backward:
+               # their affine sites, and res3 and res4's 5 non-local blocks'
+               # attention forwards (the stem is outside the stages, the FBO
+               # outside the backbone).
                'train stage': {'stem_conv': 1, 'stem_conv_dw': 1,
                                'roi_align_maxpool': 1,
                                'roi_align_maxpool_bwd': 1, 'attention': 13,
-                               'attention_bwd': 8, 'fused_bottleneck': 0},
+                               'attention_bwd': 8, 'fused_bottleneck': 0,
+                               'affine_act': 2 * R101_AFFINE - 1,
+                               'affine_act_bwd': R101_AFFINE},
                # Charades stage 2 (MODEL.FREEZE_BACKBONE): the backbone
-               # trains nothing, so 'stage' recomputes nothing; the 2 FBO
-               # layers take the only attention backward.
+               # trains nothing, so 'stage' recomputes nothing and no affine
+               # site takes a backward; the 2 FBO layers take the only
+               # attention backward.
                'Charades train': {'stem_conv': 1, 'stem_conv_dw': 0,
                                   'roi_align_maxpool': 0,
                                   'roi_align_maxpool_bwd': 0, 'attention': 7,
-                                  'attention_bwd': 2, 'fused_bottleneck': 0},
+                                  'attention_bwd': 2, 'fused_bottleneck': 0,
+                                  'affine_act': R101_AFFINE,
+                                  'affine_act_bwd': 0},
                # EPIC verb stage 2 (TPU.REMAT ''): R50's 5 non-local blocks
                # and the 2 FBO layers, forward and backward.
                'EPIC verb train': {'stem_conv': 1, 'stem_conv_dw': 1,
                                    'roi_align_maxpool': 0,
                                    'roi_align_maxpool_bwd': 0,
                                    'attention': 7, 'attention_bwd': 7,
-                                   'fused_bottleneck': 0}}
+                                   'fused_bottleneck': 0,
+                                   'affine_act': R50_AFFINE,
+                                   'affine_act_bwd': R50_AFFINE}}
+# True BN (phase 15) normalizes with separate operations: no affine launch.
+_NO_AFFINE = {'affine_act': 0, 'affine_act_bwd': 0}
+PER_FORWARD['true-BN B'] = {**PER_FORWARD['B'], **_NO_AFFINE}
+PER_FORWARD['true-BN train'] = {**PER_FORWARD['train'], **_NO_AFFINE}
 # R101's identity blocks at crop 256, B = 16: (label, x shape, Ci, kT,
 # dilation, launches per flagship forward, per Charades forward).  res5 is
 # dilated (d 2) in the flagship and not in Charades.
@@ -927,7 +959,109 @@ def check_kernels(iters=TIMING_ITERS):
             ', '.join(backends))), parts)
     del q, k, v
     results['fused_bottleneck'] = check_bottleneck(g, iters)
+    results['affine_act'] = check_affine(g, iters)
     return results
+
+
+def check_affine(g, iters):
+    """The frozen affine's kernels (``ops/cuda_affine.py``, bf16) against
+    their plain versions, today's composition of PyTorch passes, bit for
+    bit, timed in turns with it, at the main path's sites of each variant:
+    res2's 2c + ReLU with its identity shortcut and with a projection
+    block's affine shortcut (B x 32 x 64 x 64 x 256, crop 256), the stem's
+    affine + ReLU (B x 32 x 128 x 128 x 64) and a res3 non-local block's
+    affine + residual, no ReLU (B x 16 x 32 x 32 x 512); then the backward
+    of the three shortcuts at the train crop, each writing what the main
+    path's autograd asks of it.  Bound: the bytes read and written once
+    over 3.35 TB/s.  Returns the identity 2c's forward row."""
+    import torch
+    from lfb_tpu_torch.ops import cuda_affine as ca
+    dev = g.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def bitwise(label, got, want):
+        view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        for a, w in zip(got, want, strict=True):
+            if (a is None) != (w is None) or (a is not None and not torch.equal(
+                    a.view(view[a.dtype]), w.view(view[w.dtype]))):
+                raise AssertionError('affine_act {}: kernel and plain '
+                                     'differ'.format(label))
+
+    def operands(shape, shortcut):
+        """x (or dy), scale, bias, residual, its scale and its bias."""
+        c = shape[-1]
+        x = randn(*shape).to(torch.bfloat16)
+        r = None if shortcut == 'none' else randn(*shape).to(torch.bfloat16)
+        affine = shortcut == 'affine'
+        return (x, 1 + 0.1 * randn(c), 0.1 * randn(c), r,
+                1 + 0.1 * randn(c) if affine else None,
+                0.1 * randn(c) if affine else None)
+
+    def log_row(label, r, bound_ms):
+        log('  affine_act {}: device {:.4f} ms against the bound {:.4f} ms '
+            '({:.1f}% of 3.35 TB/s); the composition {:.4f} ms ({:.2f}x); {}'
+            .format(label, r['device_ms'], bound_ms,
+                    100 * bound_ms / r['device_ms'], r['library_device_ms'],
+                    r['library_device_ms'] / r['device_ms'], card_line()))
+
+    rows = {}
+    for label, shape, shortcut, relu in (
+            ('res2 2c + shortcut + ReLU', (B, 32, 64, 64, 256), 'identity',
+             True),
+            ('res2 projection 2c + branch1 + ReLU', (B, 32, 64, 64, 256),
+             'affine', True),
+            ('stem + ReLU', (B, 32, 128, 128, 64), 'none', True),
+            ('res3 non-local + residual', (B, 16, 32, 32, 512), 'identity',
+             False)):
+        x, s, b, r, rs, rb = operands(shape, shortcut)
+
+        def kernel():
+            return ca.affine_act_fwd(x, s, b, relu, r, rs, rb)
+
+        def plain():
+            return ca.affine_act_plain(x, s, b, relu, r, rs, rb)
+
+        timed_row = compare('affine_act {} x{} bf16'.format(label, shape),
+                            kernel, plain, 0.0, iters, plain, 'composition')
+        bitwise(label, (kernel(),), (plain(),))
+        rows[label] = add_bound(dict(
+            timed_row, tolerance='0 (bit for bit)',
+            library='the PyTorch composition it replaces'),
+            [least_ms(0, nbytes(x) * (2 + (r is not None)), 'bfloat16')])
+        log_row(label, timed_row, rows[label]['bound_ms'])
+        del x, r
+    # The backward: dx, and the shortcut's gradient (g through the ReLU for
+    # an identity shortcut, g * residual_scale for an affine one; without a
+    # ReLU it is dy itself, and the kernel writes dx alone).
+    for label, shape, shortcut, relu, outs in (
+            ('res2 2c + shortcut + ReLU', (B, 32, 56, 56, 256), 'identity',
+             True, (0, 1)),
+            ('res2 projection 2c + branch1 + ReLU', (B, 32, 56, 56, 256),
+             'affine', True, (0, 2)),
+            ('res3 non-local + residual', (B, 16, 28, 28, 512), 'identity',
+             False, (0,))):
+        dy, s, _, _, rs, _ = operands(shape, shortcut)
+        y = torch.relu(randn(*shape)).to(torch.bfloat16) if relu else None
+
+        def kernel():
+            got = ca.affine_act_bwd(dy, y, s, rs,
+                                    need_g=shortcut != 'affine')
+            return tuple(got[i] for i in outs)
+
+        def plain():
+            want = ca.affine_act_bwd_plain(dy, y, s, rs)
+            return tuple(want[i] for i in outs)
+
+        timed_row = compare(
+            'affine_act_bwd {} x{} bf16 (train shape)'.format(label, shape),
+            kernel, plain, 0.0, iters, plain, 'composition')
+        bitwise('backward ' + label, kernel(), plain())
+        log_row('backward ' + label, timed_row, least_ms(
+            0, nbytes(dy) * (1 + relu + len(outs)), 'bfloat16')[0])
+        del dy, y
+    return rows['res2 2c + shortcut + ReLU']
 
 
 def log_stem_rate(ms, out_elems, kt):
@@ -1238,7 +1372,9 @@ COUNTERS = {'fused_bottleneck': 'kernel.bottleneck.fwd',
             'roi_align_maxpool': 'kernel.roi_align.fwd',
             'roi_align_maxpool_bwd': 'kernel.roi_align.bwd',
             'attention': 'kernel.attention.fwd',
-            'attention_bwd': 'kernel.attention.bwd'}
+            'attention_bwd': 'kernel.attention.bwd',
+            'affine_act': 'kernel.affine.fwd',
+            'affine_act_bwd': 'kernel.affine.bwd'}
 _LAUNCHES_AT_RESET = {}
 
 
@@ -3240,7 +3376,7 @@ def true_bn_phase():
     torch.cuda.reset_peak_memory_stats()
     losses, ms, launches, state = train_steps(
         'phase 15 (b)', spec, cfg.SOLVER, None, batches, params,
-        PER_FORWARD['train'])
+        PER_FORWARD['true-BN train'])
     all_launches.append(launches)
     unmoved = [k for k, v in before.items() if torch.equal(params[k], v)]
     if unmoved or not state.momentum['res2_0_branch2a_bn_s'].any():
@@ -3249,7 +3385,7 @@ def true_bn_phase():
                                  unmoved[:3]))
     log("phase 15 (b) true BN, TPU.REMAT 'stage' (off under true BN): "
         'launches per step {} (remat would run 13 attention forwards); the '
-        '{} running statistics moved'.format(PER_FORWARD['train'],
+        '{} running statistics moved'.format(PER_FORWARD['true-BN train'],
                                              len(before)))
     step_ms, peak = log_steps('phase 15 (b) true-BN train at B = {}, crop '
                               '{}, bf16'.format(REMAT_B, spec.crop_size), ms,
@@ -3262,7 +3398,8 @@ def true_bn_phase():
     new = compute_precise_bn_stats(spec, params, timed(batches, stamps),
                                    PRECISE_BN_ITERS)
     launches = read_launches()
-    want = {k: n * PRECISE_BN_ITERS for k, n in PER_FORWARD['B'].items()}
+    want = {k: n * PRECISE_BN_ITERS
+            for k, n in PER_FORWARD['true-BN B'].items()}
     iter_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     if launches != want or len(iter_ms) != PRECISE_BN_ITERS:
         raise AssertionError('phase 15 (c): launches {} != {}'.format(
@@ -3278,7 +3415,7 @@ def true_bn_phase():
                             'test')
         probs[dtype] = make_eval_step(spec_e)(new, batch)['prob'].float()
     launches = read_launches()
-    want = {k: 2 * n for k, n in PER_FORWARD['B'].items()}
+    want = {k: 2 * n for k, n in PER_FORWARD['true-BN B'].items()}
     if launches != want:
         raise AssertionError('phase 15 (c) eval: launches {} != {}'.format(
             launches, want))
@@ -3353,9 +3490,9 @@ def true_bn_reference_check():
     reset_launches()
     card = one_step('cuda', spec, cfg.SOLVER, params, batch)
     launches = read_launches()
-    if launches != PER_FORWARD['train']:
+    if launches != PER_FORWARD['true-BN train']:
         raise AssertionError('phase 15 (a): launches {} != {}'.format(
-            launches, PER_FORWARD['train']))
+            launches, PER_FORWARD['true-BN train']))
     host = one_step('cpu', spec, cfg.SOLVER, params, batch)
     # How far one f32 rounding step of the weights moves the card's own
     # momentum: the floor under the card-vs-CPU gaps.
@@ -3417,8 +3554,9 @@ def true_bn_rank(rank, store, results):
         params = true_bn_params(spec, dev)
         if nudge:
             params = nudged(params)
-        losses, ms, _, state = train_steps(label, spec, cfg.SOLVER, None, feed,
-                                           params, PER_FORWARD['train'])
+        losses, ms, _, state = train_steps(
+            label, spec, cfg.SOLVER, None, feed, params,
+            PER_FORWARD['true-BN train'])
         cpu = lambda d: {k: v.cpu() for k, v in d.items()}  # noqa: E731
         return (losses, cpu({k: params[k] for k in state.momentum}),
                 cpu(state.momentum), cpu(running_stats(params)), ms)
@@ -3561,7 +3699,8 @@ def parity_dryrun_phase():
     if ('DRYRUN SUMMARY: {0}/{0}'.format(len(names)) not in text
             or len(parity_lines) != len(names) or len(names) != 5
             or not all(launches[k] > 0 for k in ('stem_conv', 'attention',
-                                                  'roi_align_maxpool'))
+                                                  'roi_align_maxpool',
+                                                  'affine_act'))
             or any(launches[k] for k in _NO_BWD)
             or launches['fused_bottleneck']):
         raise AssertionError('phase 16: {} PARITY lines, launches {}'.format(

@@ -12,7 +12,10 @@ The modules hold no weights: each ``forward`` takes the model's flat
 parameter mapping ``p`` and reads its blobs by name.  Activations are NDHWC.
 ``train`` changes nothing in frozen-affine mode; with true BN it normalizes
 with batch statistics and records them in ``bn_updates``
-(``layers.apply_norm``).  With ``use_pallas_bottleneck``,
+(``layers.apply_norm``).  In frozen-affine mode each norm runs with what
+follows it (the ReLU; in 2c the shortcut, itself normed in a projection
+block, and the ReLU; in a non-local block the residual) as one pass
+(``layers.norm_act``, ``ops/cuda_affine.py``).  With ``use_pallas_bottleneck``,
 inference runs each identity block as one fused kernel
 (``ops/cuda_bottleneck.py``).
 
@@ -44,11 +47,10 @@ from typing import Mapping
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from lfb_tpu_torch.models.layers import (Params, apply_norm, init_conv,
-                                         init_norm)
+from lfb_tpu_torch.models.layers import (Params, init_conv, init_norm,
+                                         norm_act)
 from lfb_tpu_torch.models.spec import STAGE_DIMS, ModelSpec
 from lfb_tpu_torch.ops.attention import scaled_softmax_attention
 from lfb_tpu_torch.ops.conv3d import conv1x1, conv3d
@@ -159,28 +161,27 @@ class Bottleneck(nn.Module):
                     x, *folded, temporal_pad=self.use_temp_conv,
                     dilation=self.dilation)
 
-        def norm(name, h):
-            return apply_norm(p, pre + name, h, use_affine=spec.use_affine,
-                              epsilon=spec.bn_epsilon, train=train,
-                              bn_updates=bn_updates)
+        def norm_relu(name, h, **shortcut):
+            return norm_act(p, pre + name, h, use_affine=spec.use_affine,
+                            epsilon=spec.bn_epsilon, train=train,
+                            bn_updates=bn_updates, relu=True, **shortcut)
 
         h = conv3d(x, p[pre + '_branch2a_w'],
                    strides=(self.temp_stride, 1, 1),
                    padding=(self.use_temp_conv, 0, 0))
-        h = F.relu(norm('_branch2a_bn', h))
+        h = norm_relu('_branch2a_bn', h)
         d = self.dilation
         h = conv3d(h, p[pre + '_branch2b_w'],
                    strides=(1, self.stride, self.stride), padding=(0, d, d),
                    dilation=(1, d, d), groups=spec.groups)
-        h = F.relu(norm('_branch2b_bn', h))
-        h = norm('_branch2c_bn', conv3d(h, p[pre + '_branch2c_w']))
+        h = norm_relu('_branch2b_bn', h)
+        h = conv3d(h, p[pre + '_branch2c_w'])
         if self.has_branch1:
             sc = conv3d(x, p[pre + '_branch1_w'],
                         strides=(self.temp_stride, self.stride, self.stride))
-            sc = norm('_branch1_bn', sc)
-        else:
-            sc = x
-        return F.relu(h + sc)
+            return norm_relu('_branch2c_bn', h, residual=sc,
+                             residual_name=pre + '_branch1_bn')
+        return norm_relu('_branch2c_bn', h, residual=x)
 
 
 class NonLocal(nn.Module):
@@ -205,11 +206,19 @@ class NonLocal(nn.Module):
             x_nl = x.reshape(B * g, T // g, H, W, C)
         else:
             x_nl = x
-        out = x_nl + self._attend(p, x_nl, train, bn_updates)
+        out = self._attend(p, x_nl)
+        nl = self.spec.nl
+        if nl.use_bn or nl.use_affine:
+            out = norm_act(p, self.prefix + '_bn', out,
+                           use_affine=nl.use_affine, epsilon=nl.bn_epsilon,
+                           train=train, bn_updates=bn_updates, residual=x_nl)
+        else:
+            out = x_nl + out
         return out.reshape(B, T, H, W, C) if g > 1 else out
 
-    def _attend(self, p: P, x: torch.Tensor, train: bool,
-                bn_updates: dict | None) -> torch.Tensor:
+    def _attend(self, p: P, x: torch.Tensor) -> torch.Tensor:
+        """The attention branch up to its output conv (the norm and the
+        residual follow in :meth:`forward`)."""
         nl, pre = self.spec.nl, self.prefix
         B, T, H, W, C = x.shape
         dim_inner = p[pre + '_theta_w'].shape[0]
@@ -223,13 +232,8 @@ class NonLocal(nn.Module):
             scale=dim_inner ** -0.5 if (nl.use_softmax and nl.use_scale)
             else None,
             use_softmax=nl.use_softmax)
-        out = conv1x1(att.reshape(B, T, H, W, dim_inner), p[pre + '_out_w'],
-                      p.get(pre + '_out_b'))
-        if nl.use_bn or nl.use_affine:
-            out = apply_norm(p, pre + '_bn', out, use_affine=nl.use_affine,
-                             epsilon=nl.bn_epsilon, train=train,
-                             bn_updates=bn_updates)
-        return out
+        return conv1x1(att.reshape(B, T, H, W, dim_inner), p[pre + '_out_w'],
+                       p.get(pre + '_out_b'))
 
 
 class Backbone(nn.Module):
@@ -272,10 +276,10 @@ class Backbone(nn.Module):
         spec = self.spec
         with span('lfb.model.stem'):
             h = StemConv.apply(x, p['conv1_w'], self.temporal_pad)
-            h = apply_norm(p, 'res_conv1_bn', h, use_affine=spec.use_affine,
-                           epsilon=spec.bn_epsilon, train=train,
-                           bn_updates=bn_updates)
-            h = max_pool_3d(F.relu(h), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+            h = norm_act(p, 'res_conv1_bn', h, use_affine=spec.use_affine,
+                         epsilon=spec.bn_epsilon, train=train,
+                         bn_updates=bn_updates, relu=True)
+            h = max_pool_3d(h, (1, 3, 3), (1, 2, 2), (0, 1, 1))
         # As ``lfb_tpu/models/backbone.py:143-148``: no remat in true-BN
         # training, whose statistics flow out through ``bn_updates``.
         remat = spec.remat if train and spec.use_affine else ''

@@ -17,8 +17,9 @@ import math
 from typing import Dict, Mapping, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from lfb_tpu_torch.ops.affine import affine_nd
+from lfb_tpu_torch.ops.cuda_affine import affine_act
 from lfb_tpu_torch.parallel import mesh
 
 Params = Dict[str, torch.Tensor]
@@ -64,21 +65,20 @@ def init_norm(params: Params, name: str, dim: int, *, use_affine: bool,
 
 
 def apply_norm(params: Mapping[str, torch.Tensor], name: str, x: torch.Tensor,
-               *, use_affine: bool, epsilon: float, train: bool = False,
+               *, epsilon: float, train: bool = False,
                bn_updates: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
                | None = None) -> torch.Tensor:
-    """Frozen affine (reference AffineNd) or SpatialBN over channels-last
-    ``x`` (``lfb_tpu/models/layers.py:84-110``).
+    """SpatialBN over channels-last ``x``, the true-BN branch of
+    ``lfb_tpu/models/layers.py:84-110`` (its frozen affine is
+    :func:`norm_act`'s).
 
-    In training with true BN the batch's per-channel mean and population
-    variance normalize (:class:`BatchNorm`; over every rank of a process
-    group), and the (mean, var) pair is recorded under ``name`` in
-    ``bn_updates`` for the running-statistic update and precise BN.
-    Otherwise the running statistics ``_rm`` / ``_riv`` do."""
+    In training the batch's per-channel mean and population variance
+    normalize (:class:`BatchNorm`; over every rank of a process group), and
+    the (mean, var) pair is recorded under ``name`` in ``bn_updates`` for the
+    running-statistic update and precise BN.  Otherwise the running
+    statistics ``_rm`` / ``_riv`` do."""
     scale = params[name + '_s']
     bias = params[name + '_b']
-    if use_affine:
-        return affine_nd(x, scale, bias)
     if train:
         y, mean, var = BatchNorm.apply(x, scale, bias, epsilon)
         if bn_updates is not None:
@@ -86,6 +86,39 @@ def apply_norm(params: Mapping[str, torch.Tensor], name: str, x: torch.Tensor,
         return y
     inv = torch.rsqrt(params[name + '_riv'] + epsilon) * scale
     return ((x.float() - params[name + '_rm']) * inv + bias).to(x.dtype)
+
+
+def norm_act(params: Mapping[str, torch.Tensor], name: str, x: torch.Tensor,
+             *, use_affine: bool, epsilon: float, train: bool = False,
+             bn_updates: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+             | None = None, relu: bool = False,
+             residual: torch.Tensor | None = None,
+             residual_name: str | None = None) -> torch.Tensor:
+    """``act(norm(x) [+ residual | + norm(residual)])``: the norm of ``x``
+    (named ``name``), the residual added (itself normed as ``residual_name``
+    when that is given), then ReLU with ``relu``; the port's one entry point
+    for both norms of ``lfb_tpu/models/layers.py:84-110``.  The frozen
+    affine (reference AffineNd) runs it as one
+    ``ops.cuda_affine.affine_act`` (one kernel on the card, the same
+    numbers); true BN as :func:`apply_norm` and separate operations."""
+    if use_affine:
+        return affine_act(
+            x, params[name + '_s'], params[name + '_b'], relu=relu,
+            residual=residual,
+            residual_scale=None if residual_name is None
+            else params[residual_name + '_s'],
+            residual_bias=None if residual_name is None
+            else params[residual_name + '_b'])
+
+    def norm(n, h):
+        return apply_norm(params, n, h, epsilon=epsilon, train=train,
+                          bn_updates=bn_updates)
+
+    y = norm(name, x)
+    if residual is not None:
+        y = y + (residual if residual_name is None
+                 else norm(residual_name, residual))
+    return F.relu(y) if relu else y
 
 
 class BatchNorm(torch.autograd.Function):

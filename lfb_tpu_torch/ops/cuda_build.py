@@ -28,8 +28,13 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # Launcher name -> argtypes; every launcher returns a cudaError_t (int).
 SIGNATURES = {
+    'lfb_affine_act_f32': (_P,) * 7 + (_L, _I, _I, _I, _P),
+    'lfb_affine_act_bf16': (_P,) * 7 + (_L, _I, _I, _I, _P),
+    'lfb_affine_act_bwd_f32': (_P,) * 7 + (_L, _I, _I, _P),
+    'lfb_affine_act_bwd_bf16': (_P,) * 7 + (_L, _I, _I, _P),
     'lfb_attention_f32': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     'lfb_attention_bf16': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     'lfb_attention_bwd_f32': (_P,) * 9 + (_I, _I, _I, _I, _F, _P),

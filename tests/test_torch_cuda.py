@@ -3,7 +3,9 @@ versions on the card, at edge shapes the flagship does not reach (ragged
 query/key tiles, small and non-128 channel counts, crops 224, 256 and 320,
 odd sizes, border, shuffled, degenerate and exactly tied boxes), plus the
 inputs each wrapper must refuse, and a tiny whole-model forward and train
-step on the card against the CPU.
+step on the card against the CPU.  The frozen affine's kernels
+(``ops/cuda_affine.py``) are held to their plain versions, PyTorch's own
+passes on the card, bit for bit.
 
 These tests need a CUDA device: they carry the ``cuda`` marker and skip
 without one.  On a GPU machine, from the root of a checkout:
@@ -20,6 +22,8 @@ bound of the working type, as ``chip_smoke.py`` holds it; stem dW in f32:
 (three chained sums of at most 6,144 products, in other orders), 1e-2 in
 bf16 (both sides round h1, h2 and the output to bf16).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -757,3 +761,153 @@ def test_tiny_charades_forward_on_the_card_matches_the_cpu(dev):
     assert launches('bottleneck.fwd') == before + 12
     for key in ('pool5', 'logits', 'prob'):
         assert_close(gpu[key].cpu(), cpu[key], 1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# The frozen affine with its shortcut and ReLU: bit for bit
+# --------------------------------------------------------------------------- #
+
+AFFINE_SHORTCUTS = ('none', 'identity', 'affine')
+
+
+def with_specials(shape, dev, seed, dtype):
+    """3 N(0, 1) with NaN, +-inf, +-0, tiny values and bf16's largest
+    scattered in, in ``dtype``."""
+    x = rand(shape, dev, seed) * 3
+    flat = x.view(-1)
+    values = torch.tensor([float('nan'), float('inf'), -float('inf'), 0.0,
+                           -0.0, 1e-30, -1e-30, 65504.0], device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    picks = torch.randperm(flat.numel(), generator=g, device=dev)
+    flat[picks[:len(values)]] = values[:flat.numel()]
+    return x.to(dtype)
+
+
+def same_bits(got, want, name=''):
+    torch.cuda.synchronize()
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    assert torch.equal(got.view(view[got.dtype]),
+                       want.view(view[want.dtype])), name
+
+
+def affine_operands(shape, shortcut, dtype, dev):
+    c = shape[-1]
+    x = with_specials(shape, dev, 0, dtype)
+    s, b, rs, rb = (rand((c,), dev, seed) for seed in (1, 2, 4, 5))
+    s[0] = -0.0
+    r = None if shortcut == 'none' else with_specials(shape, dev, 3, dtype)
+    if shortcut != 'affine':
+        rs = rb = None
+    return x, s, b, r, rs, rb
+
+
+# C 64 and 2048 (the model's), 13 and 1 (not a multiple of 8: the scalar
+# kernel), rows not a multiple of a CTA's, and 2 x 8 x 64 x 64 x 256, which
+# takes several turns of the grid-stride loop.
+AFFINE_SHAPES = [(2, 3, 5, 7, 64), (3, 1, 2, 5, 2048), (5, 11, 13), (9, 1),
+                 (1000, 24), (2, 8, 64, 64, 256)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('relu', [True, False])
+@pytest.mark.parametrize('shortcut', AFFINE_SHORTCUTS)
+@pytest.mark.parametrize('shape', AFFINE_SHAPES)
+def test_affine_kernels_match_plain_bitwise(dev, shape, shortcut, relu,
+                                            dtype):
+    from lfb_tpu_torch.ops import cuda_affine as ca
+    x, s, b, r, rs, rb = affine_operands(shape, shortcut, dtype, dev)
+    before = launches('affine.fwd'), launches('affine.bwd')
+    y = ca.affine_act_fwd(x, s, b, relu, r, rs, rb)
+    same_bits(y, ca.affine_act_plain(x, s, b, relu, r, rs, rb), 'y')
+    dy = with_specials(shape, dev, 6, dtype)
+    dy.view(-1)[::7] = 0.0
+    saved = y if relu else None
+    got = ca.affine_act_bwd(dy, saved, s, rs)
+    want = ca.affine_act_bwd_plain(dy, saved, s, rs)
+    for name, a, w in zip(('dx', 'g', 'dr'), got, want, strict=True):
+        assert (a is None) == (w is None), name
+        if a is not None:
+            same_bits(a, w, name)
+    assert (launches('affine.fwd'), launches('affine.bwd')) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shortcut', AFFINE_SHORTCUTS)
+def test_affine_op_gradients_match_the_composition_bitwise(dev, shortcut,
+                                                           dtype):
+    """Through autograd: the op's gradients of x and the residual against
+    the composition's (``affine_nd``, ``+``, ``F.relu``) on the card."""
+    from lfb_tpu_torch.ops import cuda_affine as ca
+    x, s, b, r, rs, rb = affine_operands((4, 6, 6, 64), shortcut, dtype, dev)
+    dy = with_specials((4, 6, 6, 64), dev, 6, dtype)
+    grads = []
+    for fn in (ca.affine_act_plain, lambda *a: ca.affine_act(
+            a[0], a[1], a[2], relu=a[3], residual=a[4], residual_scale=a[5],
+            residual_bias=a[6])):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in ([x] if r is None else [x, r])]
+        y = fn(leaves[0], s, b, True, leaves[1] if r is not None else None,
+               rs, rb)
+        grads.append(torch.autograd.grad(y, leaves, dy))
+    for want, got in zip(*grads, strict=True):
+        same_bits(got, want)
+
+
+def test_affine_kernels_take_an_unaligned_input(dev):
+    """x and the residual 2 bytes off 16: the scalar kernels, same bits."""
+    from lfb_tpu_torch.ops import cuda_affine as ca
+    shape = (3, 5, 64)
+    n = math.prod(shape)
+    x, r = (with_specials((n + 1,), dev, seed, torch.bfloat16)[1:].view(shape)
+            for seed in (0, 3))
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    s, b = rand((64,), dev, 1), rand((64,), dev, 2)
+    y = ca.affine_act_fwd(x, s, b, True, r)
+    same_bits(y, ca.affine_act_plain(x, s, b, True, r))
+    for a, w in zip(ca.affine_act_bwd(r, y, s), ca.affine_act_bwd_plain(r, y, s)):
+        if w is not None:
+            same_bits(a, w)
+
+
+def test_affine_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from lfb_tpu_torch.ops import cuda_affine as ca
+    x = rand((4, 64), dev).to(torch.bfloat16)
+    s, b = rand((64,), dev, 1), rand((64,), dev, 2)
+    for args in [(x.half(), s, b, True),                         # float16
+                 (x, s.double(), b, True),                       # f64 scale
+                 (x, s[:32], b, True),                           # short scale
+                 (x, s.cpu(), b, True),                          # on the CPU
+                 (x.t(), rand((4,), dev), rand((4,), dev), True),  # strided
+                 (x, s, b, True, x[:2]),                         # residual
+                 (x, s, b, True, x.float()),
+                 (x, s, b, True, x, s, None)]:                   # no bias
+        with pytest.raises(ValueError):
+            ca.affine_act_fwd(*args)
+
+
+@pytest.mark.parametrize('fused', [False, True])
+def test_r101_forward_launches_the_affine_kernel_once_a_site(dev, fused):
+    """An R101 backbone forward (bf16) launches the kernel once per frozen
+    affine: the stem, three a bottleneck block (none in a fused identity
+    block) and one a non-local block."""
+    from lfb_tpu_torch.config import flagship_cfg
+    from lfb_tpu_torch.models.backbone import Backbone
+    from lfb_tpu_torch.models.model import init_params
+    from lfb_tpu_torch.models.spec import build_spec
+    cfg = flagship_cfg({'TEST.VIDEO_LENGTH': 8, 'TEST.CROP_SIZE': 64,
+                        'LFB.WINDOW_SIZE': 4, 'NUM_GPUS': 1,
+                        'TPU.PALLAS_BOTTLENECK': fused})
+    spec = build_spec(cfg, 'test')
+    assert sum(spec.block_counts) == 33
+    assert spec.use_pallas_bottleneck == fused
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(0))
+    x = rand((2, 8, 64, 64, 3), dev).to(torch.bfloat16)
+    before = launches('affine.fwd')
+    with torch.no_grad():
+        Backbone(spec)(params, x)
+    blocks = 4 if fused else sum(spec.block_counts)
+    non_local = sum(len(idx) for idx in spec.nl_blocks.values())
+    assert non_local > 0
+    assert launches('affine.fwd') - before == 1 + 3 * blocks + non_local

@@ -26,7 +26,7 @@ from lfb_tpu.ops.pooling import max_pool_2d as jax_max_pool_2d  # noqa: E402
 from lfb_tpu.ops.pooling import max_pool_3d as jax_max_pool_3d  # noqa: E402
 from lfb_tpu.ops.roi_align import roi_align as jax_roi_align  # noqa: E402
 from lfb_tpu.train.checkpoints import tpu_to_c2  # noqa: E402
-from lfb_tpu_torch.models.layers import apply_norm, layer_norm  # noqa: E402
+from lfb_tpu_torch.models.layers import layer_norm, norm_act  # noqa: E402
 from lfb_tpu_torch.ops import cuda_attention, cuda_roi_align  # noqa: E402
 from lfb_tpu_torch.ops.attention import scaled_softmax_attention  # noqa: E402
 from lfb_tpu_torch.ops.conv3d import conv1x1, conv3d  # noqa: E402
@@ -242,8 +242,8 @@ def test_apply_norm_inference_matches_lfb_tpu(use_affine):
     ref = jax_apply_norm({k: jnp.asarray(v) for k, v in p.items()}, 'n',
                          jnp.asarray(x), use_affine=use_affine, train=False,
                          epsilon=1e-5, bn_updates=None)
-    port = apply_norm({k: t(v) for k, v in p.items()}, 'n', t(x),
-                      use_affine=use_affine, epsilon=1e-5)
+    port = norm_act({k: t(v) for k, v in p.items()}, 'n', t(x),
+                    use_affine=use_affine, epsilon=1e-5)
     close(port, ref, 1e-5)
 
 

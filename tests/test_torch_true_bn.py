@@ -149,8 +149,8 @@ def test_apply_norm_in_training_matches_lfb_tpu(dtype):
     ts = torch.from_numpy(scale).requires_grad_(True)
     tb = torch.from_numpy(bias).requires_grad_(True)
     updates = {}
-    y = apply_norm({'n_bn_s': ts, 'n_bn_b': tb}, 'n_bn', tx, use_affine=False,
-                   epsilon=1e-5, train=True, bn_updates=updates)
+    y = apply_norm({'n_bn_s': ts, 'n_bn_b': tb}, 'n_bn', tx, epsilon=1e-5,
+                   train=True, bn_updates=updates)
     (y.float() * torch.from_numpy(weight)).sum().backward()
     assert y.dtype == tx.dtype and list(updates) == list(jupdates) == ['n_bn']
     close(to_np(y), np.asarray(jy, np.float32),
