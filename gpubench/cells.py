@@ -19,7 +19,10 @@ Afterwards the reference runs the three steps from the same weights,
 batches and draws.
 
 Which numbers a cell compares, and their limits, are its
-``limits/<cell>.json``.
+``limits/<cell>.json``.  What belongs to the configuration's dataset (the
+bank's tables, a batch's keys, the windows, the loss) and to its
+reference network (the architecture, the launch lists) comes from the
+modules its file names (:mod:`gpubench.layout`).
 """
 
 from __future__ import annotations
@@ -35,8 +38,6 @@ from gpubench import bank as bankmod
 from gpubench import layout, seeds, traffic, weights
 from gpubench.cost import flops as flopcount
 from gpubench.cost import kernels as kcost
-from gpubench.reference import bank as refbank
-from gpubench.reference import model as M
 from gpubench.reference import train as reftrain
 
 REFERENCE_BLOCK = 4          # clips through the reference's backbone at once
@@ -88,7 +89,8 @@ def leaf_gaps(got: Dict[str, float], ref: Dict[str, float],
 
 
 class Driver:
-    """What both kinds share: the config, weights, bank and batches."""
+    """What both kinds share: the config, weights, bank and batches, the
+    dataset's two sides and the reference network."""
 
     def __init__(self, cell: layout.Cell, seed: int, device):
         self.cell, self.seed = cell, seed
@@ -96,6 +98,10 @@ class Driver:
         self.model = cell.config['model']
         self.split = cell.traffic['split']
         self.cfg = port_config(cell)
+        self.dataset = cell.dataset
+        self.ref_dataset = cell.reference_dataset
+        self.net = cell.network
+        self.launches = cell.launches
         self.dispatch_s = 0.0
         self.calls = 0
         self.marks = []
@@ -109,18 +115,19 @@ class Driver:
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
 
-    def weights(self, arch: M.Arch) -> Dict[str, torch.Tensor]:
-        return weights.draw(M.param_specs(arch),
+    def weights(self, arch) -> Dict[str, torch.Tensor]:
+        return weights.draw(self.net.param_specs(arch),
                             seeds.derive(self.seed, 'weights'), self.device)
 
     def make_bank(self):
         self.bank = bankmod.build(
-            self.model, self.cell.config['bank'][self.cell.traffic['bank']],
+            self.dataset, self.model,
+            self.cell.config['bank'][self.cell.traffic['bank']],
             self.seed, self.device)
 
     def batch(self, index: int, labels: bool):
-        return traffic.make_batch(self.cell.config, self.split, self.bank,
-                                  self.seed, index, self.device,
+        return traffic.make_batch(self.dataset, self.cell.config, self.split,
+                                  self.bank, self.seed, index, self.device,
                                   labels=labels)
 
     def timed(self, fn, *args):
@@ -131,28 +138,15 @@ class Driver:
         return out
 
     def window_rows(self, host, generator) -> torch.Tensor:
-        """The reference's bank rows of every row of a batch (AVA's drawn
-        from ``generator``, as the program's are)."""
-        m, t = self.model, self.bank.tables
-        if self.bank.kind == 'ava':
-            meta = torch.from_numpy(host['meta']).to(self.device)
-            return refbank.ava_rows(
-                t['table'], t['counts'], meta[:, 0], meta[:, 1],
-                zero=self.bank.zero, window=m['LFB.WINDOW_SIZE'],
-                k=m['AVA.LFB_MAX_NUM_FEAT_PER_STEP'], generator=generator)
-        video = torch.from_numpy(host['video']).to(self.device)
-        center = torch.from_numpy(host['center']).to(self.device)
-        return refbank.frame_rows(
-            t['frame_ids'], t['rows'], video, center, zero=self.bank.zero,
-            window=m['LFB.WINDOW_SIZE'],
-            clips_per_second=m['CHARADES.LFB_CLIPS_PER_SECOND'],
-            fps=m['CHARADES.FPS'])
+        """The reference's bank rows of every row of a batch (drawn from
+        ``generator`` where the program's are drawn)."""
+        return self.ref_dataset.window_rows(
+            self.bank.tables, host, self.model, zero=self.bank.zero,
+            generator=generator)
 
     def real(self, host) -> torch.Tensor:
-        """A batch's real rows: AVA's boxes, or every clip."""
-        if 'real' in host:
-            return torch.from_numpy(host['real']).to(self.device)
-        return torch.arange(self.clips, device=self.device)
+        """A batch's real rows (AVA's boxes, or every clip)."""
+        return self.dataset.real(host, self.clips, self.device)
 
     def release(self):
         gc.collect()
@@ -166,8 +160,8 @@ class TwoPhase(Driver):
     def prepare(self):
         """The benchmark's inputs: the bank, the batches, the kept
         iterations."""
-        self.arch_a = M.Arch(self.model, 'test', infer_only=True)
-        self.arch_b = M.Arch(self.model, 'test')
+        self.arch_a = self.net.Arch(self.model, 'test', infer_only=True)
+        self.arch_b = self.net.Arch(self.model, 'test')
         self.make_bank()
         self.bank_seed = seeds.derive(self.seed, 'bank_seed')
         self.pool_size = self.cell.traffic['pool']
@@ -185,7 +179,7 @@ class TwoPhase(Driver):
         self.prepare()
         self.mark('bank and batches')
         self.params = self.weights(self.arch_b)
-        port_bank = bankmod.port_bank(self.bank, self.model)
+        port_bank = self.dataset.port_bank(self.bank, self.model)
         self.step_a = steps.make_eval_step(
             build_spec(self.cfg, 'test', lfb_infer_only=True))
         self.step_b = steps.make_eval_step(
@@ -199,9 +193,6 @@ class TwoPhase(Driver):
         self.mark('warm-up')
         self.dispatch_s, self.calls = 0.0, 0
 
-    def out_key(self) -> str:
-        return 'box_pooled' if self.arch_b.roi_head else 'pool5'
-
     def batches(self, i: int):
         """(phase A's, phase B's) (batch, host) of iteration ``i``."""
         return (self.pool[i % self.pool_size],
@@ -212,7 +203,7 @@ class TwoPhase(Driver):
         a = self.timed(self.step_a, self.params, batch_a)
         b = self.timed(self.step_b, self.params, batch_b)
         if record:
-            outs = (a[self.out_key()], b['logits'])
+            outs = (a[self.dataset.PHASE_A_OUTPUT], b['logits'])
             self.last = (i, outs)
             if i in self.compare:
                 self.kept[i] = outs
@@ -237,18 +228,18 @@ class TwoPhase(Driver):
         for i in iterations:
             for arch, (_, host) in zip((self.arch_a, self.arch_b),
                                        self.batches(i)):
-                calls += kcost.backbone_calls(arch, self.clips, train=False,
-                                              fused=fused, remat=remat)
+                calls += self.launches.backbone_calls(
+                    arch, self.clips, train=False, fused=fused, remat=remat)
                 rois = host.get('rois')
-                calls += kcost.head_calls(arch, rois, self.clips,
-                                          train=False)
+                calls += self.launches.head_calls(arch, rois, self.clips,
+                                                  train=False)
                 if arch is self.arch_b:
                     rows = rois.shape[0] if rois is not None else self.clips
-                    calls += kcost.fbo_calls(arch, rows, train=False)
+                    calls += self.launches.fbo_calls(arch, rows, train=False)
         return calls
 
     def flops_per_iteration(self) -> float:
-        return flopcount.two_phase(self.model, self.clips,
+        return flopcount.two_phase(self.net, self.model, self.clips,
                                    self.cell.config['batch'].get(
                                        'boxes_per_clip', 1))
 
@@ -286,7 +277,7 @@ class TwoPhase(Driver):
                     params, data, rois, b, arch, quant)
                     for b in range(0, data.shape[0], REFERENCE_BLOCK)])
             else:
-                feat = torch.cat([M.head_features(
+                feat = torch.cat([self.net.head_features(
                     params, data[b:b + REFERENCE_BLOCK], None, arch, quant)
                     for b in range(0, data.shape[0], REFERENCE_BLOCK)])
             if not phase_b:
@@ -295,14 +286,15 @@ class TwoPhase(Driver):
                 self.bank_seed)
             rows = self.window_rows(host, generator)[real]
             window = self.bank.feats[rows].float()
-            return M.classify(params, feat, window, arch, None, quant)
+            return self.net.classify(params, feat, window, arch, None,
+                                     quant)
 
     def _block_features(self, params, data, rois, b, arch, quant):
         sel = (rois[:, 0] >= b) & (rois[:, 0] < b + REFERENCE_BLOCK)
         r = rois[sel].clone()
         r[:, 0] -= b
-        return M.head_features(params, data[b:b + REFERENCE_BLOCK], r, arch,
-                               quant)
+        return self.net.head_features(params, data[b:b + REFERENCE_BLOCK], r,
+                                      arch, quant)
 
 
 class Train(Driver):
@@ -311,7 +303,7 @@ class Train(Driver):
     def prepare(self):
         """The benchmark's inputs: the bank, the batches, the learning
         rate and the step generator's seed."""
-        self.arch = M.Arch(self.model, 'train')
+        self.arch = self.net.Arch(self.model, 'train')
         self.make_bank()
         self.train_seed = seeds.derive(self.seed, 'train_generator')
         self.lr = first_lr(self.model)
@@ -333,7 +325,7 @@ class Train(Driver):
         self.mstate = optimizer.init_state(params, set(self.frozen))
         self.step = steps.make_train_step(
             spec, self.cfg.SOLVER,
-            bank=bankmod.port_bank(self.bank, self.model))
+            bank=self.dataset.port_bank(self.bank, self.model))
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.train_seed)
         start = {k: v.detach().to('cpu', copy=True)
@@ -348,7 +340,7 @@ class Train(Driver):
             if i == 0:
                 real = self.real(self.pool[i][1])
                 prob = aux['prob'][real[real < aux['prob'].shape[0]]]
-                self.readings['logits'] = torch.logit(prob.double())
+                self.readings['logits'] = self.dataset.compared_logits(prob)
                 self.readings['grad'] = norms(
                     {k: v / self.lr for k, v in self.mstate.momentum.items()})
         self.readings['change'] = norms({k: v.detach().cpu() - start[k]
@@ -376,19 +368,20 @@ class Train(Driver):
         calls = []
         for i in iterations:
             host = self.pool[i % self.pool_size][1]
-            calls += kcost.backbone_calls(self.arch, self.clips, train=True,
-                                          fused=False,
-                                          remat=self.model['TPU.REMAT'])
+            calls += self.launches.backbone_calls(
+                self.arch, self.clips, train=True, fused=False,
+                remat=self.model['TPU.REMAT'])
             rois = host.get('rois')
-            calls += kcost.head_calls(self.arch, rois, self.clips, train=True)
+            calls += self.launches.head_calls(self.arch, rois, self.clips,
+                                              train=True)
             rows = rois.shape[0] if rois is not None else self.clips
-            calls += kcost.fbo_calls(self.arch, rows, train=True)
+            calls += self.launches.fbo_calls(self.arch, rows, train=True)
         return calls
 
     def flops_per_iteration(self) -> float:
-        return flopcount.train_step(self.model, self.clips,
-                                    self.cell.config['batch'].get(
-                                        'boxes_per_clip', 1))
+        return flopcount.train_step(
+            self.net, self.ref_dataset, self.model, self.clips,
+            self.cell.config['batch'].get('boxes_per_clip', 1))
 
     def reference(self) -> Dict[str, float]:
         return self.compare(self.readings, self.reference_readings())
@@ -436,7 +429,7 @@ class Train(Driver):
         arch, m = self.arch, self.model
         params = self.weights(arch)
         start = {k: v.clone() for k, v in params.items()}
-        names = M.trainable_names(arch, list(params))
+        names = self.net.trainable_names(arch, list(params))
         momentum = {k: torch.zeros_like(params[k]) for k in names}
         generator = torch.Generator(device=self.device).manual_seed(
             self.train_seed)
@@ -444,7 +437,7 @@ class Train(Driver):
         for i in range(self.steps_compared):
             batch, host = self.pool[i % self.pool_size]
             window = self.window_rows(host, generator)
-            masks = M.draw_masks(arch, window.shape[0], generator)
+            masks = self.net.draw_masks(arch, window.shape[0], generator)
             clips = batch['data'].shape[0]
             real = self.real(host)
             if fault == 'half':
@@ -456,12 +449,13 @@ class Train(Driver):
                 ref_batch['rois'] = batch['proposals'][real]
                 ref_batch['weight'] = batch['box_mask'][real]
             loss, grads, logits = reftrain.loss_and_grads(
-                params, names, ref_batch, window[real], self.bank.feats,
+                self.net, self.ref_dataset, params, names, ref_batch,
+                window[real], self.bank.feats,
                 {k: v[real] for k, v in masks.items()}, arch,
                 block=REFERENCE_BLOCK, quant=quant)
             out['loss'].append(loss)
             if i == 0:
-                out['logits'] = logits
+                out['logits'] = self.ref_dataset.compared_logits(logits)
                 out['grad'] = norms({
                     k: grads[k] + (m['SOLVER.WEIGHT_DECAY_BN'] if '_bn' in k
                                    else m['SOLVER.WEIGHT_DECAY']) * params[k]

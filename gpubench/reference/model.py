@@ -6,11 +6,11 @@ defines them (Wu et al., CVPR 2019; ``lib/models/resnet_video.py``,
 ``lfb_helper.py``): the I3D ResNet with space-time non-local blocks and a
 frozen per-channel affine in place of each BN, the AVA head (temporal mean,
 RoIAlign 7x7 with the legacy Caffe2 sampling, 7x7 max) or the clip head
-(global mean), the FBO-NL over a bank window, the classifier and the
-sigmoid cross-entropy loss.  Plain PyTorch over NCDHW tensors: no kernel,
-no cache, no batching trick.  It reads its architecture from the
-configuration file's ``model`` block (the released config's keys) and
-nothing of the program under test.
+(global mean), the FBO-NL over a bank window and the classifier (the
+loss is the dataset's, :mod:`gpubench.reference.datasets`).  Plain
+PyTorch over NCDHW tensors: no kernel, no cache, no batching trick.  It
+reads its architecture from the configuration file's ``model`` block (the
+released config's keys) and nothing of the program under test.
 
 ``quant`` rounds the operands of every product (convolutions, attention,
 the classifier) and, through ``quant.out``, the gradients arriving at
@@ -412,16 +412,6 @@ def classify(p, feat, window, arch: Arch, masks=None, quant: Quant = None):
     h = torch.cat([feat, fbo_nl(p, feat, window, arch, masks, quant)], dim=-1)
     h = dropout(h, (masks or {}).get('head'), arch.dropout)
     return linear(h, p['pred_w'], p['pred_b'], quant)
-
-
-def sigmoid_ce(logits, labels, weight=None):
-    """(sum of the per-element sigmoid cross-entropy, weighted by the rows'
-    ``weight``; the count of weighted elements)."""
-    z = logits
-    per = torch.clamp(z, min=0) - z * labels + torch.log1p(torch.exp(-z.abs()))
-    if weight is None:
-        return per.sum(), float(per.numel())
-    return (per * weight[:, None]).sum(), float(weight.sum()) * z.shape[1]
 
 
 def dropout_shapes(arch: Arch, rows: int) -> Dict[str, tuple]:

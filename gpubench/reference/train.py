@@ -10,7 +10,9 @@ block of clips at a time, and Caffe2's momentum SGD (the LFB paper's
 With the frozen affine every clip's rows are independent of the other
 clips', so the loss over the whole batch (each clip's weighted sum over
 the batch's weighted count) and its gradient are sums over blocks of
-clips: a block's activations are all that is ever held.
+clips: a block's activations are all that is ever held.  One path serves
+a RoI head and a clip head alike; with the backbone frozen, its features
+are taken block by block and the head runs once over every row.
 """
 
 from __future__ import annotations
@@ -18,8 +20,6 @@ from __future__ import annotations
 from typing import Dict, Mapping
 
 import torch
-
-from gpubench.reference import model as M
 
 
 def sgd_update(params: Dict[str, torch.Tensor], grads: Mapping,
@@ -36,21 +36,24 @@ def sgd_update(params: Dict[str, torch.Tensor], grads: Mapping,
             v.copy_(v_new)
 
 
-def loss_and_grads(params: Mapping[str, torch.Tensor], trainable, batch,
-                   window_rows, bank_feats, masks, arch: M.Arch, *,
-                   block: int, quant: M.Quant = None):
+def loss_and_grads(net, dataset, params: Mapping[str, torch.Tensor],
+                   trainable, batch, window_rows, bank_feats, masks, arch, *,
+                   block: int, quant=None):
     """(loss, {name: gradient}, logits of the rows) of the stage-2 loss
     over the whole batch.
 
-    ``batch`` holds 'data' (B, T, H, W, 3) uint8 and 'labels'; AVA also
-    'rois' (N, 5) and 'weight' (N,), the real rows only; ``window_rows``
-    (N, W) bank rows of those rows; ``masks`` the dropout masks of those
-    rows.  ``block`` clips go through the backbone at a time."""
+    ``net`` is the reference network (a module of ``reference/``, of
+    which ``arch`` is an ``Arch``), ``dataset`` the dataset's reference
+    side (``reference/datasets/``: its ``loss`` and ``loss_count``).
+    ``batch`` holds 'data' (B, T, H, W, 3) uint8 and 'labels'; a RoI head
+    also 'rois' (N, 5) and 'weight' (N,), the real rows only;
+    ``window_rows`` (N, W) bank rows of those rows; ``masks`` the dropout
+    masks of those rows.  ``block`` clips go through the backbone at a
+    time."""
     data, labels = batch['data'], batch['labels']
     weight = batch.get('weight')
     clips = data.shape[0]
-    count = (float(weight.sum()) * labels.shape[1] if weight is not None
-             else float(labels.numel()))
+    count = dataset.loss_count(labels, weight)
     leaves = {k: params[k].detach().requires_grad_(True) for k in trainable}
     p = {**params, **leaves}
     grads = {k: torch.zeros_like(v) for k, v in leaves.items()}
@@ -68,31 +71,38 @@ def loss_and_grads(params: Mapping[str, torch.Tensor], trainable, batch,
         # block by block, then the head over every row.
         with torch.no_grad():
             feat = torch.cat([
-                M.head_features(params, data[b:b + block], None, arch, quant)
+                net.head_features(params, data[b:b + block], None, arch,
+                                  quant)
                 for b in range(0, clips, block)])
         window = bank_feats[window_rows].float()
-        logits = M.classify(p, feat, window, arch, masks, quant)
-        num, _ = M.sigmoid_ce(logits, labels, weight)
-        loss = num / max(count, 1.0)
+        logits = net.classify(p, feat, window, arch, masks, quant)
+        loss = dataset.loss(logits, labels, weight) / max(count, 1.0)
         backward(loss)
         return float(loss.detach()), grads, logits.detach()
-    rois = batch['rois']
-    logits_all = torch.zeros((rois.shape[0], arch.num_classes),
-                             device=rois.device)
+    # Each row belongs to one clip (a RoI head's rows to the clip in their
+    # first column, a clip head's row i to clip i): a block of clips, with
+    # its rows' logits and loss, is all that is ever held.
+    rois = batch['rois'] if arch.roi_head else None
+    owner = (rois[:, 0] if rois is not None
+             else torch.arange(clips, device=data.device))
+    logits_all = torch.zeros((owner.shape[0], arch.num_classes),
+                             device=data.device)
     for b in range(0, clips, block):
-        sel = ((rois[:, 0] >= b) & (rois[:, 0] < b + block)).nonzero()[:, 0]
+        sel = ((owner >= b) & (owner < b + block)).nonzero()[:, 0]
         if sel.numel() == 0:
             continue
-        r = rois[sel].clone()
-        r[:, 0] -= b
-        feat = M.head_features(p, data[b:b + block], r, arch, quant)
+        r = None
+        if rois is not None:
+            r = rois[sel].clone()
+            r[:, 0] -= b
+        feat = net.head_features(p, data[b:b + block], r, arch, quant)
         window = bank_feats[window_rows[sel]].float()
-        logits = M.classify(p, feat, window, arch,
-                            {k: m[sel] for k, m in masks.items()}, quant)
-        num, _ = M.sigmoid_ce(logits, labels[sel],
-                              None if weight is None else weight[sel])
+        logits = net.classify(p, feat, window, arch,
+                              {k: m[sel] for k, m in masks.items()}, quant)
+        num = dataset.loss(logits, labels[sel],
+                           None if weight is None else weight[sel])
         loss = num / max(count, 1.0)
         backward(loss)
         total += float(loss.detach())
-        logits_all[sel] = logits.detach()
+        logits_all[sel] = logits.detach().to(logits_all.dtype)
     return total, grads, logits_all

@@ -250,7 +250,7 @@ def real_rows(drv, iterations) -> float:
     for i in iterations:
         host = (drv.batches(i)[1][1] if drv.kind == 'two_phase'
                 else drv.pool[i % drv.pool_size][1])
-        rows += len(host['real']) if 'real' in host else drv.clips
+        rows += drv.real(host).numel()
     return rows / len(iterations)
 
 

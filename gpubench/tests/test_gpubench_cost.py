@@ -13,7 +13,10 @@ import pytest
 from gpubench import layout, roofline, trace
 from gpubench.cost import flops
 from gpubench.cost import kernels as K
+from gpubench.cost import model as L
 from gpubench.reference import model as M
+from gpubench.reference.datasets import ava as ava_data
+from gpubench.reference.datasets import charades as charades_data
 
 B = 16
 
@@ -67,7 +70,7 @@ def test_bottleneck_bound_of_the_29_flagship_launches():
     model = json.loads((layout.HERE / 'configs' /
                         'ava_r101_nl3l.json').read_text())['model']
     arch = M.Arch(model, 'test')
-    calls = [c for c in K.backbone_calls(arch, B, train=False, fused=True,
+    calls = [c for c in L.backbone_calls(arch, B, train=False, fused=True,
                                          remat='stage')
              if c[0] == 'fused_bottleneck']
     assert len(calls) == 29
@@ -96,9 +99,9 @@ def test_backbone_launches(config, train, fused, want):
     model = json.loads((layout.HERE / 'configs' /
                         (config + '.json')).read_text())['model']
     arch = M.Arch(model, 'train' if train else 'test')
-    assert families(K.backbone_calls(arch, B, train=train, fused=fused,
+    assert families(L.backbone_calls(arch, B, train=train, fused=fused,
                                      remat='stage')) == want
-    fbo = families(K.fbo_calls(arch, 64, train=train))
+    fbo = families(L.fbo_calls(arch, 64, train=train))
     assert fbo['attention'] == arch.fbo_layers
     assert fbo.get('attention_bwd', 0) == (arch.fbo_layers if train else 0)
 
@@ -111,10 +114,11 @@ def test_flop_counts():
                       'ava_r101_nl3l.json').read_text())['model']
     ch = json.loads((layout.HERE / 'configs' /
                      'charades_r101_nl.json').read_text())['model']
-    assert flops.two_phase(ava, B, 4) == pytest.approx(22.6905e12, rel=1e-4)
-    train = flops.train_step(ava, B, 4)
+    assert flops.two_phase(M, ava, B, 4) == pytest.approx(22.6905e12,
+                                                          rel=1e-4)
+    train = flops.train_step(M, ava_data, ava, B, 4)
     assert 2.8 * 8.57e12 < train < 3.0 * 8.57e12
-    assert 8.4e12 < flops.train_step(ch, B, 1) < 8.7e12
+    assert 8.4e12 < flops.train_step(M, charades_data, ch, B, 1) < 8.7e12
 
 
 def test_trace_summary_and_roofline():

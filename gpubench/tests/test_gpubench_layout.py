@@ -4,9 +4,11 @@ it names, the data-driven layout, and the import rules."""
 from __future__ import annotations
 
 import ast
+import hashlib
 import json
 import re
 import shutil
+import time
 from pathlib import Path
 
 import pytest
@@ -19,6 +21,14 @@ NAME = re.compile(r'^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$')
 UNIT = re.compile(r'^[A-Za-z0-9_/%.\-]{1,16}$')
 TOP_KEYS = {'command', 'paths', 'run_seconds', 'configs', 'workloads',
             'end_to_end', 'per_layer'}
+# What the harness reads of each module a configuration names.
+DATASET = ('tables', 'port_bank', 'batch_keys', 'real', 'PHASE_A_OUTPUT',
+           'compared_logits')
+REFERENCE_DATASET = ('window_rows', 'loss', 'loss_count', 'empty_labels',
+                     'compared_logits')
+NETWORK = ('Arch', 'param_specs', 'trainable_names', 'head_features',
+           'classify', 'dropout_shapes', 'draw_masks')
+LAUNCHES = ('backbone_calls', 'head_calls', 'fbo_calls')
 
 
 def line_ok(text: str) -> bool:
@@ -106,6 +116,13 @@ def test_every_named_file_parses():
         assert set(cell.limits['checks'])
         for m in cell.per_layer:
             assert callable(cell.metric_reader(m['name']))
+        for module, names in ((cell.dataset, DATASET),
+                              (cell.reference_dataset, REFERENCE_DATASET),
+                              (cell.network, NETWORK),
+                              (cell.launches, LAUNCHES)):
+            assert Path(module.__file__).is_relative_to(layout.HERE)
+            for name in names:
+                assert hasattr(module, name), (module.__file__, name)
 
 
 def test_files_under_paths_are_named_from_name_characters():
@@ -154,6 +171,78 @@ def test_added_files_are_found_without_editing_any(tmp_path):
     assert cell.metric_reader('iterations_seen')({'iterations': 3}) == 3.0
 
 
+def digests(here: Path):
+    return {path.relative_to(here).as_posix(): hashlib.sha256(
+        path.read_bytes()).hexdigest() for path in sorted(here.rglob('*'))
+        if path.is_file() and '__pycache__' not in path.parts}
+
+
+@pytest.mark.parametrize('traffic', ('two_phase_fused', 'train'))
+def test_a_new_dataset_and_network_are_new_files_only(tmp_path, traffic):
+    """A configuration that names a dataset and a reference network of its
+    own, added to a copy as new files (copies of Charades' two dataset
+    modules, of the reference network and of its launch lists) and
+    entries, makes cells of both kinds that the harness runs from the
+    copy's modules to ``correct``, with the checks of the Charades cell
+    (the same work, so the same numbers, to float32 rounding); no file
+    the copy had changes."""
+    import torch
+    from gpubench import run
+    from gpubench.tests.tiny import tiny_cell
+    shutil.copytree(ROOT / 'gpubench', tmp_path / 'gpubench',
+                    ignore=shutil.ignore_patterns('__pycache__'))
+    here = tmp_path / 'gpubench'
+    before = digests(here)
+    for src, dst in (('datasets/charades.py', 'datasets/clipcopy.py'),
+                     ('reference/datasets/charades.py',
+                      'reference/datasets/clipcopy.py'),
+                     ('reference/model.py', 'reference/model_copy.py'),
+                     ('cost/model.py', 'cost/model_copy.py')):
+        shutil.copy(here / src, here / dst)
+    config = json.loads((here / 'configs' /
+                         'charades_r101_nl.json').read_text())
+    config.update(name='clipcopy_r101', dataset='clipcopy',
+                  reference='model_copy')
+    (here / 'configs' / 'clipcopy_r101.json').write_text(json.dumps(config))
+    original = 'charades_r101_nl.' + traffic
+    name = 'clipcopy_r101.' + traffic
+    shutil.copy(here / 'limits' / (original + '.json'),
+                here / 'limits' / (name + '.json'))
+    bench = json.loads(json.dumps(BENCH))
+    bench['configs'].append({'name': 'clipcopy_r101', 'source': 'x',
+                             'file': 'gpubench/configs/clipcopy_r101.json',
+                             'reduced': ['NUM_GPUS'], 'why': 'a copy'})
+    bench['workloads'].append({'name': name, 'config': 'clipcopy_r101',
+                               'traffic': traffic, 'chips': 1,
+                               'why': 'a copy'})
+    for m in bench['end_to_end'] + bench['per_layer']:
+        if original in m.get('workloads', []):
+            m['workloads'].append(name)
+    (tmp_path / 'BENCHMARK.json').write_text(json.dumps(bench))
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 4))
+    try:
+        checks = {}
+        for cell_name, root, cell_here in ((name, tmp_path, here),
+                                           (original, ROOT, layout.HERE)):
+            cell = tiny_cell(cell_name, root=root, here=cell_here)
+            for module in (cell.dataset, cell.reference_dataset,
+                           cell.network, cell.launches):
+                assert Path(module.__file__).is_relative_to(cell_here)
+            result, lines = run.run_cell(cell, 2 ** 40 + 17, 0.0, False,
+                                         device='cpu',
+                                         t_start=time.perf_counter())
+            assert result['correct'], (cell_name, lines)
+            checks[cell_name] = {k: v['value']
+                                 for k, v in result['checks'].items()}
+    finally:
+        torch.set_num_threads(threads)
+    assert checks[name] == pytest.approx(checks[original], rel=1e-6)
+    after = digests(here)
+    assert {k: after[k] for k in before} == before
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -170,14 +259,21 @@ def test_no_jax_and_a_reference_apart_from_the_program():
     names compared whole: lfb_tpu_torch is not lfb_tpu); the reference and
     the cost model import nothing of lfb_tpu_torch either."""
     here = ROOT / 'gpubench'
+    apart = []
     for path in here.rglob('*.py'):
         tops = {name.split('.')[0] for name in _imports(path)}
         assert not tops & {'jax', 'jaxlib', 'flax', 'lfb_tpu'}, path
         rel = path.relative_to(here).parts
         if rel[0] in ('reference', 'cost', 'metrics') or \
                 path.name == 'roofline.py':
+            apart.append(rel)
             assert 'lfb_tpu_torch' not in tops, path
             assert 'chip_smoke' not in tops and 'bench' not in tops, path
+    # Every configuration's reference side of its dataset, its network
+    # and its launch lists are among the files held apart.
+    for cell in layout.cells():
+        for module in (cell.reference_dataset, cell.network, cell.launches):
+            assert Path(module.__file__).relative_to(here).parts in apart
 
 
 def test_import_rule_compares_whole_names():

@@ -7,8 +7,9 @@ from gpubench import layout
 
 
 def tiny_cell(name: str, dtype: str = 'float32', crop: int = 64,
-              frames: int = 4, clips: int = 2) -> layout.Cell:
-    cell = layout.cell(name)
+              frames: int = 4, clips: int = 2, root=layout.ROOT,
+              here=layout.HERE) -> layout.Cell:
+    cell = layout.cell(name, root, here)
     config, model = cell.config, cell.config['model']
     for split in ('TEST', 'TRAIN'):
         for key, value in (('CROP_SIZE', crop), ('VIDEO_LENGTH', frames),

@@ -1,11 +1,10 @@
 """The one batch generator: every batch of every cell, from the
 configuration's batch contract, the traffic mix's split and the seed.
 
-A batch follows the port's data-layer contract (``data/ava.py``: clip b
-owns box rows [b * MAX_BOXES_PER_CLIP, (b + 1) * MAX_BOXES_PER_CLIP), its
-real boxes first, then zero rows with ``box_mask`` 0; the clip datasets'
-``lfb_video_idx`` / ``lfb_center``).  Frames are uniform uint8 drawn on
-the device; boxes, keys and labels are drawn on the host (a few thousand
+A batch follows the port's data-layer contract: the frames, shared by
+every dataset, and the keys and labels of the configuration's dataset
+(``datasets/<dataset>.py``).  Frames are uniform uint8 drawn on the
+device; boxes, keys and labels are drawn on the host (a few thousand
 numbers).  Batch ``index`` of a seed is the same wherever it is made.
 
 Frames are not white noise: each clip is a coarse random scene (a uniform
@@ -22,7 +21,7 @@ import numpy as np
 import torch
 
 from gpubench import seeds
-from gpubench.bank import AVA_NUM_SECS, AVA_SEC_BASE, BankData
+from gpubench.bank import BankData
 
 
 def frames_of(clips: int, frames: int, crop: int, g: torch.Generator,
@@ -41,61 +40,22 @@ def frames_of(clips: int, frames: int, crop: int, g: torch.Generator,
     return out
 
 
-def make_batch(config: dict, split: str, bank: BankData, seed: int,
+def make_batch(dataset, config: dict, split: str, bank: BankData, seed: int,
                index: int, device, *, labels: bool
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, np.ndarray]]:
-    """(the step's batch on ``device``, the host's copy of its keys:
-    'rois', 'meta' and the 'real' rows for AVA, 'video' and 'center' for
-    clips)."""
+    """(the step's batch on ``device``, the host's copy of its keys, as
+    ``dataset``'s ``batch_keys`` (a module of ``datasets/``) gives
+    them)."""
     model, contract = config['model'], config['batch']
     key = 'TRAIN' if split == 'train' else 'TEST'
     clips = model[key + '.BATCH_SIZE']
     crop, frames = model[key + '.CROP_SIZE'], model[key + '.VIDEO_LENGTH']
-    classes = model['MODEL.NUM_CLASSES']
     rng = seeds.rng(seed, 'batch', index)
     g = torch.Generator(device=device).manual_seed(
         seeds.derive(seed, 'frames', index))
     batch = {'data': frames_of(clips, frames, crop, g, device)}
-    host: Dict[str, np.ndarray] = {}
-
-    def put(name, array):
+    keys, host = dataset.batch_keys(model, contract, bank, rng, clips=clips,
+                                    crop=crop, labels=labels)
+    for name, array in keys.items():
         batch[name] = torch.from_numpy(np.ascontiguousarray(array)).to(device)
-
-    if model['DATASET'] == 'ava':
-        slots = model['TPU.MAX_BOXES_PER_CLIP']
-        boxes = contract['boxes_per_clip']
-        rows = clips * slots
-        rois = np.zeros((rows, 5), np.float32)
-        meta = np.zeros((rows, 4), np.float32)
-        mask = np.zeros(rows, np.float32)
-        real = (np.arange(clips)[:, None] * slots
-                + np.arange(boxes)[None, :]).reshape(-1)
-        video = rng.integers(0, bank.videos, clips)
-        sec = rng.integers(AVA_SEC_BASE, AVA_SEC_BASE + AVA_NUM_SECS, clips)
-        corners = np.concatenate(
-            [rng.uniform(0, crop / 2, (real.size, 2)),
-             rng.uniform(crop / 2, crop, (real.size, 2))], axis=1)
-        rois[real, 0] = real // slots
-        rois[real, 1:] = corners
-        meta[real] = np.stack([video[real // slots], sec[real // slots],
-                               np.full(real.size, 400), np.full(real.size,
-                                                                600)], 1)
-        mask[real] = 1.0
-        put('proposals', rois)
-        put('metadata', meta)
-        put('box_mask', mask)
-        host.update(rois=rois, meta=meta, real=real)
-        if labels:
-            y = np.zeros((rows, classes), np.float32)
-            y[real] = rng.random((real.size, classes)) < contract['label_rate']
-            put('labels', y)
-    else:
-        video = rng.integers(0, bank.videos, clips)
-        center = (rng.random(clips) * bank.lengths[video]).astype(np.int64)
-        put('lfb_video_idx', video.astype(np.int32))
-        put('lfb_center', center.astype(np.int32))
-        host.update(video=video, center=center)
-        if labels:
-            put('labels', (rng.random((clips, classes))
-                           < contract['label_rate']).astype(np.float32))
     return batch, host
