@@ -274,8 +274,8 @@ REMAT_B, REMAT_MODES = 16, ('stage', '')
 # over phase 11's 7 steps in bf16, the losses (read up to 1.8e-4), the
 # updated params (5.4e-4) and the momentum (3.2e-2, a small bias's
 # buffer); after one f32 step of one clip, the params (8.1e-8) and the
-# momentum (3.2e-6).  The two modes differ only by the order of the atomic
-# f32 sums in the backward (two f32 runs under '' differ as much), which
+# momentum (3.2e-6).  The two modes differ only by the order of f32 sums in
+# the library kernels' backward (two f32 runs under '' differ as much), which
 # bf16 and the ReLU gates amplify step by step.  A region recomputed
 # wrongly, or a gradient lost in one, moves a tensor by its whole scale.
 REMAT_BF16_BOUNDS = (1e-3, 5e-3, 2e-1)
@@ -372,60 +372,83 @@ KERNELS = {
     # No TPU kernel: XLA fuses the frozen affine into the conv's epilogue.
     'affine_act': dict(route='cuda', source='lfb_tpu_torch/csrc/affine_act.cu',
                        replaces=None),
+    # No TPU kernel: lfb_tpu pools with XLA's reduce_window.
+    'max_pool': dict(route='cuda', source='lfb_tpu_torch/csrc/max_pool.cu',
+                     replaces=None),
 }
 _NO_BWD = {'stem_conv_dw': 0, 'roi_align_maxpool_bwd': 0, 'attention_bwd': 0,
-           'affine_act_bwd': 0}
+           'affine_act_bwd': 0, 'max_pool_saved': 0, 'max_pool_bwd': 0}
 # R101's identity blocks (2 + 3 + 22 + 2), each one fused launch.
 _FUSED_LAUNCHES = {'fused_bottleneck': 29}
-# Frozen-affine sites of a forward, one affine_act launch each: the stem, 3
-# an unfused block (2a, 2b, 2c with its shortcut) and 1 a non-local block; a
-# fused identity block has none.  R101 has 33 blocks, R50 16, 4 of them
+# Frozen-affine sites of a forward, one affine_act launch each: 3 an unfused
+# block (2a, 2b, 2c with its shortcut) and 1 a non-local block; a fused
+# identity block has none, and the stem's affine and ReLU run in the pool
+# kernel's fused pass with pool1.  R101 has 33 blocks, R50 16, 4 of them
 # projection blocks; both have 5 non-local blocks.
-R101_AFFINE, R50_AFFINE = 1 + 3 * 33 + 5, 1 + 3 * 16 + 5
-FUSED_AFFINE = 1 + 3 * 4 + 5
+R101_AFFINE, R50_AFFINE = 3 * 33 + 5, 3 * 16 + 5
+FUSED_AFFINE = 3 * 4 + 5
+# Max pools of a forward, one max_pool launch each: the stem's fused pass,
+# pool2 and the 5 non-local blocks'.  An inference forward writes no
+# offsets; a forward whose input needs a gradient writes them at every pool
+# and the backward launches once a pool.
+POOLS = 1 + 1 + 5
+_INFER_POOLS = {'max_pool': POOLS}
+_TRAIN_POOLS = {'max_pool': POOLS, 'max_pool_saved': POOLS,
+                'max_pool_bwd': POOLS}
 # Kernel launches per forward of each phase, and per train step.
 PER_FORWARD = {'A': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 5,
                      'fused_bottleneck': 0, 'affine_act': R101_AFFINE,
-                     **_NO_BWD},
+                     **_NO_BWD, **_INFER_POOLS},
                'B': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 8,
                      'fused_bottleneck': 0, 'affine_act': R101_AFFINE,
-                     **_NO_BWD},
+                     **_NO_BWD, **_INFER_POOLS},
                'B fused': {'stem_conv': 1, 'roi_align_maxpool': 1,
                            'attention': 8, **_FUSED_LAUNCHES,
-                           'affine_act': FUSED_AFFINE, **_NO_BWD},
+                           'affine_act': FUSED_AFFINE, **_NO_BWD,
+                           **_INFER_POOLS},
                'Charades A': {'stem_conv': 1, 'roi_align_maxpool': 0,
                               'attention': 5, **_FUSED_LAUNCHES,
-                              'affine_act': FUSED_AFFINE, **_NO_BWD},
+                              'affine_act': FUSED_AFFINE, **_NO_BWD,
+                              **_INFER_POOLS},
                'Charades B': {'stem_conv': 1, 'roi_align_maxpool': 0,
                               'attention': 7, **_FUSED_LAUNCHES,
-                              'affine_act': FUSED_AFFINE, **_NO_BWD},
+                              'affine_act': FUSED_AFFINE, **_NO_BWD,
+                              **_INFER_POOLS},
                # R50: 5 non-local blocks, 12 identity blocks (2 + 3 + 5 + 2).
                'EPIC verb A': {'stem_conv': 1, 'roi_align_maxpool': 0,
                                'attention': 5, 'fused_bottleneck': 12,
-                               'affine_act': FUSED_AFFINE, **_NO_BWD},
+                               'affine_act': FUSED_AFFINE, **_NO_BWD,
+                              **_INFER_POOLS},
                'EPIC verb B': {'stem_conv': 1, 'roi_align_maxpool': 0,
                                'attention': 7, 'fused_bottleneck': 12,
-                               'affine_act': FUSED_AFFINE, **_NO_BWD},
+                               'affine_act': FUSED_AFFINE, **_NO_BWD,
+                              **_INFER_POOLS},
                'EPIC noun B': {'stem_conv': 1, 'roi_align_maxpool': 0,
                                'attention': 7, 'fused_bottleneck': 0,
-                               'affine_act': R50_AFFINE, **_NO_BWD},
-               # Every affine site's input needs a gradient: one backward
-               # launch a site.
+                               'affine_act': R50_AFFINE, **_NO_BWD,
+                               **_INFER_POOLS},
+               # Every affine site's and pool's input needs a gradient: one
+               # backward launch a site and a pool.
                'train': {'stem_conv': 1, 'stem_conv_dw': 1,
                          'roi_align_maxpool': 1, 'roi_align_maxpool_bwd': 1,
                          'attention': 8, 'attention_bwd': 8,
                          'fused_bottleneck': 0, 'affine_act': R101_AFFINE,
-                         'affine_act_bwd': R101_AFFINE},
+                         'affine_act_bwd': R101_AFFINE, **_TRAIN_POOLS},
                # TPU.REMAT 'stage' runs res2-res5 again in the backward:
                # their affine sites, and res3 and res4's 5 non-local blocks'
-               # attention forwards (the stem is outside the stages, the FBO
-               # outside the backbone).
+               # attention forwards and pools (the stem and pool2 are outside
+               # the stages, the FBO outside the backbone).  The stages' first
+               # run has grad mode on too, so its pools write offsets (which
+               # the checkpoint drops).
                'train stage': {'stem_conv': 1, 'stem_conv_dw': 1,
                                'roi_align_maxpool': 1,
                                'roi_align_maxpool_bwd': 1, 'attention': 13,
                                'attention_bwd': 8, 'fused_bottleneck': 0,
-                               'affine_act': 2 * R101_AFFINE - 1,
-                               'affine_act_bwd': R101_AFFINE},
+                               'affine_act': 2 * R101_AFFINE,
+                               'affine_act_bwd': R101_AFFINE,
+                               'max_pool': POOLS + 5,
+                               'max_pool_saved': POOLS + 5,
+                               'max_pool_bwd': POOLS},
                # Charades stage 2 (MODEL.FREEZE_BACKBONE): the backbone
                # trains nothing, so 'stage' recomputes nothing and no affine
                # site takes a backward; the 2 FBO layers take the only
@@ -435,7 +458,8 @@ PER_FORWARD = {'A': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 5,
                                   'roi_align_maxpool_bwd': 0, 'attention': 7,
                                   'attention_bwd': 2, 'fused_bottleneck': 0,
                                   'affine_act': R101_AFFINE,
-                                  'affine_act_bwd': 0},
+                                  'affine_act_bwd': 0, **_INFER_POOLS,
+                                  'max_pool_saved': 0, 'max_pool_bwd': 0},
                # EPIC verb stage 2 (TPU.REMAT ''): R50's 5 non-local blocks
                # and the 2 FBO layers, forward and backward.
                'EPIC verb train': {'stem_conv': 1, 'stem_conv_dw': 1,
@@ -444,7 +468,8 @@ PER_FORWARD = {'A': {'stem_conv': 1, 'roi_align_maxpool': 1, 'attention': 5,
                                    'attention': 7, 'attention_bwd': 7,
                                    'fused_bottleneck': 0,
                                    'affine_act': R50_AFFINE,
-                                   'affine_act_bwd': R50_AFFINE}}
+                                   'affine_act_bwd': R50_AFFINE,
+                                   **_TRAIN_POOLS}}
 # True BN (phase 15) normalizes with separate operations: no affine launch.
 _NO_AFFINE = {'affine_act': 0, 'affine_act_bwd': 0}
 PER_FORWARD['true-BN B'] = {**PER_FORWARD['B'], **_NO_AFFINE}
@@ -960,6 +985,7 @@ def check_kernels(iters=TIMING_ITERS):
     del q, k, v
     results['fused_bottleneck'] = check_bottleneck(g, iters)
     results['affine_act'] = check_affine(g, iters)
+    results['max_pool'] = check_pool(g, iters)
     return results
 
 
@@ -1062,6 +1088,166 @@ def check_affine(g, iters):
             0, nbytes(dy) * (1 + relu + len(outs)), 'bfloat16')[0])
         del dy, y
     return rows['res2 2c + shortcut + ReLU']
+
+
+# The max pools of an R101 / R50 forward, (label, x shape at crop 256, the
+# same at the train crop 224, window, launches a forward): the stem's fused
+# affine + ReLU + pool1, pool2 and the non-local blocks' (2 in res3, 3 in
+# res4).
+POOL_SITES = [
+    ('pool1 + stem affine + ReLU', (B, 32, 128, 128, 64), (B, 32, 112, 112, 64),
+     ((1, 3, 3), (1, 2, 2), (0, 1, 1)), 1),
+    ('pool2', (B, 32, 64, 64, 256), (B, 32, 56, 56, 256),
+     ((2, 1, 1), (2, 1, 1), (0, 0, 0)), 1),
+    ('res3 non-local', (B, 16, 32, 32, 512), (B, 16, 28, 28, 512),
+     ((1, 2, 2), (1, 2, 2), (0, 0, 0)), 2),
+    ('res4 non-local', (B, 16, 16, 16, 1024), (B, 16, 14, 14, 1024),
+     ((1, 2, 2), (1, 2, 2), (0, 0, 0)), 3)]
+
+
+def check_pool(g, iters):
+    """The max pool's kernels (``ops/cuda_pool.py``, bf16) against their
+    plain versions, bit for bit, at each pool of the main path
+    (:data:`POOL_SITES`): the forward at crop 256 with no offsets, as
+    inference runs it (the stem's site fused behind its affine and ReLU),
+    timed beside the PyTorch calls it replaces (``F.max_pool3d``, which
+    writes int64 indices, behind ``affine_act`` at the stem's site) and held
+    to them bit for bit; then at the train crop the forward that writes the
+    offsets and the backward, beside ATen's forward with indices and its
+    atomic backward, the backward's bits the same on a second call.  Bound:
+    the bytes read and written once over 3.35 TB/s.  Returns a forward's
+    row: each number summed over a forward's 7 launches."""
+    import torch
+    import torch.nn.functional as F
+    from lfb_tpu_torch.ops import cuda_affine as ca
+    from lfb_tpu_torch.ops import cuda_pool as cp
+    dev = g.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def bitwise(label, got, want):
+        view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                torch.uint8: torch.uint8}
+        if not torch.equal(got.contiguous().view(view[got.dtype]),
+                           want.contiguous().view(view[want.dtype])):
+            raise AssertionError('max_pool {}: kernel and reference '
+                                 'differ'.format(label))
+
+    def aten(x, window, indices=False):
+        out = F.max_pool3d(x.permute(0, 4, 1, 2, 3), *window,
+                           return_indices=indices)
+        if indices:
+            return out[0].permute(0, 2, 3, 4, 1), out[1]
+        return out.permute(0, 2, 3, 4, 1).contiguous()
+
+    def log_row(label, r, bound_ms, lib_label):
+        log('  max_pool {}: device {:.4f} ms against the bound {:.4f} ms '
+            '({:.1f}% of 3.35 TB/s); {} {:.4f} ms ({:.2f}x); {}'.format(
+                label, r['device_ms'], bound_ms,
+                100 * bound_ms / r['device_ms'], lib_label,
+                r['library_device_ms'],
+                r['library_device_ms'] / r['device_ms'], card_line()))
+
+    total = dict(err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+                 library_ms=0.0, library_device_ms=0.0, bound_ms=0.0)
+    for label, shape, train_shape, window, per_forward in POOL_SITES:
+        stem = label.startswith('pool1')
+        x = randn(*shape).to(torch.bfloat16)
+        s, b = (1 + 0.1 * randn(shape[-1]), 0.1 * randn(shape[-1])) if stem \
+            else (None, None)
+
+        def kernel():
+            return cp.max_pool_fwd(x, *window, save=False, scale=s,
+                                   bias=b)[0]
+
+        def plain():
+            h = ca.affine_act_plain(x, s, b, True) if stem else x
+            return cp.max_pool_plain(h, *window)[0]
+
+        def library():
+            return aten(ca.affine_act_fwd(x, s, b, True) if stem else x,
+                        window)
+
+        lib_label = ('affine_act + F.max_pool3d' if stem
+                     else 'F.max_pool3d')
+        r = compare('max_pool {} x{} bf16'.format(label, shape), kernel,
+                    plain, 0.0, iters, library, lib_label)
+        y = kernel()
+        bitwise(label, y, plain())
+        bitwise(label + ' against ' + lib_label, y, library())
+        bound = least_ms(0, nbytes(x, y), 'bfloat16')[0]
+        log_row(label, r, bound, lib_label)
+        for key in ('ms', 'device_ms', 'plain_ms', 'library_ms',
+                    'library_device_ms'):
+            total[key] += per_forward * r[key]
+        total['bound_ms'] += per_forward * bound
+        del x, y
+        # The train crop: the forward with offsets, then the backward.
+        x = randn(*train_shape).to(torch.bfloat16)
+        if stem:
+            s, b = 1 + 0.1 * randn(shape[-1]), 0.1 * randn(shape[-1])
+
+        def kernel_saved():
+            return cp.max_pool_fwd(x, *window, save=True, scale=s, bias=b)
+
+        def library_saved():
+            return aten(ca.affine_act_fwd(x, s, b, True) if stem else x,
+                        window, indices=True)
+
+        def plain_saved():
+            return cp.max_pool_plain(
+                ca.affine_act_plain(x, s, b, True) if stem else x, *window)
+
+        y, offsets = kernel_saved()
+        plain_y, plain_offsets = plain_saved()
+        bitwise(label + ' (offsets)', offsets, plain_offsets)
+        bitwise(label + ' (y with offsets)', y, plain_y)
+        del plain_y, plain_offsets
+        r = compare('max_pool {} with offsets x{} bf16 (train shape)'.format(
+            label, train_shape), kernel_saved, plain_saved, 0.0, iters,
+            library_saved, lib_label + ' with indices')
+        log_row(label + ' with offsets', r,
+                least_ms(0, nbytes(x, y) + offsets.numel(), 'bfloat16')[0],
+                lib_label + ' with indices')
+        dy = randn(*y.shape).to(torch.bfloat16)
+        h = ca.affine_act_fwd(x, s, b, True) if stem else x
+        _, index = aten(h, window, indices=True)
+        dy_cf = dy.permute(0, 4, 1, 2, 3)
+        h_cf = h.permute(0, 4, 1, 2, 3)
+
+        def backward():
+            return cp.max_pool_bwd(dy, offsets, train_shape, *window,
+                                   y=y if stem else None, scale=s)
+
+        def plain_backward():
+            return cp.max_pool_bwd_plain(dy, offsets, train_shape, *window,
+                                         y=y if stem else None, scale=s)
+
+        def library_backward():
+            g_h = torch.ops.aten.max_pool3d_with_indices_backward(
+                dy_cf, h_cf, *window, (1, 1, 1), False, index)
+            return (ca.affine_act_bwd(g_h.permute(0, 2, 3, 4, 1), h, s)[0]
+                    if stem else g_h)
+
+        lib_bwd = ('max_pool3d backward + affine_act_bwd' if stem
+                   else 'max_pool3d backward')
+        r = compare('max_pool_bwd {} x{} bf16 (train shape)'.format(
+            label, train_shape), backward, plain_backward, 0.0, iters,
+            library_backward, lib_bwd)
+        dx = backward()
+        bitwise(label + ' backward', dx, plain_backward())
+        bitwise(label + ' backward, second call', backward(), dx)
+        log_row(label + ' backward', r, least_ms(
+            0, nbytes(dy, dx) + offsets.numel()
+            + (nbytes(y) if stem else 0), 'bfloat16')[0], lib_bwd)
+        del x, y, offsets, dy, h, index, dy_cf, h_cf, dx
+    log('  max_pool: a forward\'s 7 launches at crop 256: device {:.4f} ms '
+        'against the bound {:.4f} ms; what they replace {:.4f} ms'.format(
+            total['device_ms'], total['bound_ms'],
+            total['library_device_ms']))
+    return dict(total, tolerance='0 (bit for bit)', bound_by='bytes',
+                library='F.max_pool3d (behind affine_act at the stem)')
 
 
 def log_stem_rate(ms, out_elems, kt):
@@ -1374,7 +1560,10 @@ COUNTERS = {'fused_bottleneck': 'kernel.bottleneck.fwd',
             'attention': 'kernel.attention.fwd',
             'attention_bwd': 'kernel.attention.bwd',
             'affine_act': 'kernel.affine.fwd',
-            'affine_act_bwd': 'kernel.affine.bwd'}
+            'affine_act_bwd': 'kernel.affine.bwd',
+            'max_pool': 'kernel.pool.fwd',
+            'max_pool_saved': 'kernel.pool.fwd_saved',
+            'max_pool_bwd': 'kernel.pool.bwd'}
 _LAUNCHES_AT_RESET = {}
 
 
@@ -3861,16 +4050,17 @@ def drift_steps():
 
 
 # Phase 18: the bank rehearsal (lfb_tpu_torch.tools.bank_rehearsal) at real
-# scale.  The inference ladder's top rung cannot fit on an 80 GB card (its
-# stem output alone is 16 GiB, and at B = 256 the forward asks for another
-# 16 GiB with about 63 GiB in use); the rungs below it find the largest batch
-# that fits.  Every rung's clips are a prefix of the top rung's draws, so the
+# scale.  The inference ladder's top rung cannot fit on an 80 GB card (at
+# B = 448 res2's projection block holds three 28 GiB maps at once; B = 256
+# has fitted since the stem's affine, ReLU and pool1 write only the pooled
+# map); the rungs below it find the largest batch that fits.  Every rung's clips are a prefix of the top rung's draws, so the
 # rungs below cost no host time to draw.  The train ladder's top rung is
 # twice the released B = 16 step's peak (21.5 GiB) and more.  The bf16 bank's
 # prob is held to the f32 bank's within phase 4's bf16 bound; after an OOM
 # rung the allocator must hold no more than REHEARSAL_OOM_SLACK over what it
 # held before the rung.
-REHEARSAL_INFER = (256, 224, 192, 160, 128, 96, 64, 32, 16)
+REHEARSAL_INFER = (448, 384, 320, 256, 224, 192, 160, 128, 96, 64, 32,
+                   16)
 REHEARSAL_TRAIN = (64, 48, 32, 16)
 REHEARSAL_ITERS = 2
 REHEARSAL_OOM_SLACK = 64 * 2 ** 20

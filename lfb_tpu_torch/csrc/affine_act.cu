@@ -1,10 +1,11 @@
 // The frozen-BN affine of the unfused blocks with what follows it, as one
 // pass over a channels-last tensor viewed as (N, C), forward and backward:
 //   y = act(x * s + b [+ r | + (r * sr + br)]),  act: ReLU or identity,
-// with s, b, sr, br the f32 per-channel scales and biases.  It serves the
-// stem's affine + ReLU, a bottleneck's 2a and 2b (affine + ReLU) and its 2c
-// with the shortcut (identity, or branch1's own affine) and the final ReLU,
-// and a non-local block's affine + residual.
+// with s, b, sr, br the f32 per-channel scales and biases.  It serves a
+// bottleneck's 2a and 2b (affine + ReLU) and its 2c with the shortcut
+// (identity, or branch1's own affine) and the final ReLU, and a non-local
+// block's affine + residual; the stem's affine + ReLU runs fused into
+// pool1 (max_pool.cu), with this file's arithmetic.
 //
 // It replaces no TPU kernel: XLA folds this affine, the residual add and the
 // ReLU into the convolution's epilogue, so lfb_tpu has none
@@ -35,14 +36,16 @@
 // The backward: g = gate(dy, y), dx = rnd(g * s) and for an affine
 // shortcut dr = rnd(g * sr); g itself is an identity shortcut's gradient.
 // s and b get none: they are frozen, as the reference's AffineNdGradient.
-#include <atomic>
-#include <cstdint>
-
 #include "common.cuh"
 
 namespace {
 
+using lfb::aligned;
 using lfb::from_f32;
+using lfb::Pack;
+using lfb::relu;
+using lfb::rnd;
+using lfb::sm_count;
 using lfb::to_f32;
 
 constexpr int kThreads = 256;
@@ -50,57 +53,6 @@ constexpr int kUnroll = 4;
 constexpr int kBlocksPerSm = 8;
 
 enum Shortcut { kNone = 0, kIdentity = 1, kAffine = 2 };
-
-// A working-type value in f32, and an f32 value rounded to the working type.
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-__device__ __forceinline__ float relu(float v) {
-  return isnan(v) ? v : fmaxf(v, 0.f);        // clamp_min(v, 0)
-}
-
-// 16 bytes <-> the V working-type values they hold, in f32.
-template <typename T>
-struct Pack;
-
-template <>
-struct Pack<float> {
-  static constexpr int V = 4;
-  static __device__ __forceinline__ void unpack(uint4 q, float* f) {
-    f[0] = __uint_as_float(q.x);
-    f[1] = __uint_as_float(q.y);
-    f[2] = __uint_as_float(q.z);
-    f[3] = __uint_as_float(q.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-
-template <>
-struct Pack<__nv_bfloat16> {
-  static constexpr int V = 8;
-  static __device__ __forceinline__ void unpack(uint4 q, float* f) {
-    const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ unsigned bits(float v) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    return make_uint4(bits(f[0]) | bits(f[1]) << 16,
-                      bits(f[2]) | bits(f[3]) << 16,
-                      bits(f[4]) | bits(f[5]) << 16,
-                      bits(f[6]) | bits(f[7]) << 16);
-  }
-};
 
 template <typename T, int SC, bool RELU>
 __device__ __forceinline__ float fwd_one(float x, float s, float b, float r,
@@ -268,30 +220,6 @@ __global__ void __launch_bounds__(kThreads) affine_act_bwd_scalar_kernel(
     if (dx) dx[i] = from_f32<T>(__fmul_rn(gf, rnd<T>(s[c])));
     if (dr) dr[i] = from_f32<T>(__fmul_rn(gf, rnd<T>(sr[c])));
   }
-}
-
-// The current device's SM count, read once a device: a train step launches
-// these kernels hundreds of times, and the count never changes.
-int sm_count() {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<int> cached[kMaxDevices];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
-    return 132;
-  }
-  int sms = cached[dev].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-        cudaSuccess) {
-      sms = 132;
-    }
-    cached[dev].store(sms, std::memory_order_relaxed);
-  }
-  return sms;
-}
-
-bool aligned(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // The tiling and grid of the vector kernels for rows x C of T.

@@ -278,8 +278,8 @@ class Backbone(nn.Module):
             h = StemConv.apply(x, p['conv1_w'], self.temporal_pad)
             h = norm_act(p, 'res_conv1_bn', h, use_affine=spec.use_affine,
                          epsilon=spec.bn_epsilon, train=train,
-                         bn_updates=bn_updates, relu=True)
-            h = max_pool_3d(h, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+                         bn_updates=bn_updates, relu=True,
+                         pool=((1, 3, 3), (1, 2, 2), (0, 1, 1)))
         # As ``lfb_tpu/models/backbone.py:143-148``: no remat in true-BN
         # training, whose statistics flow out through ``bn_updates``.
         remat = spec.remat if train and spec.use_affine else ''

@@ -14,12 +14,13 @@ PyTorch's own:
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from lfb_tpu_torch.ops.cuda_affine import affine_act
+from lfb_tpu_torch.ops.pooling import affine_relu_max_pool_3d, max_pool_3d
 from lfb_tpu_torch.parallel import mesh
 
 Params = Dict[str, torch.Tensor]
@@ -93,15 +94,27 @@ def norm_act(params: Mapping[str, torch.Tensor], name: str, x: torch.Tensor,
              bn_updates: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
              | None = None, relu: bool = False,
              residual: torch.Tensor | None = None,
-             residual_name: str | None = None) -> torch.Tensor:
+             residual_name: str | None = None,
+             pool: Tuple[Sequence[int], Sequence[int], Sequence[int]]
+             | None = None) -> torch.Tensor:
     """``act(norm(x) [+ residual | + norm(residual)])``: the norm of ``x``
     (named ``name``), the residual added (itself normed as ``residual_name``
-    when that is given), then ReLU with ``relu``; the port's one entry point
-    for both norms of ``lfb_tpu/models/layers.py:84-110``.  The frozen
-    affine (reference AffineNd) runs it as one
+    when that is given), then ReLU with ``relu``, then with ``pool``
+    ((kernels, strides, pads), the stem's pool1) a max pool; the port's one
+    entry point for both norms of ``lfb_tpu/models/layers.py:84-110``.  The
+    frozen affine (reference AffineNd) runs it as one
     ``ops.cuda_affine.affine_act`` (one kernel on the card, the same
-    numbers); true BN as :func:`apply_norm` and separate operations."""
+    numbers), or with ``pool`` as one
+    ``ops.pooling.affine_relu_max_pool_3d`` (one kernel on the card for
+    the affine, the ReLU and the pool); true BN as :func:`apply_norm` and
+    separate operations."""
+    if pool is not None and (residual is not None or not relu):
+        raise ValueError('norm_act: a pool follows only a ReLU with no '
+                         'residual')
     if use_affine:
+        if pool is not None:
+            return affine_relu_max_pool_3d(x, params[name + '_s'],
+                                           params[name + '_b'], *pool)
         return affine_act(
             x, params[name + '_s'], params[name + '_b'], relu=relu,
             residual=residual,
@@ -118,7 +131,8 @@ def norm_act(params: Mapping[str, torch.Tensor], name: str, x: torch.Tensor,
     if residual is not None:
         y = y + (residual if residual_name is None
                  else norm(residual_name, residual))
-    return F.relu(y) if relu else y
+    y = F.relu(y) if relu else y
+    return y if pool is None else max_pool_3d(y, *pool)
 
 
 class BatchNorm(torch.autograd.Function):

@@ -4,9 +4,10 @@ PyTorch versions, and the autograd Function that joins them.
 
 ``y = act(x * scale + bias [+ residual | + (residual * residual_scale +
 residual_bias)])`` over channels-last tensors, ``act`` ReLU or the
-identity: the stem's affine + ReLU, a bottleneck's 2a and 2b, its 2c with
-the identity or ``branch1``'s affine shortcut and the final ReLU, and a
-non-local block's affine + residual, each as one pass over the activation.
+identity: a bottleneck's 2a and 2b, its 2c with the identity or
+``branch1``'s affine shortcut and the final ReLU, and a non-local block's
+affine + residual, each as one pass over the activation (on the card the
+stem's affine + ReLU runs fused into pool1, ``ops/cuda_pool.py``).
 
 It replaces no TPU kernel: XLA folds the affine, the add and the ReLU into
 the convolution's epilogue (``lfb_tpu/ops/affine.py``).  The plain version

@@ -39,6 +39,10 @@ SIGNATURES = {
     'lfb_attention_bf16': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     'lfb_attention_bwd_f32': (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
     'lfb_attention_bwd_bf16': (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
+    'lfb_max_pool_f32': (_P,) * 8,
+    'lfb_max_pool_bf16': (_P,) * 8,
+    'lfb_max_pool_bwd_f32': (_P,) * 8,
+    'lfb_max_pool_bwd_bf16': (_P,) * 8,
     'lfb_fused_bottleneck_f32': (_P,) * 8 + (_I,) * 8 + (_P,),
     'lfb_fused_bottleneck_bf16': (_P,) * 8 + (_I,) * 8 + (_P,),
     'lfb_roi_align_maxpool': (_P, _P, _P) + (_I,) * 6 + (_F, _I, _I, _P),

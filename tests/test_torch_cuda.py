@@ -890,8 +890,10 @@ def test_affine_wrapper_refuses_what_the_kernel_does_not_take(dev):
 @pytest.mark.parametrize('fused', [False, True])
 def test_r101_forward_launches_the_affine_kernel_once_a_site(dev, fused):
     """An R101 backbone forward (bf16) launches the kernel once per frozen
-    affine: the stem, three a bottleneck block (none in a fused identity
-    block) and one a non-local block."""
+    affine but the stem's: three a bottleneck block (none in a fused
+    identity block) and one a non-local block.  The stem's affine and ReLU
+    run in the pool kernel's fused pass, one of its 7 launches (the stem,
+    pool2 and 5 non-local pools), none of which writes offsets."""
     from lfb_tpu_torch.config import flagship_cfg
     from lfb_tpu_torch.models.backbone import Backbone
     from lfb_tpu_torch.models.model import init_params
@@ -904,10 +906,288 @@ def test_r101_forward_launches_the_affine_kernel_once_a_site(dev, fused):
     assert spec.use_pallas_bottleneck == fused
     params = init_params(spec, torch.Generator(device=dev).manual_seed(0))
     x = rand((2, 8, 64, 64, 3), dev).to(torch.bfloat16)
-    before = launches('affine.fwd')
+    names = ('affine.fwd', 'pool.fwd', 'pool.fwd_saved')
+    before = [launches(n) for n in names]
     with torch.no_grad():
         Backbone(spec)(params, x)
     blocks = 4 if fused else sum(spec.block_counts)
     non_local = sum(len(idx) for idx in spec.nl_blocks.values())
-    assert non_local > 0
-    assert launches('affine.fwd') - before == 1 + 3 * blocks + non_local
+    assert non_local == 5
+    assert [launches(n) - b for n, b in zip(names, before)] == [
+        3 * blocks + non_local, 2 + non_local, 0]
+
+
+# --------------------------------------------------------------------------- #
+# The channels-last max pool: ATen's forward bit for bit, a deterministic
+# gather-form backward
+# --------------------------------------------------------------------------- #
+
+POOL_WINDOWS = {'pool1': ((1, 3, 3), (1, 2, 2), (0, 1, 1)),
+                'pool2': ((2, 1, 1), (2, 1, 1), (0, 0, 0)),
+                'non_local': ((1, 2, 2), (1, 2, 2), (0, 0, 0))}
+# Odd T, H and W (the padded edges, floor mode's dropped last row); C 64
+# (16-byte columns), 13 (one channel a thread) and 1024 (a row's items take
+# several turns of the CTA).
+POOL_SHAPES = [(2, 5, 7, 9, 64), (1, 4, 6, 5, 13), (1, 2, 8, 8, 1024)]
+
+
+def pool_input(shape, dev, seed, dtype):
+    """ReLU'd N(0, 1) (ties at 0), a few equal positive values, NaN and
+    -inf, written in ``dtype``."""
+    x = torch.relu(rand(shape, dev, seed))
+    flat = x.view(-1)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    picks = torch.randperm(flat.numel(), generator=g, device=dev)
+    flat[picks[:flat.numel() // 8]] = 1.5
+    x = x.to(dtype)
+    flat = x.view(-1)
+    flat[picks[-6:-3]] = float('nan')
+    flat[picks[-3:]] = -float('inf')
+    return x
+
+
+def aten_pool(x, window, indices=False):
+    out = torch.nn.functional.max_pool3d(x.permute(0, 4, 1, 2, 3), *window,
+                                         return_indices=indices)
+    if indices:
+        return out[0].permute(0, 2, 3, 4, 1), out[1].permute(0, 2, 3, 4, 1)
+    return out.permute(0, 2, 3, 4, 1)
+
+
+def pool_flat_index(offsets, in_shape, window):
+    """ATen's flat (t, h, w) index of each window offset."""
+    (kt, kh, kw), strides, pads = window
+    _, T, H, W, _ = in_shape
+    o = offsets.long()
+    start = [torch.arange(n, device=offsets.device) * s - p
+             for n, s, p in zip(offsets.shape[1:4], strides, pads)]
+    t = start[0][:, None, None, None] + o // (kh * kw)
+    h = start[1][None, :, None, None] + (o // kw) % kh
+    w = start[2][None, None, :, None] + o % kw
+    return (t * H + h) * W + w
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', POOL_SHAPES)
+@pytest.mark.parametrize('name', POOL_WINDOWS)
+def test_pool_kernel_is_aten_bit_for_bit(dev, name, shape, dtype):
+    """The values and the chosen positions (the offsets against ATen's int64
+    index and the plain version's offsets), ties, NaN and -inf included."""
+    from lfb_tpu_torch.ops import cuda_pool as cp
+    window = POOL_WINDOWS[name]
+    x = pool_input(shape, dev, 0, dtype)
+    before = launches('pool.fwd'), launches('pool.fwd_saved')
+    y, offsets = cp.max_pool_fwd(x, *window, save=True)
+    y2, none = cp.max_pool_fwd(x, *window, save=False)
+    assert none is None
+    assert (launches('pool.fwd'), launches('pool.fwd_saved')) == (
+        before[0] + 2, before[1] + 1)
+    want, index = aten_pool(x, window, indices=True)
+    same_bits(y, want.contiguous(), 'y')
+    same_bits(y2, y, 'y without offsets')
+    plain_y, plain_offsets = cp.max_pool_plain(x, *window)
+    same_bits(plain_y, y, 'plain y')
+    assert torch.equal(offsets, plain_offsets)
+    assert torch.equal(pool_flat_index(offsets, shape, window), index)
+
+
+def test_pool_kernel_takes_an_unaligned_input(dev):
+    """x 2 bytes off 16: one channel a thread, the same bits."""
+    from lfb_tpu_torch.ops import cuda_pool as cp
+    shape = (1, 3, 7, 7, 64)
+    n = math.prod(shape)
+    x = pool_input((n + 1,), dev, 1, torch.bfloat16)[1:].view(shape)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    for window in POOL_WINDOWS.values():
+        y, offsets = cp.max_pool_fwd(x, *window, save=True)
+        same_bits(y, aten_pool(x, window).contiguous())
+        dy = rand(y.shape, dev, 2).to(torch.bfloat16)
+        same_bits(cp.max_pool_bwd(dy, offsets, shape, *window),
+                  cp.max_pool_bwd_plain(dy, offsets, shape, *window))
+
+
+def stem_pool_operands(shape, dev, dtype, seed=3):
+    c = shape[-1]
+    x = with_specials(shape, dev, seed, dtype)
+    s, b = rand((c,), dev, seed + 1), rand((c,), dev, seed + 2)
+    s[0] = -0.0
+    return x, s, b
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 3, 9, 11, 64), (1, 2, 7, 6, 13)])
+def test_stem_pool_kernel_is_the_composition_bit_for_bit(dev, shape, dtype):
+    """max_pool3d(affine_act(x)) in one pass: forward bit for bit (NaN,
+    infinities and signed zeros in x, a -0 scale), offsets as the plain
+    version's; the backward bit for bit as the plain version's, which is
+    the composition's pool, threshold and multiply backward."""
+    from lfb_tpu_torch.ops import cuda_affine as ca
+    from lfb_tpu_torch.ops import cuda_pool as cp
+    window = POOL_WINDOWS['pool1']
+    x, s, b = stem_pool_operands(shape, dev, dtype)
+    before = launches('affine.fwd')
+    y, offsets = cp.max_pool_fwd(x, *window, save=True, scale=s, bias=b)
+    assert launches('affine.fwd') == before
+    composed = ca.affine_act_fwd(x, s, b, True)
+    same_bits(y, aten_pool(composed, window).contiguous(), 'y')
+    plain_y, plain_offsets = cp.max_pool_plain(composed, *window)
+    assert torch.equal(offsets, plain_offsets)
+    dy = with_specials(y.shape, dev, 7, dtype)
+    dy.view(-1)[::5] = 0.0
+    before = launches('pool.bwd')
+    dx = cp.max_pool_bwd(dy, offsets, shape, *window, y=y, scale=s)
+    assert launches('pool.bwd') == before + 1
+    same_bits(dx, cp.max_pool_bwd_plain(dy, offsets, shape, *window, y=y,
+                                        scale=s), 'dx')
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', POOL_SHAPES)
+@pytest.mark.parametrize('name', POOL_WINDOWS)
+def test_pool_bwd_kernel_matches_plain_and_aten(dev, name, shape, dtype):
+    """dx bit for bit as the plain gather (f32 sums in output order, one
+    rounding), the same bits on a second run, and ATen's autograd: bit for
+    bit where one window claims a position, else within 2 eps of the sum of
+    the terms' magnitudes (ATen rounds each of up to three partial sums, in
+    the order its atomics land)."""
+    from lfb_tpu_torch.ops import cuda_pool as cp
+    window = POOL_WINDOWS[name]
+    x = torch.relu(rand(shape, dev, 4)).to(dtype)
+    _, offsets = cp.max_pool_fwd(x, *window, save=True)
+    dy = rand(offsets.shape, dev, 5).to(dtype)
+    dx = cp.max_pool_bwd(dy, offsets, shape, *window)
+    same_bits(dx, cp.max_pool_bwd_plain(dy, offsets, shape, *window), 'dx')
+    same_bits(cp.max_pool_bwd(dy, offsets, shape, *window), dx, 'rerun')
+    leaf = x.clone().requires_grad_(True)
+    want, = torch.autograd.grad(aten_pool(leaf, window), leaf, dy)
+    terms = cp.max_pool_bwd_plain(dy.abs().float(), offsets, shape, *window)
+    ones = cp.max_pool_bwd_plain(torch.ones_like(dy, dtype=torch.float32),
+                                 offsets, shape, *window)
+    single = ones <= 1
+    same_bits(dx[single], want[single], 'single claims')
+    err = (dx.float() - want.float()).abs()
+    assert bool((err <= 2 * torch.finfo(dtype).eps * terms).all())
+
+
+def test_pool_bwd_kernel_is_deterministic_where_windows_overlap(dev):
+    """pool1 at the train crop's shape with many tied maxima (a quarter of
+    the input equal), so most positions take several windows: ten runs,
+    one set of bits."""
+    from lfb_tpu_torch.ops import cuda_pool as cp
+    window = POOL_WINDOWS['pool1']
+    shape = (2, 4, 112, 112, 64)
+    x = torch.relu(rand(shape, dev, 6)).to(torch.bfloat16)
+    x.view(-1)[::4] = 3.0
+    y, offsets = cp.max_pool_fwd(x, *window, save=True)
+    dy = rand(y.shape, dev, 7).to(torch.bfloat16)
+    first = cp.max_pool_bwd(dy, offsets, shape, *window)
+    for _ in range(9):
+        same_bits(cp.max_pool_bwd(dy, offsets, shape, *window), first)
+
+
+def test_pool_op_saves_offsets_only_for_a_backward(dev):
+    """No offsets (and no int64 index) without a gradient: the op runs the
+    kernel alone; with one it keeps uint8 offsets for its backward."""
+    from lfb_tpu_torch.ops import cuda_pool as cp
+    window = POOL_WINDOWS['non_local']
+    x = rand((2, 4, 8, 8, 64), dev, 8).to(torch.bfloat16)
+    before = launches('pool.fwd'), launches('pool.fwd_saved')
+    with torch.no_grad():
+        assert cp.max_pool(x.requires_grad_(True), *window).grad_fn is None
+    y = cp.max_pool(x, *window)
+    assert type(y.grad_fn).__name__ == 'MaxPoolBackward'
+    assert (launches('pool.fwd'), launches('pool.fwd_saved')) == (
+        before[0] + 2, before[1] + 1)
+    offsets = y.grad_fn.saved_tensors[0]
+    assert offsets.dtype == torch.uint8 and offsets.shape == y.shape
+
+
+def test_stem_and_pool1_gradient_matches_the_unfused_composition(dev):
+    """One f32 step of the stem conv, its affine, ReLU and pool1: the fused
+    pass's loss and gradients (conv1_w, the input clip) against the stem,
+    ``affine_act`` and ATen's pool (sums of up to 4 windows in f32, in
+    another order: 1e-5)."""
+    from lfb_tpu_torch.models.layers import norm_act
+    from lfb_tpu_torch.ops import cuda_affine as ca
+    from lfb_tpu_torch.ops.cuda_stem import StemConv
+    x = rand((2, 4, 64, 64, 3), dev, 9)
+    w = rand((64, 3, 3, 7, 7), dev, 10) * 0.05
+    s, b = rand((64,), dev, 11), rand((64,), dev, 12)
+    params = {'res_conv1_bn_s': s, 'res_conv1_bn_b': b}
+    window = POOL_WINDOWS['pool1']
+
+    def fused(xl, wl):
+        h = StemConv.apply(xl, wl, 1)
+        return norm_act(params, 'res_conv1_bn', h, use_affine=True,
+                        epsilon=1e-5, relu=True, pool=window)
+
+    def composition(xl, wl):
+        h = StemConv.apply(xl, wl, 1)
+        return aten_pool(ca.affine_act(h, s, b, relu=True), window)
+
+    dy = rand((2, 4, 16, 16, 64), dev, 13)
+    results = []
+    for fn in (fused, composition):
+        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = fn(xl, wl)
+        results.append((y, *torch.autograd.grad(y, (xl, wl), dy)))
+    for name, got, want in zip(('y', 'dx', 'dw'), *results):
+        if name == 'y':
+            same_bits(got.contiguous(), want.contiguous(), name)
+        else:
+            assert_close(got, want, 1e-5, name=name)
+
+
+def test_non_local_block_gradient_matches_the_unfused_composition(
+        dev, monkeypatch):
+    """One f32 step of a res3 non-local block (its 1x2x2 pool on the kernel)
+    against the same block on ATen's pool: windows that do not overlap, so
+    the output and every gradient bit for bit."""
+    from lfb_tpu_torch.config import flagship_cfg
+    from lfb_tpu_torch.models.backbone import NonLocal
+    from lfb_tpu_torch.models.model import init_params
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.ops import cuda_pool as cp
+    cfg = flagship_cfg({'TRAIN.VIDEO_LENGTH': 8, 'TRAIN.CROP_SIZE': 64,
+                        'LFB.WINDOW_SIZE': 4, 'TPU.COMPUTE_DTYPE': 'float32',
+                        'NUM_GPUS': 1})
+    spec = build_spec(cfg, 'train')
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(0))
+    prefix = 'nonlocal_conv3_1'
+    p = {k: v for k, v in params.items() if k.startswith(prefix)}
+    trained = [v.requires_grad_(True) for k, v in p.items()
+               if not k.endswith(('_bn_s', '_bn_b'))]     # frozen affine
+    block = NonLocal(spec, prefix, grouped=False)
+    x = rand((2, 4, 8, 8, 512), dev, 14)
+    dy = rand(x.shape, dev, 15)
+    results = []
+    for pool in ('kernel', 'aten'):
+        if pool == 'aten':
+            monkeypatch.setattr(cp, 'max_pool',
+                                lambda t, *w, **_: aten_pool(t, w))
+        before = launches('pool.bwd')
+        xl = x.clone().requires_grad_(True)
+        y = block(p, xl, True)
+        grads = torch.autograd.grad(y, [xl, *trained], dy)
+        assert launches('pool.bwd') - before == (pool == 'kernel')
+        results.append((y, *grads))
+    for got, want in zip(*results):
+        same_bits(got.contiguous(), want.contiguous())
+
+
+def test_pool_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from lfb_tpu_torch.ops import cuda_pool as cp
+    x = rand((1, 2, 8, 8, 64), dev).to(torch.bfloat16)
+    s, b = rand((64,), dev, 1), rand((64,), dev, 2)
+    pool1 = POOL_WINDOWS['pool1']
+    for args, kwargs in [((x.half(), *pool1), {}),                 # float16
+                         ((x[0], (3, 3), (2, 2), (1, 1)), {}),     # 4-D
+                         ((x, (1, 3, 3), (1, 2, 2), (0, 2, 2)), {}),  # pad
+                         ((x, (1, 17, 17), (1, 1, 1), (0, 0, 0)), {}),  # 289
+                         ((x, (1, 9, 9), (1, 1, 1), (0, 0, 0)), {}),  # no out
+                         ((x, *pool1), {'scale': s}),              # no bias
+                         ((x, *pool1), {'scale': s[:32], 'bias': b}),
+                         ((x, *pool1), {'scale': s.double(), 'bias': b}),
+                         ((x, *pool1), {'scale': s.cpu(), 'bias': b})]:
+        with pytest.raises(ValueError):
+            cp.max_pool_fwd(*args, save=False, **kwargs)
