@@ -246,10 +246,10 @@ the last line is ``{"ok": true, "device": {...}}``.
 OpenCV is imported only by phase 12 (and by the port's data layer, at
 first use).
 
-``python3 chip_smoke.py --profile DIR`` runs none of the checks: it traces
-the full-width phase-B forward, the same forward with the fused bottleneck
-and then one train step with torch.profiler and writes the traces and
-operator tables to DIR (see :func:`profile`).
+The bounds come from the benchmark's frozen cost model
+(:mod:`gpubench.cost.kernels`).  Where the time of a cell goes is the
+benchmark's to trace: ``python3 -m gpubench.run --trace 1`` and
+``python3 -m gpubench.spans``.
 """
 
 import json
@@ -261,6 +261,9 @@ import sys
 import time
 
 import numpy as np
+
+from gpubench.cost import kernels as cost
+from lfb_tpu_torch.tools.mfu_probe import card_line
 
 SEED = 0
 B, BOXES_PER_CLIP = 16, 4
@@ -492,14 +495,6 @@ def log(msg):
     print(msg, flush=True)
 
 
-def card_line():
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True, check=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def preamble():
     """Fail unless a CUDA device and the port are present; print the card."""
     import torch
@@ -707,45 +702,26 @@ def compare(label, kernel_fn, plain_fn, bound, iters, library_fn=None,
             'library_device_ms': lib_dev}
 
 
-# Published H100 SXM peaks, dense (NVIDIA's H100 datasheet): bf16 on
-# the tensor cores, f32 outside them, and the HBM3 rate.
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
-HBM_BYTES_PER_S = 3.35e12
-
-
-def least_ms(flops, nbytes, dtype):
-    """The least time the card could take for ``flops`` operations of
-    ``dtype`` ('bfloat16' or 'float32') and ``nbytes`` moved to or from
-    device memory: (ms, 'operations' or 'bytes'), the larger of the two."""
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms,
-                                                              'bytes')
-
-
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def add_bound(result, parts):
-    """Set result's bound_ms to the sum of ``parts`` [(ms, bound_by)] and
-    bound_by to what bounds the largest part."""
-    result['bound_ms'] = sum(ms for ms, _ in parts)
-    result['bound_by'] = max(parts)[1]
-    return result
+def bound(*parts):
+    """bound_ms and bound_by of ``parts``, each (calls, call) with ``call``
+    a kernel call's (family, operations, bytes, dtype) of
+    :mod:`gpubench.cost.kernels`: the calls' bounds (``cost.bound_s``)
+    summed, and what bounds the largest part, 'operations' or 'bytes'."""
+    ms = [n * 1e3 * cost.bound_s(flops, nb, dtype)
+          for n, (_, flops, nb, dtype) in parts]
+    by = ['operations' if cost.bound_s(flops, 0, dtype)
+          >= cost.bound_s(0, nb, dtype) else 'bytes'
+          for _, (_, flops, nb, dtype) in parts]
+    return {'bound_ms': sum(ms), 'bound_by': max(zip(ms, by))[1]}
 
 
-def roi_pixels(rois, size, scale=1 / 16):
-    """Feature-map pixels the boxes reach (each box's extent on the map, one
-    pixel more for the bilinear neighbours), counted once per clip."""
-    seen = np.zeros((int(rois[:, 0].max()) + 1, size, size), bool)
-    for b, x1, y1, x2, y2 in rois:
-        r0, c0 = (max(0, min(size - 1, int(np.floor(v * scale))))
-                  for v in (y1, x1))
-        r1, c1 = (max(0, min(size - 1, int(np.floor(v * scale)) + 1))
-                  for v in (y2, x2))
-        seen[int(b), r0:r1 + 1, c0:c1 + 1] = True
-    return int(seen.sum())
+def bytes_ms(nb):
+    """The bound of a bf16 kernel that only moves ``nb`` bytes, in ms."""
+    return 1e3 * cost.bound_s(0, nb, 'bfloat16')
 
 
 def sdpa_call(q, k, v, do, scale):
@@ -821,11 +797,10 @@ def check_roi_layout(label, fmap, rois_np, dense, iters):
         lambda: cuda_roi_align.roi_align_maxpool(fmap, rois),
         lambda: cuda_roi_align.roi_align_maxpool_plain(fmap, rois), 1e-5,
         iters)
-    bound = least_ms(0, roi_pixels(rois_np, fmap.shape[1]) * 2048 * 4
-                     + nbytes(rois) + rois.shape[0] * 2048 * 4, 'float32')[0]
+    bound_ms = bound((1, cost.roi_fwd(rois_np, fmap.shape[1])))['bound_ms']
     log('  roi_align_maxpool at {} rows: device {:.4f} ms, bound {:.4f} ms; '
         'at {} rows (4 boxes a clip): device {:.4f} ms'.format(
-            rois.shape[0], r['device_ms'], bound, B * BOXES_PER_CLIP,
+            rois.shape[0], r['device_ms'], bound_ms, B * BOXES_PER_CLIP,
             dense['device_ms']))
     return r
 
@@ -837,7 +812,7 @@ def log_regime(label, flops, r, lib_label):
     log('  {}: kernel device {:.4f} ms, {:.1f} TFLOP/s ({:.1f}% of the bf16 '
         'peak); {} device {:.4f} ms ({:.2f}x the kernel); {}'.format(
             label, r['device_ms'], rate, 100 * rate * 1e12
-            / PEAK_FLOPS['bfloat16'], lib_label, r['library_device_ms'],
+            / cost.PEAK_FLOPS['bfloat16'], lib_label, r['library_device_ms'],
             r['library_device_ms'] / r['device_ms'], card_line()))
 
 
@@ -891,10 +866,9 @@ def check_kernels(iters=TIMING_ITERS):
         lambda: cuda_stem.stem_conv_plain(x, w, 2), 1e-2, iters,
         lambda: F.conv3d(x_cl, w_cl, None, (1, 2, 2), (2, 3, 3)))
     out_elems = B * 32 * 128 * 128 * 64
-    results['stem_conv'] = add_bound(dict(
-        r, tolerance='1e-2',
-        library='F.conv3d (cuDNN, bf16, channels-last)'), [least_ms(
-        2 * out_elems * 735, nbytes(x, w) + 2 * out_elems, 'bfloat16')])
+    results['stem_conv'] = dict(
+        r, tolerance='1e-2', library='F.conv3d (cuDNN, bf16, channels-last)',
+        **bound((1, cost.stem_fwd(B, 32, 256, 5))))
     log_stem_rate(r['ms'], out_elems, 5)
     del x, x_cl
     # The train steps' shapes (crop 224; B = 16 in phases 11 and 13, B = 8
@@ -921,9 +895,8 @@ def check_kernels(iters=TIMING_ITERS):
         lambda: cuda_roi_align.roi_align_maxpool(fmap, rois),
         lambda: cuda_roi_align.roi_align_maxpool_plain(fmap, rois), 1e-5,
         iters)
-    results['roi_align_maxpool'] = add_bound(dict(r, tolerance='1e-5'), [
-        least_ms(0, roi_pixels(rois_np, 16) * 2048 * 4 + nbytes(rois)
-                 + rois.shape[0] * 2048 * 4, 'float32')])
+    results['roi_align_maxpool'] = dict(
+        r, tolerance='1e-5', **bound((1, cost.roi_fwd(rois_np, 16))))
     # The layout of a batch from the AVA dataset (phase 12), logged beside.
     check_roi_layout('1-6 boxes a clip', fmap,
                      roi_layout(rng, B, MAX_BOXES_PER_CLIP, 256), r, iters)
@@ -953,9 +926,8 @@ def check_kernels(iters=TIMING_ITERS):
         for key in ('ms', 'device_ms', 'plain_ms', 'library_ms',
                     'library_device_ms'):
             total[key] += calls * r[key]
-        ms, by = least_ms(4 * b * nq * nk * c, 2 * nbytes(q) + nbytes(k, v),
-                          str(dtype).split('.')[-1])
-        parts.append((calls * ms, by))
+        parts.append((calls, cost.attention_fwd(b, nq, nk, c,
+                                                str(dtype).split('.')[-1])))
     log('attention, the 8 calls of one phase-B forward: kernel {:.3f} ms '
         '(device {:.3f} ms), plain {:.3f} ms, SDPA {:.3f} ms (device {:.3f} '
         'ms); device kernel / SDPA {:.3f}; {}'.format(
@@ -976,12 +948,13 @@ def check_kernels(iters=TIMING_ITERS):
             lambda: cuda_attention.attention_plain(q, k, v, 512 ** -0.5),
             1e-5, iters, lib_fwd)
         total['err'] = max(total['err'], r['err'])
-        log('  bound for {}: {:.5f} ms, {}'.format(label, *least_ms(
-            4 * B * nk * 512, 2 * nbytes(q) + nbytes(k, v), 'float32')))
-    results['attention'] = add_bound(dict(
+        decode = bound((1, cost.attention_fwd(B, 1, nk, 512, 'float32')))
+        log('  bound for {}: {:.5f} ms, {}'.format(
+            label, decode['bound_ms'], decode['bound_by']))
+    results['attention'] = dict(
         total, tolerance='1e-5 f32, 1e-2 bf16',
         library='F.scaled_dot_product_attention ({})'.format(
-            ', '.join(backends))), parts)
+            ', '.join(backends)), **bound(*parts))
     del q, k, v
     results['fused_bottleneck'] = check_bottleneck(g, iters)
     results['affine_act'] = check_affine(g, iters)
@@ -1052,10 +1025,11 @@ def check_affine(g, iters):
         timed_row = compare('affine_act {} x{} bf16'.format(label, shape),
                             kernel, plain, 0.0, iters, plain, 'composition')
         bitwise(label, (kernel(),), (plain(),))
-        rows[label] = add_bound(dict(
+        rows[label] = dict(
             timed_row, tolerance='0 (bit for bit)',
-            library='the PyTorch composition it replaces'),
-            [least_ms(0, nbytes(x) * (2 + (r is not None)), 'bfloat16')])
+            library='the PyTorch composition it replaces',
+            bound_ms=bytes_ms(nbytes(x) * (2 + (r is not None))),
+            bound_by='bytes')
         log_row(label, timed_row, rows[label]['bound_ms'])
         del x, r
     # The backward: dx, and the shortcut's gradient (g through the ReLU for
@@ -1084,8 +1058,8 @@ def check_affine(g, iters):
             'affine_act_bwd {} x{} bf16 (train shape)'.format(label, shape),
             kernel, plain, 0.0, iters, plain, 'composition')
         bitwise('backward ' + label, kernel(), plain())
-        log_row('backward ' + label, timed_row, least_ms(
-            0, nbytes(dy) * (1 + relu + len(outs)), 'bfloat16')[0])
+        log_row('backward ' + label, timed_row,
+                bytes_ms(nbytes(dy) * (1 + relu + len(outs))))
         del dy, y
     return rows['res2 2c + shortcut + ReLU']
 
@@ -1176,12 +1150,12 @@ def check_pool(g, iters):
         y = kernel()
         bitwise(label, y, plain())
         bitwise(label + ' against ' + lib_label, y, library())
-        bound = least_ms(0, nbytes(x, y), 'bfloat16')[0]
-        log_row(label, r, bound, lib_label)
+        bound_ms = bytes_ms(nbytes(x, y))
+        log_row(label, r, bound_ms, lib_label)
         for key in ('ms', 'device_ms', 'plain_ms', 'library_ms',
                     'library_device_ms'):
             total[key] += per_forward * r[key]
-        total['bound_ms'] += per_forward * bound
+        total['bound_ms'] += per_forward * bound_ms
         del x, y
         # The train crop: the forward with offsets, then the backward.
         x = randn(*train_shape).to(torch.bfloat16)
@@ -1208,7 +1182,7 @@ def check_pool(g, iters):
             label, train_shape), kernel_saved, plain_saved, 0.0, iters,
             library_saved, lib_label + ' with indices')
         log_row(label + ' with offsets', r,
-                least_ms(0, nbytes(x, y) + offsets.numel(), 'bfloat16')[0],
+                bytes_ms(nbytes(x, y) + offsets.numel()),
                 lib_label + ' with indices')
         dy = randn(*y.shape).to(torch.bfloat16)
         h = ca.affine_act_fwd(x, s, b, True) if stem else x
@@ -1238,9 +1212,9 @@ def check_pool(g, iters):
         dx = backward()
         bitwise(label + ' backward', dx, plain_backward())
         bitwise(label + ' backward, second call', backward(), dx)
-        log_row(label + ' backward', r, least_ms(
-            0, nbytes(dy, dx) + offsets.numel()
-            + (nbytes(y) if stem else 0), 'bfloat16')[0], lib_bwd)
+        log_row(label + ' backward', r, bytes_ms(
+            nbytes(dy, dx) + offsets.numel() + (nbytes(y) if stem else 0)),
+            lib_bwd)
         del x, y, offsets, dy, h, index, dy_cf, h_cf, dx
     log('  max_pool: a forward\'s 7 launches at crop 256: device {:.4f} ms '
         'against the bound {:.4f} ms; what they replace {:.4f} ms'.format(
@@ -1335,25 +1309,23 @@ def check_bottleneck(g, iters):
             for i, key in enumerate(('ms', 'plain_ms', 'library_ms',
                                      'device_ms', 'library_device_ms')):
                 totals[name][i] += n * r[key]
-        pixels, c = x.numel() // shape[-1], shape[-1]
-        flops = 2 * pixels * (c * ci * kt + 9 * ci * ci + ci * c)
-        ms, by = least_ms(flops, 2 * nbytes(x) + 2 * (c * ci * kt + 9 * ci
-                                                      * ci + ci * c),
-                          'bfloat16')
-        rate = flops / (r['device_ms'] * 1e-3) / 1e12
+        call = cost.bottleneck(shape, ci, kt)
+        block = bound((1, call))
+        rate = call[1] / (r['device_ms'] * 1e-3) / 1e12
         same = torch.equal(fused(), fused())
         log('  {}: kernel device {:.4f} ms, {:.1f} TFLOP/s ({:.1f}% of the '
             'bf16 peak; bound {:.4f} ms, {}); unfused bf16 block device '
             '{:.4f} ms ({:.3f}x the kernel); two calls bitwise equal: {}; '
             '{}'.format(label, r['device_ms'], rate,
-                        100 * rate * 1e12 / PEAK_FLOPS['bfloat16'], ms, by,
+                        100 * rate * 1e12 / cost.PEAK_FLOPS['bfloat16'],
+                        block['bound_ms'], block['bound_by'],
                         r['library_device_ms'],
                         r['library_device_ms'] / r['device_ms'], same,
                         card_line()))
         if not same:
             raise AssertionError('fused_bottleneck {}: two calls '
                                  'differ'.format(label))
-        parts.append((n_ava * ms, by))
+        parts.append((n_ava, call))
         del x
     for name, (ms, plain_ms, unfused_ms, dev_ms, unfused_dev) in (
             totals.items()):
@@ -1362,10 +1334,10 @@ def check_bottleneck(g, iters):
             'blocks {:.3f} ms (device {:.3f} ms); device kernel / unfused '
             '{:.3f}'.format(name, ms, dev_ms, plain_ms, unfused_ms,
                             unfused_dev, dev_ms / unfused_dev))
-    return add_bound({'err': err, 'ms': totals['flagship'][0],
-                      'device_ms': totals['flagship'][3],
-                      'plain_ms': totals['flagship'][1], 'library_ms': None,
-                      'tolerance': '1e-2'}, parts)
+    return {'err': err, 'ms': totals['flagship'][0],
+            'device_ms': totals['flagship'][3],
+            'plain_ms': totals['flagship'][1], 'library_ms': None,
+            'tolerance': '1e-2', **bound(*parts)}
 
 
 def perturbed_params(spec, device):
@@ -2098,18 +2070,6 @@ def checkpoint_phase(spec, params, bank, batch):
                         len(kept)))
 
 
-def busy_us(intervals, t0, t1):
-    """Length of the union of the (start, end) ``intervals`` inside
-    [t0, t1]."""
-    busy, end = 0.0, t0
-    for a, b in sorted(intervals):
-        a, b = max(a, end), min(b, t1)
-        if b > a:
-            busy += b - a
-            end = b
-    return busy
-
-
 def check_backward_kernels(iters=TIMING_ITERS):
     """Phase 9: each backward kernel vs its plain version at the train
     steps' shapes (T 32, crop 224): at the released global batch, B = 16
@@ -2191,10 +2151,10 @@ def check_backward_at(n_clips, iters):
         lambda: torch.nn.grad.conv3d_weight(x_cl, (64, 3, 5, 7, 7), dy_cl,
                                             stride=(1, 2, 2),
                                             padding=(2, 3, 3)))
-    results['stem_conv_dw'] = add_bound(dict(
+    results['stem_conv_dw'] = dict(
         r, tolerance='1e-2',
-        library='torch.nn.grad.conv3d_weight (cuDNN, bf16)'), [least_ms(
-        2 * dy.numel() * 735, nbytes(x, dy) + 64 * 735 * 4, 'bfloat16')])
+        library='torch.nn.grad.conv3d_weight (cuDNN, bf16)',
+        **bound((1, cost.stem_dw(n_clips, 32, 224, 5))))
     # Its rate: the direct conv's operations (kT x 147 multiply-adds per
     # output gradient element) and those of the packed product it runs.
     direct, packed = 2 * dy.numel() * 5 * 147, 2 * dy.numel() * 5 * 256
@@ -2203,7 +2163,7 @@ def check_backward_at(n_clips, iters):
         'of the direct conv ({:.1f}% of the bf16 peak), {:.1f} of the '
         'packed product; cuDNN wgrad device {:.4f} ms; device kernel / cuDNN '
         '{:.3f}; {}'.format(n_clips, r['device_ms'], rate,
-                            100 * rate * 1e12 / PEAK_FLOPS['bfloat16'],
+                            100 * rate * 1e12 / cost.PEAK_FLOPS['bfloat16'],
                             packed / (r['device_ms'] * 1e-3) / 1e12,
                             r['library_device_ms'],
                             r['device_ms'] / r['library_device_ms'],
@@ -2222,8 +2182,7 @@ def check_backward_at(n_clips, iters):
         lambda: cuda_roi_align.roi_align_maxpool_plain(fmap, rois), 1e-5,
         iters)
     log('  roi_align_maxpool bound at the train shape: {:.4f} ms'.format(
-        least_ms(0, roi_pixels(rois_np, 14) * 2048 * 4 + nbytes(rois)
-                 + n * 2048 * 4, 'float32')[0]))
+        bound((1, cost.roi_fwd(rois_np, 14)))['bound_ms']))
     r = compare(
         'roi_align_maxpool_bwd fmap{} rois{} f32'.format(tuple(fmap.shape),
                                                          tuple(rois.shape)),
@@ -2232,10 +2191,9 @@ def check_backward_at(n_clips, iters):
         1e-5, iters)
     # The map's pixels the boxes reach are read; the whole gradient map is
     # written.
-    results['roi_align_maxpool_bwd'] = add_bound(dict(r, tolerance='1e-5'), [
-        least_ms(0, roi_pixels(rois_np, 14) * 2048 * 4 + nbytes(fmap, rois,
-                                                                 dout),
-                 'float32')])
+    results['roi_align_maxpool_bwd'] = dict(
+        r, tolerance='1e-5',
+        **bound((1, cost.roi_bwd(rois_np, n_clips, 14))))
     del fmap
 
     # (label, B, Nq, Nk, C, dtype, calls per train step)
@@ -2295,21 +2253,18 @@ def check_backward_at(n_clips, iters):
         total['plain_ms'] += calls * r['plain_ms']
         total['library_ms'] += calls * lib_ms
         total['library_device_ms'] += calls * lib_dev
-        ms, by = least_ms(10 * b * nq * nk * c,
-                          nbytes(q, k, v, do, lse, delta) + 4 * (
-                              q.numel() + k.numel() + v.numel()),
-                          str(dtype).split('.')[-1])
-        parts.append((calls * ms, by))
+        parts.append((calls, cost.attention_bwd(b, nq, nk, c,
+                                                str(dtype).split('.')[-1])))
     log('attention_bwd, the 8 calls of one train step at B = {}: kernel '
         '{:.3f} ms (device {:.3f} ms), plain {:.3f} ms, SDPA backward {:.3f} '
         'ms (device {:.3f} ms); device kernel / SDPA {:.3f}; {}'.format(
             n_clips, total['ms'], total['device_ms'], total['plain_ms'],
             total['library_ms'], total['library_device_ms'],
             total['device_ms'] / total['library_device_ms'], card_line()))
-    results['attention_bwd'] = add_bound(dict(
+    results['attention_bwd'] = dict(
         total, tolerance='1e-5 f32, 1e-2 bf16',
         library='F.scaled_dot_product_attention backward ({})'.format(
-            ', '.join(backends))), parts)
+            ', '.join(backends)), **bound(*parts))
     return results
 
 
@@ -4298,123 +4253,14 @@ def rehearsal_phase():
     return totals
 
 
-def trace_window(label, run, count, out, stem):
-    """Run ``run(i)`` for i < ``count`` on the host clock, then the same
-    under torch.profiler; write the Chrome trace and the operator table to
-    ``out`` and print, from the traced window alone, device time per kernel
-    and the device's idle share: 1 - (union of the card's kernel, copy and
-    memset intervals) / (the window on the host clock, from the first
-    launch to the card's last work)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-    stamps = []
-    for i in timed(range(count), stamps):
-        run(i)
-    plain_ms = (stamps[-1] - stamps[0]) * 1e3 / count
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function('traced_window'):
-            for i in range(count):
-                run(i)
-            torch.cuda.synchronize()
-    trace_path = out / '{}_trace.json'.format(stem)
-    prof.export_chrome_trace(str(trace_path))
-    (out / '{}_ops.txt'.format(stem)).write_text(prof.key_averages().table(
-        sort_by='self_cuda_time_total', row_limit=60))
-    events = [e for e in json.loads(trace_path.read_text())['traceEvents']
-              if e.get('ph') == 'X']
-    window = next(e for e in events if e['name'] == 'traced_window'
-                  and e.get('cat') == 'user_annotation')
-    t0, t1 = window['ts'], window['ts'] + window['dur']
-    device = [e for e in events
-              if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')
-              and t0 <= e['ts'] <= t1]
-    busy = busy_us([(e['ts'], e['ts'] + e['dur']) for e in device], t0, t1)
-    per_name = {}
-    for e in device:
-        per_name[e['name']] = per_name.get(e['name'], 0.0) + e['dur']
-    log('profile, {}: untraced {:.1f} ms each; traced window {:.1f} ms each, '
-        'device busy {:.1f} ms each, idle share {:.4f}'.format(
-            label, plain_ms, (t1 - t0) / 1e3 / count, busy / 1e3 / count,
-            1 - busy / (t1 - t0)))
-    for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:15]:
-        log('  {:8.3f} ms each {:5.1f}%  {}'.format(
-            us / 1e3 / count, 100 * us / busy, name[:100]))
-    log('wrote {} and {}'.format(trace_path, out / '{}_ops.txt'.format(stem)))
-
-
-def profile(cfg, out_dir, forwards=3):
-    """``--profile DIR``: the full-width phase-B forward (two warm-ups, then
-    ``forwards`` batches), one such forward with the fused bottleneck (two
-    warm-ups first) and then the train step at B = 8 (two warm-ups, then one
-    step) with the same device bank, each through :func:`trace_window`."""
-    import pathlib
-    import torch
-    from lfb_tpu_torch.bank.device_bank import build_device_bank
-    from lfb_tpu_torch.config import flagship_cfg
-    from lfb_tpu_torch.models.spec import build_spec
-    from lfb_tpu_torch.train import optimizer
-    from lfb_tpu_torch.train.optimizer import get_lr_at_iter
-    from lfb_tpu_torch.train.steps import (make_eval_step, make_train_step,
-                                           split_params)
-    out = pathlib.Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    dev = torch.device('cuda')
-    spec_b = build_spec(cfg, 'test')
-    params = perturbed_params(spec_b, dev)
-    rng = np.random.default_rng(SEED + 3)
-    bank = build_device_bank(cfg, synthetic_host_bank({}, rng), device=dev)
-    infer = make_eval_step(spec_b, bank=bank, bank_seed=SEED)
-    batches = [make_batch(spec_b, rng, dev) for _ in range(forwards)]
-    for batch in batches[:2]:
-        infer(params, batch)
-    trace_window('phase B at B = {}'.format(B),
-                 lambda i: infer(params, batches[i]), forwards, out, 'phase_b')
-    infer = make_eval_step(
-        build_spec(flagship_cfg({**CFG_OVERRIDES, **FUSED}), 'test'),
-        bank=bank, bank_seed=SEED)
-    for batch in batches[:2]:
-        infer(params, batch)
-    trace_window('phase B at B = {}, fused bottleneck'.format(B),
-                 lambda i: infer(params, batches[2 + i]), 1, out,
-                 'phase_b_fused')
-    del params, batches
-
-    spec = build_spec(cfg, 'train')
-    params = perturbed_params(spec, dev)
-    trainable, frozen = split_params(spec, params)
-    state = optimizer.init_state(params, set(frozen))
-    step = make_train_step(spec, cfg.SOLVER, bank=bank)
-    batches = [make_batch(spec, rng, dev, n_clips=TRAIN_B, with_labels=True)
-               for _ in range(3)]
-
-    def train(i):
-        step(trainable, frozen, state, batches[i],
-             torch.Generator(device=dev).manual_seed(SEED + i),
-             get_lr_at_iter(cfg.SOLVER, i))
-
-    for i in range(2):
-        train(i)
-    trace_window('train step at B = {}'.format(TRAIN_B),
-                 lambda i: train(2 + i), 1, out, 'train_step')
-
-
 def main():
-    import argparse
-    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument(
-        '--profile', metavar='DIR',
-        help='instead of the checks, trace the full-width phase-B forward and '
-             'a train step and write the traces and operator tables to DIR')
-    args = parser.parse_args()
+    if sys.argv[1:]:
+        raise SystemExit('chip_smoke: takes no arguments')
     t_start = time.perf_counter()
     preamble()
     import torch
     from lfb_tpu_torch.config import flagship_cfg
     cfg = flagship_cfg(CFG_OVERRIDES)
-    if args.profile:
-        profile(cfg, args.profile)
-        return
     results = check_kernels()
     reference_check(cfg)
     launches, bank = main_path(cfg)

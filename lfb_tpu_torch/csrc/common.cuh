@@ -50,6 +50,38 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// bf16 and the shared-memory helpers of the kernels that stage tiles
+// themselves: a generic pointer as a shared-state-space address, cp.async
+// copies into shared memory, and an f32 pair rounded to a bf16 pair.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-fills the destination when !valid (src
+// must still be a valid address).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // Dynamic shared memory above 48 KB needs an explicit opt-in per kernel.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -64,7 +64,6 @@
 #include <math_constants.h>
 
 #include "common.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 

@@ -9,12 +9,12 @@
 // the 4 warps of a warpgroup (warps 4k .. 4k + 3 of the CTA) issue one
 // m64nNk16 product together.  With A from registers, warp w holds rows
 // 16 w .. 16 w + 15 of the 64 x 16 A tile in mma.m16n8k16's A layout
-// (mma_bf16.cuh: a0 row g k 2t.., a1 row g + 8, a2 row g k 2t + 8.., a3 row
-// g + 8 k 2t + 8..), so one ldmatrix.x4 per warp loads it.  The f32
-// accumulator of m64n64 is 32 floats a thread: warp w owns rows 16 w ..
-// 16 w + 15, and d[4 i .. 4 i + 3] is mma.m16n8's C layout for columns
-// 8 i .. 8 i + 7 (d[4 i], d[4 i + 1]: row g, cols 8 i + 2 t, + 1; d[4 i + 2],
-// d[4 i + 3]: row g + 8).
+// (with g = lane / 4 and t = lane % 4: a0 row g k 2t.., a1 row g + 8, a2
+// row g k 2t + 8.., a3 row g + 8 k 2t + 8..), so one ldmatrix.x4 per warp
+// loads it.  The f32 accumulator of m64n64 is 32 floats a thread: warp w
+// owns rows 16 w .. 16 w + 15, and d[4 i .. 4 i + 3] is mma.m16n8's C
+// layout for columns 8 i .. 8 i + 7 (d[4 i], d[4 i + 1]: row g, cols
+// 8 i + 2 t, + 1; d[4 i + 2], d[4 i + 3]: row g + 8).
 //
 // B comes from shared memory through a 64-bit descriptor.  Without swizzle
 // a K-major operand is made of 8 x 8 core matrices, each 8 rows (n) of 16
@@ -50,7 +50,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "common.cuh"
 
 namespace lfb {
 

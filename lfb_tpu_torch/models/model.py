@@ -1,5 +1,6 @@
-"""Full model: backbone -> head -> FBO -> classifier -> loss (port of
+"""Full model: backbone -> head -> FBO -> classifier (port of
 ``lfb_tpu/models/model.py``; reference ``lib/models/resnet_video.py:133-351``).
+The loss is the steps' (:func:`lfb_tpu_torch.train.steps.loss`).
 
 Under a profiler the head, the FBO (with the bank window's cast to f32),
 its backward and the classifier are the spans ``lfb.model.head``,
@@ -14,7 +15,6 @@ from typing import Dict, Mapping
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from lfb_tpu_torch.models.backbone import Backbone, init_backbone
 from lfb_tpu_torch.models.fbo import fbo_forward, init_fbo
@@ -65,23 +65,16 @@ def frozen_param_names(spec: ModelSpec, params: Mapping) -> set:
 
 
 class LFBModel(nn.Module):
-    """The model.  ``params`` is the flat ``{caffe2_name: tensor}`` mapping;
-    it stays reachable, unchanged, as ``model.params``, which the
-    inference call ``model(batch)`` reads.  :meth:`run` takes any mapping,
-    so training can pass tensors that carry gradients."""
+    """The model's module tree, which holds no weights: :meth:`run` reads
+    them from the flat ``{caffe2_name: tensor}`` mapping it is given, so one
+    model serves every call, and training passes tensors that carry
+    gradients."""
 
-    def __init__(self, spec: ModelSpec,
-                 params: Mapping[str, torch.Tensor] | None = None):
+    def __init__(self, spec: ModelSpec):
         super().__init__()
         self.spec = spec
-        self.params = nn.ParameterDict({
-            name: nn.Parameter(value, requires_grad=False)
-            for name, value in (params or {}).items()})
         self.backbone = Backbone(spec)
         self.roi_head = RoIHead(spec) if spec.head_type == 'roi' else None
-
-    def forward(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return self.run(self.params, batch)
 
     def run(self, p: Mapping[str, torch.Tensor],
             batch: Mapping[str, torch.Tensor], *, train: bool = False,
@@ -92,16 +85,14 @@ class LFBModel(nn.Module):
                      (normalized here, the TPU.DEVICE_NORMALIZE path).
           proposals: AVA only -- (N_box, 5) [batch_idx, x1, y1, x2, y2].
           lfb:       (rows, W, lfb_dim) bank windows, with the FBO.
-          labels:    optional (N_box or B, num_classes) multi-hot, or (B,)
-                     class ids; gives 'loss'.
-          box_mask:  optional (N_box,) 1 for real boxes, 0 for padding.
+        Other blobs (labels, box_mask, ...) are not read.
 
         Returns 'box_pooled' (AVA) or 'pool5', plus 'logits' and 'prob'
-        unless the spec is the bank-extraction (lfb_infer_only) one, and
-        'loss' when the batch has labels.  ``train`` turns on dropout, drawn
-        from ``generator``; with true BN (``spec.use_affine`` False) it also
-        normalizes with batch statistics and returns them under
-        'bn_updates' ({bn layer name: (mean, var)}, as ``lfb_tpu``).
+        unless the spec is the bank-extraction (lfb_infer_only) one.
+        ``train`` turns on dropout, drawn from ``generator``; with true BN
+        (``spec.use_affine`` False) it also normalizes with batch statistics
+        and returns them under 'bn_updates' ({bn layer name: (mean, var)},
+        as ``lfb_tpu``).
         """
         spec = self.spec
         x = batch['data']
@@ -143,9 +134,6 @@ class LFBModel(nn.Module):
             out['logits'] = logits
             out['prob'] = (torch.sigmoid(logits) if spec.multi_label
                            else torch.softmax(logits, dim=-1))
-            if batch.get('labels') is not None:
-                out['loss'] = _loss(spec, logits, batch['labels'],
-                                    batch.get('box_mask'))
         if bn_updates:
             out['bn_updates'] = bn_updates
         return out
@@ -155,42 +143,12 @@ def forward(spec: ModelSpec, params: Mapping[str, torch.Tensor],
             batch: Mapping[str, torch.Tensor], *, train: bool = False,
             generator: torch.Generator | None = None
             ) -> Dict[str, torch.Tensor]:
-    """Functional form of :class:`LFBModel`, as ``lfb_tpu.models.forward``.
-    Inference runs under ``torch.inference_mode``; training runs with
-    autograd on, so gradients reach whichever ``params`` require them."""
-    if not train:
-        with torch.inference_mode():
-            return LFBModel(spec, params)(batch)
-    return LFBModel(spec).run(params, batch, train=True, generator=generator)
-
-
-def loss_parts(spec: ModelSpec, logits: torch.Tensor, labels: torch.Tensor,
-               box_mask: torch.Tensor | None):
-    """(numerator sum, denominator count) of the classification loss
-    (``lfb_tpu`` ``model.py:139-158``): per-element sigmoid cross-entropy
-    weighted by ``box_mask`` for multi-label, softmax cross-entropy for
-    single-label."""
-    logits = logits.float()
-    if spec.multi_label:
-        labels = labels.float()
-        per_elem = (torch.clamp(logits, min=0) - logits * labels
-                    + torch.log1p(torch.exp(-torch.abs(logits))))
-        if box_mask is not None:
-            w = box_mask.float()[:, None]
-            per_elem = per_elem * w
-            denom = torch.sum(w) * logits.shape[-1]
-        else:
-            denom = torch.tensor(float(per_elem.numel()), device=logits.device)
-        return torch.sum(per_elem), denom
-    log_p = F.log_softmax(logits, dim=-1)
-    nll = -torch.gather(log_p, -1, labels.long()[:, None])[:, 0]
-    return torch.sum(nll), torch.tensor(float(nll.shape[0]),
-                                        device=logits.device)
-
-
-def _loss(spec: ModelSpec, logits: torch.Tensor, labels: torch.Tensor,
-          box_mask: torch.Tensor | None) -> torch.Tensor:
-    """The mean classification loss: numerator / max(denominator, 1), with
-    no 1/NUM_GPUS factor (``lfb_tpu`` ``model.py:161-173``)."""
-    num, den = loss_parts(spec, logits, labels, box_mask)
-    return num / torch.clamp(den, min=1.0)
+    """One call of :meth:`LFBModel.run` on a model built for it, as
+    ``lfb_tpu.models.forward``; the steps build theirs once.  Inference runs
+    under ``torch.inference_mode``; training runs with autograd on, so
+    gradients reach whichever ``params`` require them."""
+    model = LFBModel(spec)
+    if train:
+        return model.run(params, batch, train=True, generator=generator)
+    with torch.inference_mode():
+        return model.run(params, batch)

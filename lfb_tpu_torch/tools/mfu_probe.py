@@ -87,12 +87,16 @@ def _train_batch(spec, B: int, crop: int, boxes_per_clip: int = 4,
 
 
 def _loss_fn(spec) -> Callable:
-    from lfb_tpu_torch.models.model import forward
+    """(params, batch) -> the train-mode forward's loss, on one model."""
+    from lfb_tpu_torch.models.model import LFBModel
+    from lfb_tpu_torch.train.steps import loss
+    model = LFBModel(spec)
 
     def fwd_loss(params, batch):
         generator = torch.Generator(batch['data'].device).manual_seed(0)
-        return forward(spec, params, batch, train=True,
-                       generator=generator)['loss']
+        logits = model.run(params, batch, train=True,
+                           generator=generator)['logits']
+        return loss(spec, logits, batch['labels'], batch['box_mask'])
     return fwd_loss
 
 

@@ -19,7 +19,7 @@ from typing import Dict, Mapping
 
 import torch
 
-from lfb_tpu_torch.models.model import forward
+from lfb_tpu_torch.models.model import LFBModel
 from lfb_tpu_torch.models.spec import ModelSpec
 from lfb_tpu_torch.train.steps import (_inject_device_bank_lfb,
                                        _localize_proposals)
@@ -48,6 +48,7 @@ def compute_precise_bn_stats(spec: ModelSpec,
     sums: Dict[str, torch.Tensor] = {}
     sq_sums: Dict[str, torch.Tensor] = {}
     count = 0
+    model = LFBModel(spec)
     with torch.no_grad():
         for i, batch in enumerate(batches):
             if i >= num_iters:
@@ -56,8 +57,7 @@ def compute_precise_bn_stats(spec: ModelSpec,
             generator.manual_seed(0)
             batch = _localize_proposals(batch)
             batch = _inject_device_bank_lfb(spec, bank, batch, generator)
-            out = forward(spec, params, batch, train=True,
-                          generator=generator)
+            out = model.run(params, batch, train=True, generator=generator)
             for name, (mean, var) in out['bn_updates'].items():
                 sq = var + mean ** 2            # E[x^2] of the batch
                 if name not in sums:

@@ -1,6 +1,9 @@
-"""Train and eval steps (port of ``lfb_tpu/train/steps.py``:
+"""Train and eval steps and their loss (port of ``lfb_tpu/train/steps.py``:
 ``make_train_step``, ``make_eval_step``, ``split_params``,
-``_inject_device_bank_lfb`` and ``_localize_proposals``).
+``_inject_device_bank_lfb`` and ``_localize_proposals``; the loss of
+``lfb_tpu/models/model.py``).  Each step factory builds the model's module
+tree once (:class:`~lfb_tpu_torch.models.model.LFBModel`), and every call
+runs it on the params it is given.
 
 In a process group (:mod:`lfb_tpu_torch.parallel.mesh`) each rank runs the
 step on its shard of the global batch, as ``lfb_tpu``'s shard_map body runs
@@ -21,8 +24,9 @@ from __future__ import annotations
 from typing import Dict, Mapping
 
 import torch
+import torch.nn.functional as F
 
-from lfb_tpu_torch.models.model import forward, frozen_param_names, loss_parts
+from lfb_tpu_torch.models.model import LFBModel, frozen_param_names
 from lfb_tpu_torch.models.spec import ModelSpec
 from lfb_tpu_torch.parallel import mesh
 from lfb_tpu_torch.train import optimizer as opt
@@ -77,17 +81,42 @@ def _localize_proposals(batch):
     return batch
 
 
-def _loss(spec: ModelSpec, logits, batch):
-    """(the rank's part of the global mean loss, the global denominator):
-    the numerator over max(the denominator summed over the ranks, 1), as
-    ``lfb_tpu``'s shard_map step forms it.  The sum of the ranks' parts
-    (and of their gradients) is the global loss (and its gradient), with no
-    1/world factor: a mean of per-rank means would weight a box by the
-    number of valid boxes on its rank."""
-    num, den = loss_parts(spec, logits, batch['labels'],
-                          batch.get('box_mask'))
+def loss_parts(spec: ModelSpec, logits: torch.Tensor, labels: torch.Tensor,
+               box_mask: torch.Tensor | None):
+    """(numerator sum, denominator count) of the classification loss
+    (``lfb_tpu`` ``model.py:139-158``): per-element sigmoid cross-entropy
+    weighted by ``box_mask`` for multi-label, softmax cross-entropy for
+    single-label."""
+    logits = logits.float()
+    if spec.multi_label:
+        labels = labels.float()
+        per_elem = (torch.clamp(logits, min=0) - logits * labels
+                    + torch.log1p(torch.exp(-torch.abs(logits))))
+        if box_mask is not None:
+            w = box_mask.float()[:, None]
+            per_elem = per_elem * w
+            denom = torch.sum(w) * logits.shape[-1]
+        else:
+            denom = torch.tensor(float(per_elem.numel()), device=logits.device)
+        return torch.sum(per_elem), denom
+    log_p = F.log_softmax(logits, dim=-1)
+    nll = -torch.gather(log_p, -1, labels.long()[:, None])[:, 0]
+    return torch.sum(nll), torch.tensor(float(nll.shape[0]),
+                                        device=logits.device)
+
+
+def loss(spec: ModelSpec, logits: torch.Tensor, labels: torch.Tensor,
+         box_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The rank's part of the global mean loss: the numerator over
+    max(the denominator summed over the ranks, 1), as ``lfb_tpu``'s
+    shard_map step forms it, with no 1/NUM_GPUS factor; outside a process
+    group the plain mean (``lfb_tpu`` ``model.py:161-173``).  The sum of
+    the ranks' parts (and of their gradients) is the global loss (and its
+    gradient): a mean of per-rank means would weight a box by the number of
+    valid boxes on its rank."""
+    num, den = loss_parts(spec, logits, labels, box_mask)
     den = mesh.all_sum(den.detach().clone())
-    return num / torch.clamp(den, min=1.0), den
+    return num / torch.clamp(den, min=1.0)
 
 
 def make_train_step(spec: ModelSpec, solver, bank=None):
@@ -116,6 +145,7 @@ def make_train_step(spec: ModelSpec, solver, bank=None):
     wd = float(solver.WEIGHT_DECAY)
     wd_bn = float(solver.WEIGHT_DECAY_BN)
     bn_momentum = float(spec.bn_momentum)
+    model = LFBModel(spec)
 
     def step(trainable: Dict[str, torch.Tensor],
              frozen: Dict[str, torch.Tensor], mstate: opt.SGDState,
@@ -129,13 +159,13 @@ def make_train_step(spec: ModelSpec, solver, bank=None):
             # update below writes through to the caller's tensors.
             leaves = {k: trainable[k].detach().requires_grad_(True)
                       for k in names}
-            out = forward(spec, {**leaves, **frozen},
-                          {k: v for k, v in batch.items() if k != 'labels'},
-                          train=True, generator=generator)
+            out = model.run({**leaves, **frozen}, batch, train=True,
+                            generator=generator)
             with span('lfb.step.loss'):
-                loss, _ = _loss(spec, out['logits'], batch)
+                value = loss(spec, out['logits'], batch['labels'],
+                             batch.get('box_mask'))
             with span('lfb.step.backward'):
-                grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+                grads = torch.autograd.grad(value, [leaves[k] for k in names])
                 mesh.all_sum_flat(grads)
             with span('lfb.train.optimizer'):
                 trainable, mstate = opt.apply_updates(
@@ -148,7 +178,7 @@ def make_train_step(spec: ModelSpec, solver, bank=None):
                         running = frozen[name + suffix]
                         running.copy_(bn_momentum * running
                                       + (1.0 - bn_momentum) * stat)
-            aux = {'loss': mesh.all_sum(loss.detach()),
+            aux = {'loss': mesh.all_sum(value.detach()),
                    'prob': mesh.gather_rows(out['prob'].detach())}
             return trainable, frozen, mstate, aux
 
@@ -163,6 +193,7 @@ def make_eval_step(spec: ModelSpec, bank=None, bank_seed: int = 0,
     bank windows from a generator seeded with ``bank_seed``.  In a process
     group the outputs are gathered into the global batch's order and
     'loss' is the global mean."""
+    model = LFBModel(spec)
 
     def step(params: Mapping[str, torch.Tensor],
              batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -174,13 +205,13 @@ def make_eval_step(spec: ModelSpec, bank=None, bank_seed: int = 0,
             with torch.inference_mode():
                 batch = _localize_proposals(batch)
                 batch = _inject_device_bank_lfb(spec, bank, batch, generator)
-                out = forward(spec, params, {k: v for k, v in batch.items()
-                                             if k != 'labels'})
+                out = model.run(params, batch)
                 keep = {k: mesh.gather_rows(out[k]) for k in _OUTPUTS
                         if k in out}
                 if with_loss and 'labels' in batch:
-                    keep['loss'] = _loss(spec, out['logits'], batch)[0]
-                    mesh.all_sum(keep['loss'])
+                    keep['loss'] = mesh.all_sum(loss(
+                        spec, out['logits'], batch['labels'],
+                        batch.get('box_mask')))
             return keep
 
     return step

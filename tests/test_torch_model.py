@@ -240,11 +240,11 @@ def test_phase_b_logits_and_prob_match_lfb_tpu(setup):
     ref = jax_models.forward(jspec, {k: jnp.asarray(v) for k, v in params.items()},
                              {k: jnp.asarray(v) for k, v in batch.items()},
                              train=False)
-    model = port_model.LFBModel(build_spec(cfg, 'test'),
-                                params_from_jax(params, device='cpu'))
-    assert set(model.params) == set(params)
+    model = port_model.LFBModel(build_spec(cfg, 'test'))
+    assert not list(model.parameters())     # the module tree holds no weights
     with torch.inference_mode():
-        out = model({k: torch.from_numpy(v) for k, v in batch.items()})
+        out = model.run(params_from_jax(params, device='cpu'),
+                        {k: torch.from_numpy(v) for k, v in batch.items()})
     for key in ('box_pooled', 'logits', 'prob'):
         close(out[key], ref[key])
     assert np.abs(np.asarray(ref['logits'])).max() > 1.0   # not a flat output

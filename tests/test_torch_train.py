@@ -51,7 +51,9 @@ from lfb_tpu_torch.ops.roi_align import roi_align  # noqa: E402
 from lfb_tpu_torch.train import checkpoints as port_ckpt  # noqa: E402
 from lfb_tpu_torch.train import lr_policy as port_lr  # noqa: E402
 from lfb_tpu_torch.train import optimizer as opt  # noqa: E402
-from lfb_tpu_torch.train.steps import make_train_step, split_params  # noqa: E402
+from lfb_tpu_torch.train import steps as port_steps  # noqa: E402
+from lfb_tpu_torch.train.steps import (make_eval_step,  # noqa: E402
+                                       make_train_step, split_params)
 from tests.test_torch_model import (PORT_READS, TINY, jax_shapes,  # noqa: E402
                                    perturbed_params)
 
@@ -173,15 +175,15 @@ def test_loss_matches_lfb_tpu(multi_label, masked):
     labels = ((np.random.RandomState(1).rand(6, 80) < 0.1).astype(np.float32)
               if multi_label else np.arange(6).astype(np.int32) * 7)
     mask = np.array([1, 1, 0, 1, 0, 1], np.float32) if masked else None
-    num, den = port_model.loss_parts(spec, t(logits), t(labels),
+    num, den = port_steps.loss_parts(spec, t(logits), t(labels),
                                      None if mask is None else t(mask))
     jnum, jden = jax_model.loss_parts(jspec, jnp.asarray(logits),
                                       jnp.asarray(labels),
                                       None if mask is None else jnp.asarray(mask))
     np.testing.assert_allclose(num.item(), float(jnum), rtol=1e-6)
     assert den.item() == float(jden)
-    loss = port_model._loss(spec, t(logits), t(labels),
-                            None if mask is None else t(mask))
+    loss = port_steps.loss(spec, t(logits), t(labels),
+                           None if mask is None else t(mask))
     jloss = jax_model._loss(jspec, jnp.asarray(logits), jnp.asarray(labels),
                             None if mask is None else jnp.asarray(mask))
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)
@@ -580,6 +582,54 @@ def test_sgd_state_round_trip():
     back = params_to_jax(state)
     for k, v in momentum.items():
         np.testing.assert_array_equal(back.momentum[k], v, err_msg=k)
+
+
+def test_each_step_factory_builds_the_model_once(monkeypatch):
+    """``make_eval_step`` and ``make_train_step`` build the model's module
+    tree when the step is made, and every call runs that one: two calls of
+    each step build one backbone a step in all."""
+    from lfb_tpu_torch.models.backbone import Backbone
+    built = []
+    init = Backbone.__init__
+
+    def counted(self, *args, **kwargs):
+        built.append(type(self))
+        init(self, *args, **kwargs)
+
+    monkeypatch.setattr(Backbone, '__init__', counted)
+    cfg = flagship_cfg(STEP_CFG)
+    spec = build_spec(cfg, 'train')
+    params = port_model.init_params(spec, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    n, crop = 4, 32
+    batch = {
+        'data': t(rng.randint(0, 256, (2, 8, crop, crop, 3)).astype(np.uint8)),
+        'proposals': t(np.stack([
+            np.repeat(np.arange(2), 2).astype('f'),
+            rng.uniform(0, crop / 2, n), rng.uniform(0, crop / 2, n),
+            rng.uniform(crop / 2, crop, n), rng.uniform(crop / 2, crop, n)],
+            axis=1).astype('f')),
+        'lfb': t(rng.randn(n, spec.fbo.num_lfb_feat, 2048).astype('f')),
+        'labels': t((rng.rand(n, 80) < 0.1).astype('f')),
+        'box_mask': t(np.array([1, 1, 1, 0], 'f'))}
+
+    eval_step = make_eval_step(build_spec(cfg, 'test'), with_loss=True)
+    assert len(built) == 1
+    for _ in range(2):
+        out = eval_step(params, batch)
+        assert bool(torch.isfinite(out['loss']))
+    assert len(built) == 1
+
+    train, frozen = split_params(spec, params)
+    state = opt.init_state(params, set(frozen))
+    step = make_train_step(spec, cfg.SOLVER)
+    assert len(built) == 2
+    generator = torch.Generator().manual_seed(0)
+    for lr in (0.01, 0.02):
+        train, frozen, state, aux = step(train, frozen, state, batch,
+                                         generator, lr)
+        assert bool(torch.isfinite(aux['loss']))
+    assert built == [Backbone, Backbone]
 
 
 def test_two_train_steps_match_lfb_tpu():
