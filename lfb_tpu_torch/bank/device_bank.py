@@ -141,7 +141,13 @@ class AvaDeviceBank:
     def gather(self, video_idx: torch.Tensor, sec: torch.Tensor,
                generator: torch.Generator) -> torch.Tensor:
         """(N,) video ids + (N,) keyframe seconds -> (N, W*K, D) windows."""
-        return self.feats[self.choose_rows(video_idx, sec, generator)]
+        return self.lookup(self.choose_rows(video_idx, sec, generator))
+
+    def lookup(self, chosen: torch.Tensor,
+               rows: torch.Tensor | None = None) -> torch.Tensor:
+        """The features of :meth:`choose_rows`'s (N, W*K) row ids; with
+        ``rows`` (M,) indices, of those windows alone: (M, W*K, D)."""
+        return self.feats[chosen if rows is None else chosen[rows]]
 
 
 def _cap_frame_table_width(label: str, auto_width: int, cap: int,
@@ -372,10 +378,22 @@ class ShardedDeviceBank:
     def num_videos(self) -> int:
         return self.inner.num_videos()
 
-    def gather(self, *args) -> torch.Tensor:
-        """As the inner bank's ``gather`` (AVA: video, sec, generator;
+    def choose_rows(self, *args) -> torch.Tensor:
+        """The inner bank's ``choose_rows`` (AVA: video, sec, generator;
         frame-level: video, begin, end)."""
-        return sharded_rows_lookup(self.feats, self.inner.choose_rows(*args))
+        return self.inner.choose_rows(*args)
+
+    def lookup(self, chosen: torch.Tensor,
+               rows: torch.Tensor | None = None) -> torch.Tensor:
+        """As :meth:`AvaDeviceBank.lookup`.  Every rank looks up whole
+        windows, at the shapes the exchange fixes; ``rows`` are taken
+        after."""
+        lfb = sharded_rows_lookup(self.feats, chosen)
+        return lfb if rows is None else lfb[rows]
+
+    def gather(self, *args) -> torch.Tensor:
+        """As the inner bank's ``gather``."""
+        return self.lookup(self.choose_rows(*args))
 
     def gather_centers(self, video_idx: torch.Tensor,
                        center: torch.Tensor) -> torch.Tensor:

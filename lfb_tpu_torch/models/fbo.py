@@ -66,7 +66,15 @@ class FBONL(nn.Module):
     windows -> (N, latent_dim).  In training, dropout (FBO_NL.DROPOUT_RATE,
     drawn from ``generator``) hits the reduced input, the projected bank and
     each layer's output before the residual, where ``lfb_tpu`` puts it
-    (``lfb_tpu/models/fbo.py:101-107,148-150``)."""
+    (``lfb_tpu/models/fbo.py:101-107,148-150``).
+
+    With ``rows`` (M,) indices, ``lfb`` holds those rows' windows alone:
+    the window side (the bank's projections and the attention) runs on M
+    rows, the clip side (the pointwise convs of the (N, latent) features)
+    on all N as without ``rows``, so a row reads, bit for bit where the
+    kernels allow, what it reads in the whole batch; the bank's dropout
+    mask is drawn at its whole-batch shape and the rows taken.  The other
+    rows' output is 0."""
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
@@ -74,7 +82,8 @@ class FBONL(nn.Module):
 
     def forward(self, p: P, clip_feat: torch.Tensor, lfb: torch.Tensor,
                 train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows: torch.Tensor | None = None) -> torch.Tensor:
         spec, f = self.spec, self.spec.fbo
         x = clip_feat                                     # prepare_nl_input
         if f.input_reduce_dim:
@@ -84,27 +93,39 @@ class FBONL(nn.Module):
             x = dropout(x, f.dropout_rate, generator)
         bank = conv1x1(lfb, p['lfb_1x1_w'], p.get('lfb_1x1_b'))  # prepare_lfb
         if f.lfb_dropout_on and train:
-            bank = dropout(bank, f.dropout_rate, generator)
+            bank = dropout(bank, f.dropout_rate, generator, rows, x.shape[0])
         for i in range(f.num_layers):
             x = _nl_core(spec, p, 'lfb_nl{}'.format(i), x, bank, train,
-                         generator)
-        return x
+                         generator, rows)
+        return x if rows is None else on_rows(x[rows], rows, x.shape[0])
+
+
+def on_rows(x: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
+    """An (n, C) tensor holding the (M, C) ``x`` at ``rows``, 0 elsewhere."""
+    return x.new_zeros((n, x.shape[1])).index_copy(0, rows, x)
 
 
 def _nl_core(spec: ModelSpec, p: P, prefix: str, a: torch.Tensor,
              bank: torch.Tensor, train: bool,
-             generator: torch.Generator | None) -> torch.Tensor:
+             generator: torch.Generator | None,
+             rows: torch.Tensor | None = None) -> torch.Tensor:
     """One FBO-NL layer (reference ``NLCore`` + residual/activation from
-    ``NLLayers``, ``lfb_helper.py:170-292``), pre-act or post-act."""
+    ``NLLayers``, ``lfb_helper.py:170-292``), pre-act or post-act; with
+    ``rows``, the attention runs on those rows of ``a`` against ``bank``'s
+    windows, and the other rows attend to nothing (0)."""
     f = spec.fbo
 
     def conv(name, x):
         return conv1x1(x, p[prefix + name + '_w'], p.get(prefix + name + '_b'))
 
-    theta = conv('_theta', a)[:, None, :].contiguous()   # (N, 1, L)
+    theta = conv('_theta', a)
+    if rows is not None:
+        theta = theta[rows]
     t = scaled_softmax_attention(
-        theta, conv('_phi', bank), conv('_g', bank),
+        theta[:, None, :].contiguous(), conv('_phi', bank), conv('_g', bank),
         scale=f.latent_dim ** -0.5 if f.scale else None)[:, 0, :]
+    if rows is not None:
+        t = on_rows(t, rows, a.shape[0])
     if f.pre_act:
         if f.pre_act_ln:
             t = layer_norm(t)
@@ -123,13 +144,17 @@ def _nl_core(spec: ModelSpec, p: P, prefix: str, a: torch.Tensor,
 
 def fbo_forward(spec: ModelSpec, p: P, clip_feat: torch.Tensor,
                 lfb: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows: torch.Tensor | None = None) -> torch.Tensor:
     """Apply the configured FBO: (N, out_dim) bank summary to concatenate
-    with the clip features (latent_dim for 'nl', lfb_dim for 'avg'/'max')."""
-    if spec.fbo.fbo_type == 'avg':
-        return lfb.mean(dim=1)
-    if spec.fbo.fbo_type == 'max':
-        return lfb.amax(dim=1)
+    with the clip features (latent_dim for 'nl', lfb_dim for 'avg'/'max').
+    With ``rows``, ``lfb`` holds those rows' windows alone, and the other
+    rows' summary is 0 (:class:`FBONL`)."""
+    if spec.fbo.fbo_type in ('avg', 'max'):
+        out = lfb.mean(dim=1) if spec.fbo.fbo_type == 'avg' else \
+            lfb.amax(dim=1)
+        return out if rows is None else on_rows(out, rows,
+                                                clip_feat.shape[0])
     if spec.fbo.fbo_type != 'nl':
         raise ValueError('unknown LFB.FBO_TYPE {!r}'.format(spec.fbo.fbo_type))
-    return FBONL(spec)(p, clip_feat, lfb, train, generator)
+    return FBONL(spec)(p, clip_feat, lfb, train, generator, rows)

@@ -193,15 +193,23 @@ def layer_norm(x: torch.Tensor, *, epsilon: float = 1e-3) -> torch.Tensor:
     return ((xf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            rows: torch.Tensor | None = None,
+            num_rows: int = 0) -> torch.Tensor:
     """Inverted dropout, Caffe2 Dropout with is_test=False (as
     ``lfb_tpu.models.layers.dropout``): keep each element with probability
     1 - rate, drawn from ``generator``, and scale the kept ones by
-    1 / (1 - rate)."""
+    1 / (1 - rate).
+
+    With ``rows``, ``x`` holds those rows of a ``num_rows``-row tensor: the
+    mask is drawn at that tensor's shape and its ``rows`` taken, so the
+    generator's stream and each row's mask are the whole tensor's."""
     if rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+    shape = x.shape if rows is None else (num_rows,) + x.shape[1:]
+    mask = torch.empty(shape, device=x.device).bernoulli_(
         keep, generator=generator)
+    if rows is not None:
+        mask = mask[rows]
     return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)

@@ -6,7 +6,8 @@ Under a profiler the head, the FBO (with the bank window's cast to f32),
 its backward and the classifier are the spans ``lfb.model.head``,
 ``lfb.model.fbo``, ``lfb.model.fbo.backward`` and ``lfb.model.classifier``
 (:mod:`lfb_tpu_torch.utils.profiling`); the counter ``fbo.rows`` counts the
-rows through the FBO.
+rows whose windows go through the FBO: all of a batch's, or the
+``fbo_rows`` it names.
 """
 
 from __future__ import annotations
@@ -85,6 +86,10 @@ class LFBModel(nn.Module):
                      (normalized here, the TPU.DEVICE_NORMALIZE path).
           proposals: AVA only -- (N_box, 5) [batch_idx, x1, y1, x2, y2].
           lfb:       (rows, W, lfb_dim) bank windows, with the FBO.
+          fbo_rows:  optional (M,) int64 indices of the rows the FBO runs
+                     on (the steps give AVA's real boxes when some rows are
+                     padding); 'lfb' then holds those rows' windows alone,
+                     and the other rows' FBO output is 0.
         Other blobs (labels, box_mask, ...) are not read.
 
         Returns 'box_pooled' (AVA) or 'pool5', plus 'logits' and 'prob'
@@ -120,11 +125,12 @@ class LFBModel(nn.Module):
         head = clip_feat.float()
         if spec.fbo.enabled:
             with span('lfb.model.fbo'):
-                count('fbo.rows', head.shape[0])
+                lfb = batch['lfb']
+                count('fbo.rows', lfb.shape[0])
                 marks = backward_span('lfb.model.fbo.backward')
                 fbo_out = marks.output(fbo_forward(
-                    spec, p, marks.input(head), batch['lfb'].float(), train,
-                    generator))
+                    spec, p, marks.input(head), lfb.float(), train,
+                    generator, batch.get('fbo_rows')))
         with span('lfb.model.classifier'):
             if spec.fbo.enabled:
                 head = torch.cat([head, fbo_out.float()], dim=-1)

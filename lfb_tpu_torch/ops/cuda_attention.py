@@ -30,6 +30,8 @@ their own launch shape, one CTA per box, in both directions.
 The TPU kernel's envelope (C % 128 == 0, K/V <= 6 MB) is gone.  The kernels
 take C a multiple of 32 up to 512 when Nq > 1, and any C and Nk whose
 floats fit shared memory when Nq == 1; the wrappers raise on anything else.
+An empty batch (B = 0, the FBO of a batch with no real box row) launches
+nothing and returns empty tensors.
 """
 
 from __future__ import annotations
@@ -111,6 +113,8 @@ def _forward(q, k, v, scale, *, with_lse):
     out = torch.empty_like(q)
     lse = (torch.empty((B, Nq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if B == 0:                          # no row: a grid of 0 CTAs is refused
+        return out, lse
     with torch.cuda.device(q.device):
         cuda_build.launch(_LAUNCHERS[q.dtype], q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), out.data_ptr(),
@@ -135,6 +139,8 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    if B == 0:
+        return dq, dk, dv
     with torch.cuda.device(q.device):
         cuda_build.launch(_BWD_LAUNCHERS[q.dtype], q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -212,7 +218,7 @@ def _check(q, k, v, do=None, lse=None, delta=None) -> None:
             raise ValueError('fused_attention: {} must be a contiguous float32 '
                              '(B, Nq) tensor on {}'.format(name, q.device))
     Nk = k.shape[1]
-    if min(B, Nq, Nk, C) < 1 or B > 65535:
+    if min(Nq, Nk, C) < 1 or B > 65535:
         raise ValueError('fused_attention: unsupported shape q {} k {}'.format(
             tuple(q.shape), tuple(k.shape)))
     if Nq == 1:

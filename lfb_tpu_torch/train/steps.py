@@ -44,25 +44,62 @@ def split_params(spec: ModelSpec, params: Mapping[str, torch.Tensor]):
     return trainable, frozen
 
 
+def _real_rows(batch) -> torch.Tensor | None:
+    """The indices of the rows with ``box_mask`` > 0, on the mask's device,
+    or None where the batch has no ``box_mask`` or no padding row.  Reading
+    the mask copies its N values to the host, so the host waits for the
+    card here; the indices go back from pinned memory, with no second
+    wait."""
+    mask = batch.get('box_mask')
+    if mask is None:
+        return None
+    real = torch.nonzero(mask.cpu() > 0)[:, 0]
+    if real.numel() == mask.shape[0]:
+        return None
+    if mask.is_cuda:
+        return real.pin_memory().to(mask.device, non_blocking=True)
+    return real
+
+
 def _inject_device_bank_lfb(spec: ModelSpec, bank, batch,
                             generator: torch.Generator):
     """Gather the 'lfb' bank windows on the device when a device bank is in
     play.  AVA windows key off the metadata blob's (video_idx, sec) columns;
-    the clip-level datasets give (lfb_video_idx, lfb_center) pairs."""
-    if bank is None or not spec.fbo.enabled or 'lfb' in batch:
+    the clip-level datasets give (lfb_video_idx, lfb_center) pairs.
+
+    An AVA batch with padding rows (``box_mask`` 0) runs the FBO on its
+    real rows alone: their indices go to the model as 'fbo_rows', and 'lfb'
+    holds their windows alone, looked up for them or taken from the
+    batch's own.  The bank still draws every row's window, so the
+    generator's stream is unchanged, and queues the draw before the mask
+    is read, so the card draws while the host waits."""
+    roi, host = spec.head_type == 'roi', 'lfb' in batch
+    if not spec.fbo.enabled or spec.lfb_infer_only or (
+            host and not roi) or (bank is None and not host):
         return batch
     batch = dict(batch)
+    lfb = None
     with span('lfb.bank.gather'):
-        if spec.head_type == 'roi':
+        if host:
+            rows = _real_rows(batch)
+            if rows is not None:
+                batch['lfb'] = batch['lfb'][rows]
+        elif roi:
             meta = batch['metadata']
-            lfb = bank.gather(meta[:, 0].long(), meta[:, 1].long(),
-                              generator)
+            chosen = bank.choose_rows(meta[:, 0].long(), meta[:, 1].long(),
+                                      generator)
+            rows = _real_rows(batch)
+            lfb = bank.lookup(chosen, rows)
         else:
+            rows = None
             lfb = bank.gather_centers(batch['lfb_video_idx'],
                                       batch['lfb_center'])
-    count('bank.rows', lfb.shape[0] * lfb.shape[1])
-    count('bank.bytes', lfb.numel() * lfb.element_size())
-    batch['lfb'] = lfb
+        if rows is not None:
+            batch['fbo_rows'] = rows
+    if lfb is not None:
+        count('bank.rows', lfb.shape[0] * lfb.shape[1])
+        count('bank.bytes', lfb.numel() * lfb.element_size())
+        batch['lfb'] = lfb
     return batch
 
 

@@ -32,7 +32,8 @@ torch = pytest.importorskip('torch')
 
 from lfb_tpu_torch.ops import (cuda_attention, cuda_bottleneck,  # noqa: E402
                                cuda_roi_align, cuda_stem)
-from lfb_tpu_torch.ops.attention import _attention_plain  # noqa: E402
+from lfb_tpu_torch.ops.attention import (  # noqa: E402
+    _attention_plain, scaled_softmax_attention)
 from lfb_tpu_torch.utils.profiling import counts  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -231,6 +232,22 @@ def test_attention_bwd_wrapper_refuses_what_the_kernel_does_not_take(dev):
         cuda_attention.fused_attention_bwd(
             q1, k1, k1, q1, lse[:, :1].contiguous(),
             delta[:, :1].contiguous(), scale=1.0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_attention_on_an_empty_batch_launches_nothing(dev, dtype):
+    """The FBO of a batch with no real box row attends B = 0 queries: the
+    kernel route gives empty outputs and gradients, and launches nothing
+    (a grid of 0 CTAs is refused)."""
+    q, k, v = (torch.zeros((0, n, 512), device=dev, dtype=dtype,
+                           requires_grad=True) for n in (1, 300, 300))
+    before = (launches('attention.fwd'), launches('attention.bwd'))
+    out = scaled_softmax_attention(q, k, v, scale=512 ** -0.5)
+    out.float().sum().backward()
+    assert out.shape == (0, 1, 512) and out.is_cuda and out.dtype == dtype
+    for t in (q, k, v):
+        assert t.grad.shape == t.shape and t.grad.dtype == dtype
+    assert (launches('attention.fwd'), launches('attention.bwd')) == before
 
 
 @pytest.mark.parametrize('Nq,Nk,C', [(4096, 1024, 256), (4096, 1024, 512),
@@ -616,6 +633,80 @@ def test_tiny_flagship_forward_on_the_card_matches_the_cpu(dev):
                   {k: v.to(dev) for k, v in batch.items()})
     for key in ('box_pooled', 'logits', 'prob'):
         assert_close(gpu[key].cpu(), cpu[key], 1e-4)
+
+
+def test_fbo_on_the_real_rows_on_the_card_matches_the_cpu(dev):
+    """The flagship's FBO at the AVA cells' shapes (16 clips x 32 box rows,
+    4 real a clip, 300 window rows, 3 layers, latent 512, f32) on the real
+    rows alone, behind a small backbone with no non-local block: the eval
+    step's logits and one train step's loss and FBO and classifier
+    momentum on the card against the CPU (dropout 0: the two devices' draws
+    differ), within the bounds of the tiny steps above.  Each step makes
+    the FBO's 3 attention launches forward, and 3 backward in training."""
+    from lfb_tpu_torch.config import flagship_cfg
+    from lfb_tpu_torch.models.model import init_params
+    from lfb_tpu_torch.models.spec import build_spec
+    from lfb_tpu_torch.train import optimizer
+    from lfb_tpu_torch.train.steps import (make_eval_step, make_train_step,
+                                           split_params)
+    clips, slots, boxes, crop = 16, 32, 4, 64
+    cfg = flagship_cfg({'MODEL.DEPTH': 50, 'MODEL.VIDEO_ARC_CHOICE': 2,
+                        'RESNETS.WIDTH_PER_GROUP': 8,
+                        'NONLOCAL.CONV3_NONLOCAL': False,
+                        'NONLOCAL.CONV4_NONLOCAL': False,
+                        'TRAIN.VIDEO_LENGTH': 4, 'TEST.VIDEO_LENGTH': 4,
+                        'TRAIN.CROP_SIZE': crop, 'TEST.CROP_SIZE': crop,
+                        'TRAIN.BATCH_SIZE': clips, 'TEST.BATCH_SIZE': clips,
+                        'TPU.COMPUTE_DTYPE': 'float32',
+                        'TRAIN.DROPOUT_RATE': 0.0, 'FBO_NL.DROPOUT_RATE': 0.0,
+                        'NUM_GPUS': 1})
+    spec = build_spec(cfg, 'train')
+    n, window = clips * slots, spec.fbo.num_lfb_feat
+    assert (slots, window, spec.fbo.num_layers, spec.fbo.latent_dim) == (
+        cfg.TPU.MAX_BOXES_PER_CLIP, 300, 3, 512)
+    g = torch.Generator().manual_seed(1)
+    params = init_params(spec, torch.Generator().manual_seed(0))
+    for name, value in params.items():
+        if not value.any():
+            params[name] = 0.05 * torch.randn(value.shape, generator=g)
+    real = (torch.arange(clips)[:, None] * slots
+            + torch.arange(boxes)).reshape(-1)
+    proposals = torch.zeros((n, 5))
+    proposals[real, 0] = (real // slots).float()
+    proposals[real, 1:3] = torch.rand((real.numel(), 2), generator=g) * 30
+    proposals[real, 3:] = 34 + torch.rand((real.numel(), 2), generator=g) * 30
+    lfb = torch.zeros((n, window, 2048))
+    lfb[real] = torch.randn((real.numel(), window, 2048), generator=g)
+    mask = torch.zeros(n)
+    mask[real] = 1.0
+    batch = {'data': torch.randint(0, 256, (clips, 4, crop, crop, 3),
+                                   generator=g, dtype=torch.uint8),
+             'proposals': proposals, 'lfb': lfb, 'box_mask': mask,
+             'labels': (torch.rand((n, 80), generator=g) < 0.1).float()
+             * mask[:, None]}
+    results = []
+    for device in ('cpu', dev):
+        p = {k: v.clone().to(device) for k, v in params.items()}
+        b = {k: v.to(device) for k, v in batch.items()}
+        before = (launches('attention.fwd'), launches('attention.bwd'))
+        out = make_eval_step(build_spec(cfg, 'test'))(p, b)
+        trainable, frozen = split_params(spec, p)
+        state = optimizer.init_state(p, set(frozen))
+        _, _, state, aux = make_train_step(spec, cfg.SOLVER)(
+            trainable, frozen, state, b,
+            torch.Generator(device=device).manual_seed(0), 0.01)
+        if device != 'cpu':
+            assert (launches('attention.fwd') - before[0],
+                    launches('attention.bwd') - before[1]) == (6, 3)
+        results.append((out['logits'].cpu(), aux['loss'].cpu(),
+                        {k: v.cpu() for k, v in state.momentum.items()}))
+    (cpu_logits, cpu_loss, cpu_m), (gpu_logits, gpu_loss, gpu_m) = results
+    assert_close(gpu_logits[real], cpu_logits[real], 1e-4)
+    assert_close(gpu_logits, cpu_logits, 1e-4)
+    assert abs(gpu_loss.item() - cpu_loss.item()) <= 1e-5 * abs(cpu_loss.item())
+    for name, ref in cpu_m.items():
+        if name.startswith(('pred_', 'lfb_')) or '_fbonl_reduc' in name:
+            assert_close(gpu_m[name], ref, 1e-3, name=name)
 
 
 def bottleneck_params(c, ci, kt, dev, seed=0, b2a_shift=0.0):

@@ -61,7 +61,7 @@ from lfb_tpu_torch.parallel import launch, mesh  # noqa: E402
 from lfb_tpu_torch.train import optimizer as opt  # noqa: E402
 from lfb_tpu_torch.train.steps import (make_eval_step,  # noqa: E402
                                        make_train_step, split_params)
-from tests import synthetic, torch_parallel_ranks  # noqa: E402
+from tests import padding_rows, synthetic, torch_parallel_ranks  # noqa: E402
 from tests.test_torch_data import SMALL, clip_bank, host_ava_bank  # noqa: E402
 from tests.test_torch_model import perturbed_params  # noqa: E402
 
@@ -210,12 +210,16 @@ def port_train(inputs):
         state).momentum
 
 
-def assert_step_close(dp, ref, full_prob):
+def assert_step_close(dp, ref, padding=None):
+    """The ranks' steps against ``ref``'s on the real box rows; with
+    ``padding`` (each step's, in the global batch's order), the padding
+    rows read it bit for bit."""
     losses, probs, params, momentum = ref
     np.testing.assert_allclose(dp['losses'], losses, rtol=1e-5)
-    rows = slice(None) if full_prob else BOX_MASK > 0
     for got, want in zip(dp['probs'], probs):
-        close(got[rows], want[rows], 1e-5)
+        close(got[BOX_MASK > 0], want[BOX_MASK > 0], 1e-5)
+    for got, want in zip(dp['probs'], padding or []):
+        padding_rows.assert_padding_rows(got, want, BOX_MASK)
     got_params = params_to_jax({k: torch.from_numpy(v)
                                 for k, v in dp['params'].items()})
     got_momentum = params_to_jax({k: torch.from_numpy(v)
@@ -228,15 +232,25 @@ def assert_step_close(dp, ref, full_prob):
                                    rtol=1e-4, atol=1e-6, err_msg=name)
 
 
+def rank_padding(results, case):
+    """The prob each padding row should read (its rank's classifier over
+    [head row, 0]), per step, in the global batch's order."""
+    return [np.concatenate(steps) for steps in zip(
+        *(r[case]['padding'] for r in results))]
+
+
 def test_train_step_matches_lfb_tpus_shard_map_step(ranks):
+    """The real rows as lfb_tpu's; a padding row's FBO part is 0 in the
+    port, where lfb_tpu runs the FBO over its window."""
     inputs, results = ranks
-    assert_step_close(results[0]['train'], jax_train(inputs), full_prob=True)
+    assert_step_close(results[0]['train'], jax_train(inputs),
+                      rank_padding(results, 'train'))
 
 
 def test_train_step_matches_one_process(ranks):
     inputs, results = ranks
     ref = port_train(inputs)
-    assert_step_close(results[0]['train'], ref, full_prob=False)
+    assert_step_close(results[0]['train'], ref)
     # The global mean over valid boxes, not a mean of the ranks' means.
     assert results[0]['train']['losses'][0] == pytest.approx(
         ref[0][0], rel=1e-5)
@@ -252,9 +266,10 @@ def test_every_rank_makes_the_same_update(ranks):
 
 
 def test_eval_step_localises_proposals_as_lfb_tpu(ranks):
-    """The full prob, padding rows included: rank 1's padding rows name
-    clip -2 once localised and read the rank's clip 0, in the plain RoI
-    path (clamped) as in lfb_tpu's gather."""
+    """The real rows as lfb_tpu's, and the padding rows the classifier
+    over [head row, 0] (the port runs the FBO on the real rows alone):
+    rank 1's padding rows name clip -2 once localised and read the rank's
+    clip 0, in the plain RoI path (clamped) as in lfb_tpu's gather."""
     inputs, results = ranks
     cfg = flagship_cfg(inputs['cfg'])
     jspec = jax_models.build_spec(cfg, 'val')
@@ -265,9 +280,15 @@ def test_eval_step_localises_proposals_as_lfb_tpu(ranks):
                              use_shard_map=True)(
         params, jax_shard_batch(mesh_2, batch))
     got = results[0]['eval']
+    real = BOX_MASK > 0
     for key in ('prob', 'logits'):
-        close(got['out'][key], ref[key], 1e-5)
-    close(got['prob_with_loss'], ref['prob'], 1e-5)
+        close(got['out'][key][real], np.asarray(ref[key])[real], 1e-5)
+    close(got['prob_with_loss'][real], np.asarray(ref['prob'])[real], 1e-5)
+    without_loss, with_loss = rank_padding(results, 'eval')
+    padding_rows.assert_padding_rows(got['out']['prob'], without_loss,
+                                     BOX_MASK)
+    padding_rows.assert_padding_rows(got['prob_with_loss'], with_loss,
+                                     BOX_MASK)
     np.testing.assert_allclose(got['loss'], float(ref['loss']), rtol=1e-5)
     # Rank 1's padding rows read its clip 0 (global clip 2), not clip 0.
     one = make_eval_step(build_spec(cfg, 'val'))(

@@ -54,6 +54,7 @@ from lfb_tpu_torch.train import optimizer as opt  # noqa: E402
 from lfb_tpu_torch.train import steps as port_steps  # noqa: E402
 from lfb_tpu_torch.train.steps import (make_eval_step,  # noqa: E402
                                        make_train_step, split_params)
+from tests import padding_rows  # noqa: E402
 from tests.test_torch_model import (PORT_READS, TINY, jax_shapes,  # noqa: E402
                                    perturbed_params)
 
@@ -672,17 +673,23 @@ def test_two_train_steps_match_lfb_tpu():
     state = opt.init_state(port, set(frozen))
     step = make_train_step(spec, cfg.SOLVER)
     generator = torch.Generator().manual_seed(0)
+    real = batch['box_mask'] > 0
     for i, lr in enumerate((0.01, 0.02)):
         jtrain, jfrozen, jstate, jaux = jstep(
             jtrain, jfrozen, jstate,
             {k: jnp.asarray(v) for k, v in batch.items()},
             jax.random.PRNGKey(i), jnp.float32(lr))
-        train, frozen, state, aux = step(
-            train, frozen, state, {k: t(v) for k, v in batch.items()},
-            generator, lr)
+        with padding_rows.classifier_inputs() as seen:
+            train, frozen, state, aux = step(
+                train, frozen, state, {k: t(v) for k, v in batch.items()},
+                generator, lr)
         np.testing.assert_allclose(aux['loss'].item(), float(jaux['loss']),
                                    rtol=1e-5)
-        close(aux['prob'], jaux['prob'], 1e-5)
+        # The real rows as lfb_tpu's; the padding row's FBO part is 0.
+        close(aux['prob'].numpy()[real], np.asarray(jaux['prob'])[real], 1e-5)
+        padding_rows.assert_padding_rows(
+            aux['prob'], padding_rows.padding_prob(
+                seen[0], spec.fbo.latent_dim), batch['box_mask'])
     assert set(train) == set(jtrain) and set(state.momentum) == set(jtrain)
     back = params_to_jax(train)
     momentum = params_to_jax(state).momentum

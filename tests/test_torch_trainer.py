@@ -55,7 +55,7 @@ from lfb_tpu_torch.train import checkpoints as port_ckpt  # noqa: E402
 from lfb_tpu_torch.train import optimizer as opt  # noqa: E402
 from lfb_tpu_torch.train.steps import make_train_step, split_params  # noqa: E402
 from lfb_tpu_torch.train.trainer import Trainer  # noqa: E402
-from tests import synthetic  # noqa: E402
+from tests import padding_rows, synthetic  # noqa: E402
 from tests.test_torch_model import perturbed_params  # noqa: E402
 from tests.test_torch_tools import AVA_YAML, TINY, dataset_opts  # noqa: E402
 from tests.test_torch_train import STEP_CFG, close, t  # noqa: E402
@@ -287,7 +287,8 @@ def step_batch(rng, n_clips=2, boxes=2, with_rois=True, num_lfb_feat=10):
 
 def port_step(cfg, params, batch, monkeypatch, lr=0.01):
     """One port train step from ``params`` (lfb_tpu layout); returns (aux,
-    updated trainable params, momentum, calls, saved bytes)."""
+    updated trainable params, momentum, calls, saved bytes, the padding
+    rows' expected prob)."""
     spec = build_spec(cfg, 'train')
     port = params_from_jax(params, device='cpu')
     train, frozen = split_params(spec, port)
@@ -295,11 +296,12 @@ def port_step(cfg, params, batch, monkeypatch, lr=0.01):
     with monkeypatch.context() as m:
         calls = count_calls(m)
         hooks, nbytes = saved_bytes()
-        with hooks:
+        with hooks, padding_rows.classifier_inputs() as seen:
             train, frozen, state, aux = make_train_step(spec, cfg.SOLVER)(
                 train, frozen, state, {k: t(v) for k, v in batch.items()},
                 torch.Generator().manual_seed(0), lr)
-    return aux, train, state.momentum, calls, nbytes[0]
+    padding = padding_rows.padding_prob(seen[0], spec.fbo.latent_dim)
+    return aux, train, state.momentum, calls, nbytes[0], padding
 
 
 @pytest.fixture(scope='module')
@@ -345,7 +347,11 @@ def test_remat_stage_step_matches_lfb_tpu(remat_steps):
     aux, train = port['stage'][:2]
     np.testing.assert_allclose(aux['loss'].item(), float(jaux['loss']),
                                rtol=1e-5)
-    close(aux['prob'], jaux['prob'], 1e-5)
+    # The real rows as lfb_tpu's; the padding row's FBO part is 0.
+    mask = np.array([1, 1, 1, 0], 'f')
+    close(aux['prob'].numpy()[mask > 0], np.asarray(jaux['prob'])[mask > 0],
+          1e-5)
+    padding_rows.assert_padding_rows(aux['prob'], port['stage'][5], mask)
     assert sorted(train) == sorted(jtrain)
     for name, value in train.items():
         np.testing.assert_allclose(

@@ -28,7 +28,8 @@ Bounds, relative to the largest lfb_tpu value of each tensor unless
 stated: ``apply_norm``'s output, statistics and gradients 1e-6 in f32 (one
 bf16 step, 2^-8, for the bf16 output); the forward's statistics and prob
 1e-5; each of three train steps (:func:`assert_step_close`) the loss rtol
-1e-5, the prob 1e-5, the running statistics elementwise rtol 1e-4, atol
+1e-5, the prob 1e-5 on the real box rows (a padding row's, the classifier
+over [its head row, 0], bit for bit), the running statistics elementwise rtol 1e-4, atol
 1e-6, the first step's params and momentum elementwise too, a later step's
 as a whole (relative L2 1e-2; a ReLU gate at 0 to rounding flips in one
 package and not the other).
@@ -38,7 +39,8 @@ the global batch's statistics: their first two steps, from the same states,
 against ``lfb_tpu``'s one-device step, its auto-sharded step on a 2-device
 mesh (XLA inserts the collectives of the batch statistics) and the port in
 one process, at the same bounds (the probs on the valid box rows: padding
-rows read another clip once a rank localises them), every rank holding the
+rows read another clip once a rank localises them, and their FBO part is
+0 in the port), every rank holding the
 same params, momentum and running statistics; precise BN over the ranks'
 shards against one process, 1e-5.
 """
@@ -70,7 +72,7 @@ from lfb_tpu_torch.models.spec import build_spec  # noqa: E402
 from lfb_tpu_torch.train import optimizer as opt  # noqa: E402
 from lfb_tpu_torch.train.precise_bn import compute_precise_bn_stats  # noqa: E402
 from lfb_tpu_torch.train.steps import make_train_step, split_params  # noqa: E402
-from tests import torch_parallel_ranks  # noqa: E402
+from tests import padding_rows, torch_parallel_ranks  # noqa: E402
 from tests.test_torch_model import perturbed_params  # noqa: E402
 from tests.test_torch_parallel import BOX_MASK, CFG, WORLD, ava_batch  # noqa: E402
 from tests.test_torch_trainer import count_calls  # noqa: E402
@@ -291,19 +293,23 @@ def steps(inputs):
     (teacher forcing: each step starts both packages from lfb_tpu's state
     before it, so a comparison holds one step's rounding, not the gaps the
     steps before it left, which a deep BN net amplifies).  [(the state
-    before, lfb_tpu's step, the port's step)] per mode."""
+    before, lfb_tpu's step, the port's step, the prob its padding rows
+    should read)] per mode."""
     out = {}
     for mode, overrides in MODES.items():
         cfg = flagship_cfg({**CFG, **overrides})
         jstep = jax_make_train_step(jax_models.build_spec(cfg, 'train'),
                                     cfg.SOLVER, None)
-        step = make_train_step(build_spec(cfg, 'train'), cfg.SOLVER)
+        spec = build_spec(cfg, 'train')
+        step = make_train_step(spec, cfg.SOLVER)
         state = initial_state(cfg, inputs['true_bn_params'][mode])
         out[mode] = []
         for i, lr in enumerate(LRS):
             ref = jax_step(jstep, state, inputs['batch'], i, lr)
-            out[mode].append((state, ref,
-                              port_step(step, state, inputs['batch'], i, lr)))
+            with padding_rows.classifier_inputs() as seen:
+                got = port_step(step, state, inputs['batch'], i, lr)
+            out[mode].append((state, ref, got, padding_rows.padding_prob(
+                seen[0], spec.fbo.latent_dim)))
             state = next_state(ref)
     return out
 
@@ -314,8 +320,10 @@ def test_three_steps_match_lfb_tpu(inputs, steps, mode):
     before it: the running statistics move every step by BN_MOMENTUM from
     the last ones, and in the mixed case never (as in lfb_tpu)."""
     initial = inputs['true_bn_params'][mode]
-    for state, ref, got in steps[mode]:
-        assert_step_close(got, ref, state)
+    for state, ref, got, padding in steps[mode]:
+        # The real rows as lfb_tpu's; the padding rows' FBO part is 0.
+        assert_step_close(got, ref, state, rows=BOX_MASK > 0)
+        padding_rows.assert_padding_rows(got[1], padding, BOX_MASK)
         for name, value in got[4].items():
             if name.endswith(('_rm', '_riv')):
                 moved = not np.array_equal(value, state[1][name])
@@ -372,7 +380,7 @@ def ranks(tmp_path_factory, inputs, steps):
     root = tmp_path_factory.mktemp('true_bn_ranks')
     with open(root / 'inputs.pkl', 'wb') as f:
         pickle.dump({**inputs, 'true_bn_states': {
-            mode: [state for state, _, _ in runs[:RANK_STEPS]]
+            mode: [state for state, *_ in runs[:RANK_STEPS]]
             for mode, runs in steps.items()}}, f)
     torch.multiprocessing.start_processes(
         torch_parallel_ranks.main, args=(WORLD, str(root), ('true_bn',)),
@@ -398,7 +406,7 @@ def test_two_ranks_match_lfb_tpu(steps, ranks, mode):
     """Both steps of the ranks against lfb_tpu's one-device step from the
     same state, which takes the global batch's statistics."""
     for k in range(RANK_STEPS):
-        state, ref, _ = steps[mode][k]
+        state, ref, *_ = steps[mode][k]
         assert_step_close(rank_step(ranks[0][mode, k]), ref, state,
                           rows=BOX_MASK > 0)
 
@@ -424,7 +432,7 @@ def test_two_ranks_match_one_process(steps, ranks, mode):
     valid box rows of the prob: a rank's padding rows read another clip
     once localised), every rank holding the same results."""
     for k in range(RANK_STEPS):
-        state, _, one = steps[mode][k]
+        state, _, one, _ = steps[mode][k]
         assert_step_close(rank_step(ranks[0][mode, k]), one, state,
                           rows=BOX_MASK > 0)
         a, b = (r[mode, k] for r in ranks)

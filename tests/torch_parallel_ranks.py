@@ -10,6 +10,9 @@ Cases:
   host windows ('lfb' in the batch) and dropout off.
 * ``eval``: ``make_eval_step`` (with and without ``with_loss``) on the
   rank's shard of an AVA batch with padding rows.
+
+Both give, beside each step's prob, the prob the rank's padding rows should
+read: the classifier over [head row, 0] (``tests/padding_rows.py``).
 * ``banks``: the train step and the eval step with a device bank, once
   replicated and once row-sharded by ``shard_bank``, AVA and frame-level
   (Charades), dropout and window draws on: everything must be bitwise equal.
@@ -41,6 +44,7 @@ from lfb_tpu_torch.train import optimizer as opt
 from lfb_tpu_torch.train.precise_bn import compute_precise_bn_stats
 from lfb_tpu_torch.train.steps import (make_eval_step, make_train_step,
                                        split_params)
+from tests import padding_rows
 
 LRS = (0.01, 0.02)
 
@@ -57,28 +61,33 @@ def numpy(d):
 def run_steps(spec, solver, params, batch, bank=None, seeds=(0, 1)):
     """``make_train_step`` from ``params`` over the rank's shard of
     ``batch`` once per seed (the steps' LRs :data:`LRS`): (losses, probs,
-    trainable, momentum)."""
+    trainable, momentum, the prob the rank's padding rows should read at
+    each step)."""
     train, frozen = split_params(spec, copy.deepcopy(params))
     state = opt.init_state({**train, **frozen}, set(frozen))
     step = make_train_step(spec, solver, bank=bank)
     local = tensors(mesh.shard_batch(batch, mesh.rank(), mesh.world_size()))
-    losses, probs = [], []
+    losses, probs, padding = [], [], []
     for seed, lr in zip(seeds, LRS):
         gen = torch.Generator().manual_seed(mesh.step_seed(seed))
-        train, frozen, state, aux = step(train, frozen, state, local, gen, lr)
+        with padding_rows.classifier_inputs() as seen:
+            train, frozen, state, aux = step(train, frozen, state, local,
+                                             gen, lr)
         losses.append(aux['loss'].item())
         probs.append(aux['prob'].numpy().copy())
-    return losses, probs, train, state.momentum
+        padding.append(padding_rows.padding_prob(seen[0],
+                                                 spec.fbo.latent_dim))
+    return losses, probs, train, state.momentum, padding
 
 
 def case_train(inp):
     cfg = flagship_cfg(inp['cfg'])
     spec = build_spec(cfg, 'train')
     params = params_from_jax(inp['params'], device='cpu')
-    losses, probs, train, momentum = run_steps(spec, cfg.SOLVER, params,
-                                               inp['batch'])
+    losses, probs, train, momentum, padding = run_steps(
+        spec, cfg.SOLVER, params, inp['batch'])
     return {'losses': losses, 'probs': probs, 'params': numpy(train),
-            'momentum': numpy(momentum)}
+            'momentum': numpy(momentum), 'padding': padding}
 
 
 def case_eval(inp):
@@ -87,11 +96,14 @@ def case_eval(inp):
     params = params_from_jax(inp['eval_params'], device='cpu')
     local = tensors(mesh.shard_batch(inp['eval_batch'], mesh.rank(),
                                      mesh.world_size()))
-    out = make_eval_step(spec)(params, {k: v for k, v in local.items()
-                                        if k != 'labels'})
-    with_loss = make_eval_step(spec, with_loss=True)(params, local)
+    with padding_rows.classifier_inputs() as seen:
+        out = make_eval_step(spec)(params, {k: v for k, v in local.items()
+                                            if k != 'labels'})
+        with_loss = make_eval_step(spec, with_loss=True)(params, local)
     return {'out': numpy(out), 'loss': with_loss['loss'].item(),
-            'prob_with_loss': with_loss['prob'].numpy().copy()}
+            'prob_with_loss': with_loss['prob'].numpy().copy(),
+            'padding': [padding_rows.padding_prob(r, spec.fbo.latent_dim)
+                        for r in seen]}
 
 
 def bank_pair(make, spec, solver, params, batch):
@@ -106,8 +118,8 @@ def bank_pair(make, spec, solver, params, batch):
             assert shard_bank(bank) is bank
             assert shard_bank(bank.inner) is bank and bank.inner.feats is None
             assert bank.feats.shape[0] == -(-rows // mesh.world_size())
-        losses, probs, train, momentum = run_steps(spec, solver, params,
-                                                   batch, bank=bank)
+        losses, probs, train, momentum, _ = run_steps(spec, solver, params,
+                                                      batch, bank=bank)
         local = tensors(mesh.shard_batch(batch, mesh.rank(),
                                          mesh.world_size()))
         ev = make_eval_step(spec, bank=bank, bank_seed=7)(
