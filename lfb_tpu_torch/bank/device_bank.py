@@ -19,6 +19,11 @@ are ``lfb_tpu``'s, so both packages gather the same rows from the same host
 bank.  :func:`shard_bank` row-shards a bank's feature table over the ranks
 of the process group (``TPU.BANK_SHARDED``).  ``_BoundFeatsBank`` (a jit
 workaround) is not ported.
+
+Each bank's ``choose_rows`` is the span ``lfb.bank.choose`` under a
+profiler (inside a step's ``lfb.bank.gather``) and adds to the counter
+``bank.scanned`` the index-table entries it scans, from the shapes alone:
+N x M for a frame bank of M columns, N x W x K_store for AVA.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from lfb_tpu_torch.parallel import mesh
+from lfb_tpu_torch.utils.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -115,28 +121,32 @@ class AvaDeviceBank:
         ids.  Per second, min(count, K) distinct features are drawn
         uniformly into the leading slots; the other slots point at the zero
         row (host ``sample_lfb_window`` semantics)."""
-        W, K = self.window_size, self.k
-        dev = self.table.device
-        k_store = self.table.shape[-1]
-        N = video_idx.shape[0]
+        with span('lfb.bank.choose'):
+            W, K = self.window_size, self.k
+            dev = self.table.device
+            k_store = self.table.shape[-1]
+            N = video_idx.shape[0]
+            count('bank.scanned', N * W * k_store)
 
-        lower = sec.to(dev).long() - W // 2 - AVA_SEC_BASE
-        sec_idx = lower[:, None] + torch.arange(W, device=dev)
-        in_range = (sec_idx >= 0) & (sec_idx < AVA_NUM_SECS)
-        sec_c = sec_idx.clamp(0, AVA_NUM_SECS - 1)
-        vid = video_idx.to(dev).long()[:, None]
-        counts = torch.where(in_range, self.counts[vid, sec_c], 0)    # (N, W)
-        slots = self.table[vid, sec_c]                                # (N, W, Ks)
+            lower = sec.to(dev).long() - W // 2 - AVA_SEC_BASE
+            sec_idx = lower[:, None] + torch.arange(W, device=dev)
+            in_range = (sec_idx >= 0) & (sec_idx < AVA_NUM_SECS)
+            sec_c = sec_idx.clamp(0, AVA_NUM_SECS - 1)
+            vid = video_idx.to(dev).long()[:, None]
+            # (N, W) counts, (N, W, Ks) slots
+            counts = torch.where(in_range, self.counts[vid, sec_c], 0)
+            slots = self.table[vid, sec_c]
 
-        # Random distinct slots: sort uniforms, invalid slots pushed last.
-        u = torch.rand((N, W, k_store), generator=generator, device=dev)
-        u = u + (torch.arange(k_store, device=dev) >= counts[..., None]) * 10.0
-        order = torch.argsort(u, dim=-1)[..., :K]
-        chosen = torch.take_along_dim(slots, order, dim=-1)
-        valid = (torch.arange(K, device=dev)
-                 < torch.clamp(counts, max=K)[..., None])
-        chosen = torch.where(valid, chosen, self.zero_idx)
-        return chosen.reshape(N, W * K)
+            # Random distinct slots: sort uniforms, invalid slots pushed last.
+            u = torch.rand((N, W, k_store), generator=generator, device=dev)
+            u = u + (torch.arange(k_store, device=dev)
+                     >= counts[..., None]) * 10.0
+            order = torch.argsort(u, dim=-1)[..., :K]
+            chosen = torch.take_along_dim(slots, order, dim=-1)
+            valid = (torch.arange(K, device=dev)
+                     < torch.clamp(counts, max=K)[..., None])
+            chosen = torch.where(valid, chosen, self.zero_idx)
+            return chosen.reshape(N, W * K)
 
     def gather(self, video_idx: torch.Tensor, sec: torch.Tensor,
                generator: torch.Generator) -> torch.Tensor:
@@ -306,18 +316,22 @@ class FrameDeviceBank:
         """(N,) video ids + inclusive [begin, end] frame windows -> (N, W)
         row ids: the first W bank entries inside the window, in frame order;
         the other slots point at the zero row."""
-        dev = self.frame_ids.device
-        vid = video_idx.to(dev).long()
-        fids = self.frame_ids[vid]                     # (N, M)
-        M = fids.shape[-1]
-        begin, end = begin.to(dev).long(), end.to(dev).long()
-        valid = (fids >= 0) & (fids >= begin[:, None]) & (fids <= end[:, None])
-        # Order-preserving selection of the first W valid entries.
-        key = torch.where(valid, torch.arange(M, device=dev), M + 1)
-        order = torch.argsort(key, dim=-1, stable=True)[:, :self.window_size]
-        chosen = torch.take_along_dim(self.rows[vid], order, dim=-1)
-        return torch.where(torch.take_along_dim(valid, order, dim=-1), chosen,
-                           self.zero_idx)
+        with span('lfb.bank.choose'):
+            dev = self.frame_ids.device
+            vid = video_idx.to(dev).long()
+            fids = self.frame_ids[vid]                     # (N, M)
+            M = fids.shape[-1]
+            count('bank.scanned', vid.shape[0] * M)
+            begin, end = begin.to(dev).long(), end.to(dev).long()
+            valid = ((fids >= 0) & (fids >= begin[:, None])
+                     & (fids <= end[:, None]))
+            # Order-preserving selection of the first W valid entries.
+            key = torch.where(valid, torch.arange(M, device=dev), M + 1)
+            order = torch.argsort(key, dim=-1,
+                                  stable=True)[:, :self.window_size]
+            chosen = torch.take_along_dim(self.rows[vid], order, dim=-1)
+            return torch.where(torch.take_along_dim(valid, order, dim=-1),
+                               chosen, self.zero_idx)
 
     def gather(self, video_idx: torch.Tensor, begin: torch.Tensor,
                end: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,9 @@ nothing here: every rank always runs the per-device body.
 
 Under a profiler each step is the span ``lfb.step.eval`` or
 ``lfb.step.train`` (:mod:`lfb_tpu_torch.utils.profiling`), with the bank
-gather (``lfb.bank.gather``) and, in training, the loss, the backward, the
-optimizer and the BN statistics' update as spans inside it.
+gather (``lfb.bank.gather``, the bank's row choice ``lfb.bank.choose``
+inside it) and, in training, the loss, the backward, the optimizer and the
+BN statistics' update as spans inside it.
 """
 
 from __future__ import annotations

@@ -10,7 +10,10 @@ the CPU, on a tiny AVA spec (R50, T 8, crop 32, a bank of 2 videos,
 * with no profiler the same steps open no profiler range, and the
   counters advance by the rows, tensors and regions the steps handle;
 * a ``PROF_DAG`` trace written by ``StepTrace`` holds the train steps'
-  spans.
+  spans;
+* an EPIC noun bank's row choice is ``lfb.bank.choose`` inside the step's
+  ``lfb.bank.gather``, counts the N x M table entries it scans, and gathers
+  the host sampler's rows.
 """
 
 import json
@@ -20,12 +23,15 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
-from lfb_tpu_torch.bank.device_bank import AVA_SEC_BASE, AvaDeviceBank  # noqa: E402
-from lfb_tpu_torch.config import flagship_cfg  # noqa: E402
+from lfb_tpu_torch.bank.device_bank import (AVA_SEC_BASE, AvaDeviceBank,  # noqa: E402
+                                            FrameDeviceBank)
+from lfb_tpu_torch.config import epic_noun_cfg, flagship_cfg  # noqa: E402
+from lfb_tpu_torch.data.epic import sample_noun_lfb  # noqa: E402
 from lfb_tpu_torch.models.model import init_params  # noqa: E402
 from lfb_tpu_torch.models.spec import build_spec  # noqa: E402
 from lfb_tpu_torch.train import optimizer as opt  # noqa: E402
-from lfb_tpu_torch.train.steps import (make_eval_step, make_train_step,  # noqa: E402
+from lfb_tpu_torch.train.steps import (_inject_device_bank_lfb,  # noqa: E402
+                                       make_eval_step, make_train_step,
                                        split_params)
 from lfb_tpu_torch.utils import profiling  # noqa: E402
 from tests.torch_threads import worker_threads  # noqa: E402,F401
@@ -83,7 +89,7 @@ def tiny():
         train_step(train, frozen, state, batch, generator, 0.01)
 
     return {'eval': run_eval, 'train': run_train, 'spec': spec,
-            'tensors': len(state.momentum)}
+            'tensors': len(state.momentum), 'bank': bank}
 
 
 def _events(prof, tmp_path):
@@ -112,6 +118,9 @@ def test_steps_emit_their_spans_nested_under_a_profiler(tiny, tmp_path):
     for name in MODEL:
         in_eval, in_train = _spans(events, name)
         assert _within(in_eval, step_eval) and _within(in_train, step_train)
+    for choose, gather in zip(_spans(events, 'lfb.bank.choose'),
+                              _spans(events, 'lfb.bank.gather'), strict=True):
+        assert _within(choose, gather)
     for name in TRAIN:
         (span,) = _spans(events, name)
         assert _within(span, step_train)
@@ -155,6 +164,8 @@ def test_steps_open_no_range_without_a_profiler_and_count(tiny,
     spec = tiny['spec']
     rows = CLIPS * BOXES
     window = rows * spec.fbo.num_lfb_feat
+    bank = tiny['bank']
+    scanned = rows * bank.window_size * bank.table.shape[-1]
     before = profiling.counts()
     tiny['eval']()
     eval_counts = profiling.counts()
@@ -166,11 +177,11 @@ def test_steps_open_no_range_without_a_profiler_and_count(tiny,
 
     assert grew(before, eval_counts) == {
         'bank.rows': window, 'bank.bytes': window * spec.fbo.lfb_dim * 4,
-        'fbo.rows': rows}
+        'bank.scanned': scanned, 'fbo.rows': rows}
     assert grew(eval_counts, after) == {
         'bank.rows': window, 'bank.bytes': window * spec.fbo.lfb_dim * 4,
-        'fbo.rows': rows, 'optimizer.tensors': tiny['tensors'],
-        'remat.regions': len(STAGES)}
+        'bank.scanned': scanned, 'fbo.rows': rows,
+        'optimizer.tensors': tiny['tensors'], 'remat.regions': len(STAGES)}
 
 
 def test_prof_dag_trace_holds_the_train_step_spans(tiny, tmp_path):
@@ -205,3 +216,47 @@ def test_backward_span_closes_when_the_backward_ends(tmp_path):
              and e['name'].startswith('autograd::engine')}
     assert _within(nodes['MmBackward0'], region)
     assert not _within(nodes['MulBackward0'], region)
+
+
+def test_noun_bank_choice_is_a_span_inside_the_gather(tmp_path):
+    """An EPIC noun device bank at the released window (120 rows, up to 10
+    boxes a detector frame, 1 detector frame a second at 30 fps) over
+    frames with 0 to 10 boxes: a step's gather opens ``lfb.bank.choose``
+    inside ``lfb.bank.gather``, ``bank.scanned`` grows by N x M, and the
+    windows are the host sampler's, bit for bit, with and without a
+    profiler."""
+    cfg = epic_noun_cfg({'TPU.REMAT': ''})
+    spec = build_spec(cfg, 'train')
+    window, dim = cfg.LFB.WINDOW_SIZE, 16
+    k = cfg.EPIC.MAX_NUM_FEATS_PER_NOUN_LFB_FRAME
+    rng = np.random.default_rng(3)
+    host = {v: {30 * (f + 1): rng.standard_normal((n, dim)).astype('f')
+                for f, n in enumerate(rng.integers(0, k + 1, 40))}
+            for v in range(2)}
+    host[1][60] = host[1][60][:0]           # an empty frame
+    host[1][90] = rng.standard_normal((k, dim)).astype('f')
+    bank = FrameDeviceBank.build_noun(
+        host, window_size=window, max_per_frame=k,
+        frames_per_second=cfg.EPIC.NOUN_LFB_FRAMES_PER_SECOND,
+        fps=cfg.EPIC.FPS, lfb_dim=dim, device='cpu')
+    video = torch.tensor([0, 1, 1, 0])
+    center = torch.tensor([0, 95, 650, 1210])
+    batch = {'lfb_video_idx': video, 'lfb_center': center}
+    before = profiling.counts().get('bank.scanned', 0)
+    plain = _inject_device_bank_lfb(spec, bank, batch, None)['lfb']
+    assert profiling.counts()['bank.scanned'] - before == (
+        video.numel() * bank.frame_ids.shape[1])
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced = _inject_device_bank_lfb(spec, bank, batch, None)['lfb']
+    events = _events(prof, tmp_path)
+    (choose,), (gather,) = (_spans(events, 'lfb.bank.choose'),
+                            _spans(events, 'lfb.bank.gather'))
+    assert _within(choose, gather)
+    assert torch.equal(traced, plain)
+    for v, c, rows in zip(video.tolist(), center.tolist(), plain.numpy()):
+        np.testing.assert_array_equal(rows, sample_noun_lfb(
+            host[v], c, window_size=window, max_per_frame=k,
+            frames_per_second=cfg.EPIC.NOUN_LFB_FRAMES_PER_SECOND,
+            fps=cfg.EPIC.FPS, lfb_dim=dim))
+    assert (plain.abs().sum(-1) > 0).sum() > window
